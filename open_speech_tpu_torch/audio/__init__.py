@@ -1,0 +1,1 @@
+"""audio of the PyTorch/CUDA port (counterpart of open_speech_tpu/audio)."""

@@ -1,0 +1,367 @@
+"""PyTorch Whisper STT backend, on the card unless asked for the CPU.
+
+Counterpart of ``open_speech_tpu/backends/jax_whisper.py``: the same
+protocol methods, model ids and aliases, checkpoint discovery, decode-budget
+rounding and response formats. Weights load from disk when a checkpoint
+directory exists (HF cache layout or STT_MODEL_DIR); otherwise the model
+initialises random weights from a generator seeded 0, with a warning.
+
+``device`` defaults to ``settings.stt_device`` (``cuda``). The backend never
+falls back to the CPU by itself: a CUDA device that is missing raises.
+Compute types: ``bfloat16`` (default), ``float16`` (runs as bf16, as in the
+JAX package) and ``float32``; ``int8`` is a later slice of the port.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import re
+import threading
+import time
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+
+from open_speech_tpu_torch.audio.ingest import TARGET_RATE, resample_unported
+from open_speech_tpu_torch.config import settings
+from open_speech_tpu_torch.models.whisper import PRESETS, get_tokenizer, init_params
+from open_speech_tpu_torch.models.whisper.convert import load_params
+from open_speech_tpu_torch.models.whisper.model import WhisperConfig
+from open_speech_tpu_torch.models.whisper.transcribe import (
+    TranscribeOptions,
+    build_response,
+    transcribe,
+)
+from open_speech_tpu_torch.ops import audio as codec
+from open_speech_tpu_torch.schemas import LoadedModelInfo
+
+logger = logging.getLogger(__name__)
+
+# reference CT2 repo id -> native preset name
+ALIASES: dict[str, str] = {
+    "Systran/faster-whisper-tiny": "tiny",
+    "Systran/faster-whisper-tiny.en": "tiny.en",
+    "Systran/faster-whisper-base": "base",
+    "Systran/faster-whisper-base.en": "base.en",
+    "Systran/faster-whisper-small": "small",
+    "Systran/faster-whisper-small.en": "small.en",
+    "Systran/faster-whisper-medium": "medium",
+    "Systran/faster-whisper-medium.en": "medium.en",
+    "Systran/faster-whisper-large-v2": "large-v2",
+    "Systran/faster-whisper-large-v3": "large-v3",
+    "deepdml/faster-whisper-large-v3-turbo-ct2": "large-v3-turbo",
+    "Systran/faster-distil-whisper-large-v3": "distil-large-v3",
+    # distil .en family: explicit, or the fuzzy tail-strip would map them
+    # onto the non-distil presets (wrong decoder depth)
+    "Systran/faster-distil-whisper-small.en": "distil-small.en",
+    "Systran/faster-distil-whisper-medium.en": "distil-medium.en",
+    "distil-whisper/distil-small.en": "distil-small.en",
+    "distil-whisper/distil-medium.en": "distil-medium.en",
+    "distil-whisper/distil-large-v3": "distil-large-v3",
+    "openai/whisper-large-v3-turbo": "large-v3-turbo",
+    "openai/whisper-large-v3": "large-v3",
+    # committed EOT-trained fixture: test-tiny geometry, weights that emit
+    # <|endoftext|> / <|nospeech|>
+    "test-tiny-eot": "test-tiny",
+}
+
+_DTYPES = {
+    "bfloat16": torch.bfloat16,
+    "float16": torch.bfloat16,  # bf16 stands in for fp16, as in the JAX package
+    "float32": torch.float32,
+}
+
+
+def resolve_preset(model_id: str) -> str | None:
+    """Map any accepted model id onto a preset name."""
+    if model_id in ALIASES:
+        return ALIASES[model_id]
+    name = model_id.removeprefix("whisper-")
+    if name in PRESETS:
+        return name
+    # fuzzy: strip org prefix / ct2 suffixes from arbitrary repo ids
+    tail = model_id.split("/")[-1].lower()
+    is_distil = "distil" in tail
+    tail = re.sub(r"^(faster-|distil-)?whisper-", "", tail)
+    tail = re.sub(r"(-ct2.*|-turbo-ct2.*)$", "", tail)
+    for candidate in (tail, tail.replace("_", "-")):
+        if is_distil and not candidate.startswith("distil-"):
+            # a distil repo id must never land on the full-depth preset
+            candidate = f"distil-{candidate}"
+        if candidate in PRESETS:
+            return candidate
+    return None
+
+
+class TorchWhisperBackend:
+    """STTBackend implementation on PyTorch (CUDA or CPU)."""
+
+    name = "torch-whisper"
+
+    def __init__(self, device: str | None = None, compute_type: str | None = None) -> None:
+        dev = torch.device(device or settings.stt_device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"STT device {str(dev)!r} asked for, but CUDA is not available; "
+                "pass device='cpu' to run on the CPU"
+            )
+        if dev.type not in ("cuda", "cpu"):
+            raise ValueError(f"unsupported STT device {str(dev)!r} (cuda or cpu)")
+        self._device = dev
+        self._compute_type = compute_type or settings.stt_compute_type
+        if self._compute_type == "int8":
+            raise NotImplementedError(
+                "STT_COMPUTE_TYPE=int8 (int8 linears, logits and cross-KV) is a "
+                "later slice of the PyTorch port (ROADMAP.md); use bfloat16 or float32"
+            )
+        if self._compute_type == "float32" and dev.type == "cuda":
+            # float32 means float32: cuBLAS matmuls and cuDNN convolutions
+            # would otherwise be allowed to round inputs to TF32
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            logger.info("float32 compute: TF32 disabled for matmuls and convolutions")
+        self._models: dict[str, dict[str, Any]] = {}  # id -> {model, cfg, tok}
+        self._last_used: dict[str, float] = {}
+        self._loaded_at: dict[str, float] = {}
+        self._load_lock = threading.Lock()
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def _dtype(self) -> torch.dtype:
+        return _DTYPES.get(self._compute_type, torch.bfloat16)
+
+    # ── weights ───────────────────────────────────────────────────────
+
+    def _weight_dirs(self, model_id: str) -> list[Path]:
+        roots: list[Path] = []
+        if settings.stt_model_dir:
+            roots.append(Path(settings.stt_model_dir).expanduser())
+        for env in ("HF_HUB_CACHE", "HUGGINGFACE_HUB_CACHE"):
+            if os.environ.get(env):
+                roots.append(Path(os.environ[env]).expanduser())
+        roots.append(Path.home() / ".cache" / "huggingface" / "hub")
+        dirs = []
+        for root in roots:
+            dirs.append(root / model_id)
+            safe = f"models--{model_id.replace('/', '--')}"
+            snap_root = root / safe / "snapshots"
+            if snap_root.is_dir():
+                dirs.extend(sorted(snap_root.iterdir(), reverse=True))
+        return dirs
+
+    def _find_checkpoint(self, model_id: str) -> Path | None:
+        for d in self._weight_dirs(model_id):
+            if d.is_dir() and any(
+                (d / f).exists()
+                for f in ("model.safetensors", "model.safetensors.index.json")
+            ):
+                return d
+            if d.is_dir() and any(p.suffix in (".pt", ".bin") for p in d.iterdir()):
+                return d
+        return None
+
+    # ── protocol: lifecycle ───────────────────────────────────────────
+
+    def load_model(self, model_id: str) -> None:
+        if model_id in self._models:
+            self._last_used[model_id] = time.time()
+            return
+        with self._load_lock:
+            # double-checked: concurrent loads must not replace the entry
+            if model_id in self._models:
+                self._last_used[model_id] = time.time()
+                return
+            self._load_model_locked(model_id)
+
+    def _load_model_locked(self, model_id: str) -> None:
+        preset = resolve_preset(model_id)
+        if preset is None:
+            raise ValueError(f"Unknown whisper model id: {model_id}")
+        cfg: WhisperConfig = PRESETS[preset]
+        ckpt = self._find_checkpoint(model_id)
+        t0 = time.time()
+        if ckpt is not None:
+            logger.info("Loading %s weights from %s", model_id, ckpt)
+            model, cfg = load_params(str(ckpt), cfg, self._dtype(), self._device)
+            tok = get_tokenizer(str(ckpt), n_vocab=cfg.n_vocab, n_langs=cfg.n_langs)
+        else:
+            logger.warning(
+                "No checkpoint on disk for %s — initializing random weights "
+                "(architecture/serving identical; WER meaningless)",
+                model_id,
+            )
+            gen = torch.Generator(device=self._device).manual_seed(0)
+            model = init_params(gen, cfg, self._dtype(), self._device)
+            tok = get_tokenizer(n_vocab=cfg.n_vocab, n_langs=cfg.n_langs)
+        self._models[model_id] = {"model": model, "cfg": cfg, "tok": tok}
+        now = time.time()
+        self._loaded_at[model_id] = now
+        self._last_used[model_id] = now
+        logger.info("Loaded %s (%s) in %.1fs", model_id, preset, now - t0)
+        if settings.os_precompile_on_load:
+            self._warmup(model_id)
+            # the TTL clock starts at readiness, not at weight load
+            self._last_used[model_id] = time.time()
+
+    def _warmup(self, model_id: str) -> None:
+        """Build the CUDA kernels and drive one beam-5 transcribe of 30 s of
+        silence through the public path, so the first request pays neither.
+
+        The JAX package precompiles a ladder of XLA programs here (decode
+        budgets, prompt-length buckets, mel rungs, streaming shapes). Eager
+        PyTorch compiles nothing per shape, so that ladder has no
+        counterpart: what is left is the nvcc build, CUDA and cuBLAS
+        start-up, and the allocator's first growth.
+        """
+        entry = self._models[model_id]
+        t0 = time.time()
+        if self._device.type == "cuda":
+            from open_speech_tpu_torch.kernels import build
+
+            build.build()
+        window_samples = entry["cfg"].n_audio_ctx * 2 * 160  # hop=160
+        wav = codec.write_wav(np.zeros(window_samples, np.float32), TARGET_RATE)
+        self._run_inference(
+            wav, model_id, language="en", beam_size=5, fallback=False,
+            _budget_override=max(_warmed_budgets(), default=224),
+        )
+        logger.info("STT warmup for %s done in %.1fs", model_id, time.time() - t0)
+
+    def unload_model(self, model_id: str) -> None:
+        if self._models.pop(model_id, None) is not None:
+            logger.info("Unloaded %s", model_id)
+        self._last_used.pop(model_id, None)
+        self._loaded_at.pop(model_id, None)
+
+    def loaded_models(self) -> list[LoadedModelInfo]:
+        ttl = settings.os_model_ttl
+        now = time.time()
+        out = []
+        for mid in list(self._models):  # snapshot: loads insert concurrently
+            last = self._last_used.get(mid)
+            out.append(
+                LoadedModelInfo(
+                    model=mid,
+                    backend=self.name,
+                    device=str(self._device),
+                    compute_type=self._compute_type,
+                    loaded_at=self._loaded_at.get(mid, 0.0),
+                    last_used_at=last,
+                    is_default=(mid == settings.stt_model),
+                    ttl_remaining=(
+                        max(0.0, ttl - (now - (last or now))) if ttl > 0 else None
+                    ),
+                )
+            )
+        return out
+
+    def is_model_loaded(self, model_id: str) -> bool:
+        return model_id in self._models
+
+    # ── protocol: inference ───────────────────────────────────────────
+
+    def _ensure_model(self, model_id: str) -> dict[str, Any]:
+        # get-then-load loop: an eviction between a membership test and the
+        # lookup must not turn a valid request into a KeyError
+        for _ in range(3):
+            entry = self._models.get(model_id)
+            if entry is not None:
+                self._last_used[model_id] = time.time()
+                return entry
+            self.load_model(model_id)
+        raise RuntimeError(f"model {model_id!r} kept being evicted during load")
+
+    def _run_inference(
+        self,
+        audio: bytes,
+        model_id: str,
+        task: str = "transcribe",
+        language: str | None = None,
+        response_format: str = "json",
+        temperature: float = 0.0,
+        prompt: str | None = None,
+        beam_size: int = 5,
+        fallback: bool = True,
+        _budget_override: int | None = None,
+    ) -> dict[str, Any]:
+        entry = self._ensure_model(model_id)
+        pcm, rate = codec.read_wav(audio) if codec.is_wav(audio) else (
+            codec.pcm16_to_float(audio),
+            TARGET_RATE,
+        )
+        if rate != TARGET_RATE:
+            raise resample_unported(rate)
+        temps: tuple[float, ...] = (
+            (temperature,)
+            if temperature > 0 or not fallback
+            else (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
+        )
+        # Decode budget scales with audio duration (whisper emits well under
+        # 12 tokens/s incl. timestamps), in multiples of 16, then rounded up
+        # to a warmed budget as the JAX package does (the decode stops at
+        # EOT, so a larger bound only matters for audio that never ends)
+        duration_s = len(pcm) / TARGET_RATE
+        budget = min(224, int(duration_s * 12) + 12)
+        budget = -(-budget // 16) * 16
+        covering = [w for w in _warmed_budgets() if w >= budget]
+        if covering:
+            budget = covering[0]
+        if _budget_override is not None:
+            budget = _budget_override
+        opts = TranscribeOptions(
+            task=task,
+            language=language if task == "transcribe" else None,
+            beam_size=beam_size,
+            temperature=temps,
+            initial_prompt=prompt,
+            max_new_tokens=budget,
+            compression_ratio_threshold=2.4 if fallback else None,
+            logprob_threshold=-1.0 if fallback else None,
+        )
+        segments, info = transcribe(
+            entry["model"], entry["cfg"], entry["tok"], pcm, opts
+        )
+        return build_response(segments, info, task, response_format)
+
+    def transcribe(
+        self,
+        audio: bytes,
+        model: str,
+        language: str | None = None,
+        response_format: str = "json",
+        temperature: float = 0.0,
+        prompt: str | None = None,
+        beam_size: int = 5,
+        fallback: bool = True,
+    ) -> dict[str, Any]:
+        return self._run_inference(
+            audio, model, task="transcribe", language=language,
+            response_format=response_format, temperature=temperature,
+            prompt=prompt, beam_size=beam_size, fallback=fallback,
+        )
+
+    def translate(
+        self,
+        audio: bytes,
+        model: str,
+        response_format: str = "json",
+        temperature: float = 0.0,
+        prompt: str | None = None,
+    ) -> dict[str, Any]:
+        return self._run_inference(
+            audio, model, task="translate", response_format=response_format,
+            temperature=temperature, prompt=prompt,
+        )
+
+
+def _warmed_budgets() -> list[int]:
+    return sorted(
+        int(b)
+        for b in str(settings.os_stt_precompile_budgets).split(",")
+        if b.strip().isdigit()
+    )

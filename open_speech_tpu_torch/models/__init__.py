@@ -1,0 +1,1 @@
+"""models of the PyTorch/CUDA port (counterpart of open_speech_tpu/models)."""

@@ -1,0 +1,154 @@
+"""Host-side PCM/WAV codecs (numpy only).
+
+Copy of the WAV and PCM16 parts of ``open_speech_tpu/ops/audio.py``,
+without the optional native-library path: the bytes in and out are the
+same.
+"""
+
+from __future__ import annotations
+
+import struct
+from dataclasses import dataclass
+
+import numpy as np
+
+
+def float_to_pcm16(audio: np.ndarray) -> bytes:
+    """float32 [-1, 1] -> little-endian int16 bytes (clipped)."""
+    clipped = np.clip(np.asarray(audio, dtype=np.float32), -1.0, 1.0)
+    return (clipped * 32767.0).astype("<i2").tobytes()
+
+
+def pcm16_to_float(data: bytes | np.ndarray) -> np.ndarray:
+    """little-endian int16 bytes (or int16 array) -> float32 in [-1, 1]."""
+    if isinstance(data, np.ndarray):
+        ints = data.astype(np.int16)
+    else:
+        ints = np.frombuffer(data, dtype="<i2")
+    return ints.astype(np.float32) / 32768.0
+
+
+@dataclass
+class WavInfo:
+    sample_rate: int
+    channels: int
+    bits_per_sample: int
+    audio_format: int  # 1 = PCM, 3 = IEEE float
+    data_offset: int
+    data_size: int
+
+
+def wav_header(
+    data_size: int, sample_rate: int, channels: int = 1, bits: int = 16
+) -> bytes:
+    """44-byte canonical RIFF/WAVE header for PCM data of ``data_size`` bytes."""
+    byte_rate = sample_rate * channels * bits // 8
+    block_align = channels * bits // 8
+    return b"".join(
+        [
+            b"RIFF",
+            struct.pack("<I", 36 + data_size),
+            b"WAVE",
+            b"fmt ",
+            struct.pack(
+                "<IHHIIHH", 16, 1, channels, sample_rate, byte_rate, block_align, bits
+            ),
+            b"data",
+            struct.pack("<I", data_size),
+        ]
+    )
+
+
+def write_wav(audio: np.ndarray, sample_rate: int, channels: int = 1) -> bytes:
+    """float32 [-1,1] mono (or [n, ch]) -> complete 16-bit PCM WAV bytes."""
+    audio = np.asarray(audio, dtype=np.float32)
+    if audio.ndim == 2:
+        channels = audio.shape[1]
+        audio = audio.reshape(-1)
+    pcm = float_to_pcm16(audio)
+    return wav_header(len(pcm), sample_rate, channels) + pcm
+
+
+def is_wav(data: bytes) -> bool:
+    return len(data) >= 12 and data[:4] == b"RIFF" and data[8:12] == b"WAVE"
+
+
+def parse_wav_header(data: bytes) -> WavInfo:
+    """Walk RIFF chunks to locate fmt/data; tolerant of extra chunks (LIST etc.)."""
+    if not is_wav(data):
+        raise ValueError("not a RIFF/WAVE file")
+    pos = 12
+    fmt: tuple[int, int, int, int] | None = None  # format, channels, rate, bits
+    data_offset = data_size = -1
+    n = len(data)
+    while pos + 8 <= n:
+        chunk_id = data[pos : pos + 4]
+        (chunk_size,) = struct.unpack_from("<I", data, pos + 4)
+        body = pos + 8
+        if chunk_id == b"fmt " and body + 16 <= n:
+            audio_format, channels, rate, _br, _ba, bits = struct.unpack_from(
+                "<HHIIHH", data, body
+            )
+            # WAVE_FORMAT_EXTENSIBLE: the sub-format sits at body+24; a
+            # truncated upload may claim 40 bytes it does not carry
+            if audio_format == 0xFFFE and chunk_size >= 40 and body + 26 <= n:
+                (sub,) = struct.unpack_from("<H", data, body + 24)
+                audio_format = sub
+            fmt = (audio_format, channels, rate, bits)
+        elif chunk_id == b"data":
+            data_offset = body
+            data_size = min(chunk_size, n - body)
+            if fmt is not None:
+                break
+        pos = body + chunk_size + (chunk_size & 1)  # chunks are word-aligned
+    if fmt is None or data_offset < 0:
+        raise ValueError("WAV missing fmt/data chunk")
+    audio_format, channels, rate, bits = fmt
+    return WavInfo(rate, channels, bits, audio_format, data_offset, data_size)
+
+
+def read_wav(data: bytes) -> tuple[np.ndarray, int]:
+    """WAV bytes -> (float32 mono [-1,1], sample_rate).
+
+    Supports PCM 8/16/24/32-bit and IEEE float32/64; multichannel is averaged
+    to mono.
+    """
+    info = parse_wav_header(data)
+    raw = data[info.data_offset : info.data_offset + info.data_size]
+    # a cut-short stream may leave a partial trailing sample: decode the
+    # usable prefix
+    elem = max(1, info.bits_per_sample // 8)
+    raw = raw[: len(raw) - len(raw) % elem]
+    bits, fmt = info.bits_per_sample, info.audio_format
+    if fmt == 1:  # integer PCM
+        if bits == 16:
+            audio = np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0
+        elif bits == 8:  # unsigned
+            audio = (
+                np.frombuffer(raw, dtype=np.uint8).astype(np.float32) - 128.0
+            ) / 128.0
+        elif bits == 24:
+            b = np.frombuffer(raw[: len(raw) - len(raw) % 3], dtype=np.uint8)
+            b = b.reshape(-1, 3)
+            ints = (
+                b[:, 0].astype(np.int32)
+                | (b[:, 1].astype(np.int32) << 8)
+                | (b[:, 2].astype(np.int32) << 16)
+            )
+            ints = np.where(ints >= 1 << 23, ints - (1 << 24), ints)
+            audio = ints.astype(np.float32) / float(1 << 23)
+        elif bits == 32:
+            audio = np.frombuffer(raw, dtype="<i4").astype(np.float32) / float(
+                1 << 31
+            )
+        else:
+            raise ValueError(f"unsupported PCM bit depth: {bits}")
+    elif fmt == 3:  # IEEE float
+        dtype = "<f4" if bits == 32 else "<f8"
+        audio = np.frombuffer(raw, dtype=dtype).astype(np.float32)
+    else:
+        raise ValueError(f"unsupported WAV format tag: {fmt}")
+    if info.channels > 1:
+        usable = len(audio) - len(audio) % info.channels
+        audio = audio[:usable].reshape(-1, info.channels).mean(axis=1)
+    return np.ascontiguousarray(audio, dtype=np.float32), info.sample_rate

@@ -1,0 +1,1 @@
+"""runtime of the PyTorch/CUDA port (counterpart of open_speech_tpu/runtime)."""

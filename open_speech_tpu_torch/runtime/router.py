@@ -1,0 +1,138 @@
+"""STT backend router and the REST transcription handlers without HTTP.
+
+Counterpart of ``open_speech_tpu/runtime/router.py``: resolve a model id to
+a backend, fan listing calls across registered backends, pass inference
+through. The torch whisper backend is registered under its own name and
+the reference's ``faster-whisper`` provider name.
+
+``transcription_response`` / ``translation_response`` do what the JAX
+server's ``POST /v1/audio/transcriptions`` and ``/translations`` routes do
+with one upload once the multipart form is parsed (``server/app.py``):
+ingest, preprocessing, the router call, and the response shaping. The HTTP
+shell itself is a later slice of the port.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+from open_speech_tpu_torch.audio.ingest import convert_to_wav
+from open_speech_tpu_torch.audio.preprocessing import preprocess_stt_audio
+from open_speech_tpu_torch.backends.base import STTBackend
+from open_speech_tpu_torch.backends.torch_whisper import TorchWhisperBackend
+from open_speech_tpu_torch.config import settings
+from open_speech_tpu_torch.schemas import LoadedModelInfo
+from open_speech_tpu_torch.text.formatters import format_transcription
+
+
+class BackendRouter:
+    def __init__(self, device: str | None = None, compute_type: str | None = None) -> None:
+        whisper = TorchWhisperBackend(device=device, compute_type=compute_type)
+        # both provider names resolve to the same backend instance
+        self._backends: dict[str, STTBackend] = {
+            "torch-whisper": whisper,
+            "faster-whisper": whisper,
+        }
+        self._default_backend: STTBackend = whisper
+
+    def get_backend(self, model_id: str) -> STTBackend:
+        return self._default_backend
+
+    def _unique_backends(self):
+        seen: set[int] = set()
+        for backend in self._backends.values():
+            if id(backend) not in seen:
+                seen.add(id(backend))
+                yield backend
+
+    # ── lifecycle passthrough ─────────────────────────────────────────
+
+    def load_model(self, model_id: str) -> None:
+        self.get_backend(model_id).load_model(model_id)
+
+    def unload_model(self, model_id: str) -> None:
+        self.get_backend(model_id).unload_model(model_id)
+
+    def is_model_loaded(self, model_id: str) -> bool:
+        return self.get_backend(model_id).is_model_loaded(model_id)
+
+    def loaded_models(self) -> list[LoadedModelInfo]:
+        out: list[LoadedModelInfo] = []
+        for backend in self._unique_backends():
+            out.extend(backend.loaded_models())
+        return out
+
+    # ── inference passthrough ─────────────────────────────────────────
+
+    def transcribe(self, audio: bytes, model: str, **kwargs: Any) -> dict[str, Any]:
+        return self.get_backend(model).transcribe(audio, model, **kwargs)
+
+    def translate(self, audio: bytes, model: str, **kwargs: Any) -> dict[str, Any]:
+        return self.get_backend(model).translate(audio, model, **kwargs)
+
+
+def _prepare(audio_bytes: bytes, content_type: str | None) -> bytes:
+    if not audio_bytes:
+        raise ValueError("Empty audio file")
+    return preprocess_stt_audio(
+        convert_to_wav(audio_bytes, content_type), normalize=settings.stt_normalize
+    )
+
+
+def transcription_response(
+    router: BackendRouter,
+    audio_bytes: bytes,
+    *,
+    model: str | None = None,
+    language: str | None = None,
+    prompt: str | None = None,
+    response_format: str = "json",
+    temperature: float = 0.0,
+    content_type: str | None = None,
+) -> str | dict[str, Any]:
+    """The body of a transcription response: a dict for json/verbose_json,
+    the text for text/srt/vtt."""
+    backend_format = (
+        "verbose_json"
+        if response_format in ("srt", "vtt", "json", "verbose_json")
+        else response_format
+    )
+    result = router.transcribe(
+        audio=_prepare(audio_bytes, content_type),
+        model=model or settings.stt_model,
+        language=language,
+        response_format=backend_format,
+        temperature=temperature,
+        prompt=prompt,
+        beam_size=settings.stt_rest_beam_size,
+    )
+    if response_format == "json" and "text" in result:
+        result = {"text": result["text"]}  # OpenAI json shape
+    if response_format in ("text", "srt", "vtt"):
+        return format_transcription(result, response_format)[0]
+    if result.get("raw_text"):
+        return result["text"]
+    return result
+
+
+def translation_response(
+    router: BackendRouter,
+    audio_bytes: bytes,
+    *,
+    model: str | None = None,
+    prompt: str | None = None,
+    response_format: str = "json",
+    temperature: float = 0.0,
+    content_type: str | None = None,
+) -> str | dict[str, Any]:
+    """The body of a translation response (English text in any format)."""
+    result = router.translate(
+        audio=_prepare(audio_bytes, content_type),
+        model=model or settings.stt_model,
+        response_format=response_format,
+        temperature=temperature,
+        prompt=prompt,
+    )
+    if result.get("raw_text"):
+        return result["text"]
+    return result

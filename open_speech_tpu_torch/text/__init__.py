@@ -1,0 +1,1 @@
+"""text of the PyTorch/CUDA port (counterpart of open_speech_tpu/text)."""
