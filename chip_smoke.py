@@ -8,15 +8,24 @@ Phases, each of which raises on failure (exit code 1, no result line):
   1. device: CUDA with capability (9, 0); prints the card's name and power
      limit as nvidia-smi reports them.
   2. build: compiles the port's CUDA kernels from ``kernels/csrc`` with nvcc.
-  3. kernels: each kernel against its plain PyTorch version on the card, at
-     the shapes the served path gives it, in bf16 and f32; times at the
-     whisper encoder shape (kernel, plain version, the PyTorch library call
-     as a yardstick, and the card's lower bound for the same work).
-  4. main path: whisper-large-v3-turbo (random weights from seed 0, bf16)
+  3. kernels: each kernel (K1 flash attention, K2 length-masked flash
+     attention) against its plain PyTorch version on the card, at the shapes
+     the served paths give it, in bf16 and f32; times at the whisper encoder
+     shape and the streaming block shape (kernel, plain version, the PyTorch
+     library call as a yardstick, and the card's lower bound for the same
+     work).
+  4. REST path: whisper-large-v3-turbo (random weights from seed 0, bf16)
      through the port's router with the REST defaults (beam 5, temperature
-     fallback), at full width; counts kernel launches per request.
-  5. fixture: the trained tiny checkpoint ``tests/fixtures/test-tiny-eot``
-     in float32 on the card against the CPU; tokens must be equal.
+     fallback), at full width; counts K1 launches per request.
+  5. streaming path: the same loaded model behind two ``/v1/audio/stream``
+     sessions (``server/streaming.py:streaming_endpoint``, an in-process
+     client socket): S1 29 s of 16 kHz PCM16 paced in real time, language
+     auto-detect, VAD off, interims on; S2 6 s of 8 kHz mu-law with the VAD
+     on. Counts K2 launches against the encoder's block encodes and fails if
+     the incremental path fell back to the executor.
+  6. fixture: the trained tiny checkpoint ``tests/fixtures/test-tiny-eot``
+     in float32 on the card against the CPU; REST tokens and streaming
+     session events must be equal.
 
 The last two lines of standard output are the kernels' JSON line and the
 result line ``{"ok": true, "device": {...}}``.
@@ -24,6 +33,7 @@ result line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import asyncio
 import json
 import subprocess
 import sys
@@ -106,21 +116,48 @@ FLASH_SHAPES = [
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 
 
-def _flash_bound_ms(b, h, t_q, t_k, d, causal, itemsize) -> tuple[float, str]:
+def _limit(name: str, ref) -> float:
+    """Largest max-abs error a kernel may show against its plain version:
+    bf16 relative to the output's own scale (2e-2 of max|ref|, so a dropped
+    kv tile or a mis-scaled row fails even where outputs are small), f32
+    absolute (it differs only in summation order)."""
+    if name == "bfloat16":
+        return TOL[name] * ref.abs().max().item()
+    return TOL[name]
+
+
+# K2, (B, H, Tq, Tk, D, causal, kv lengths): the streaming block against
+# the 1500-position caches at four lengths, length 0 beside a ragged one
+# (non-causal and causal), the test-tiny block
+VARLEN_SHAPES = [
+    (1, 20, 128, 1500, 64, False, (128,)),
+    (1, 20, 128, 1500, 64, False, (256,)),
+    (1, 20, 128, 1500, 64, False, (700,)),
+    (1, 20, 128, 1500, 64, False, (1500,)),
+    (2, 4, 37, 100, 64, False, (0, 53)),
+    (2, 4, 37, 100, 64, True, (0, 53)),
+    (1, 2, 60, 60, 32, False, (17,)),
+]
+
+
+def _flash_bound_ms(b, h, t_q, t_k, d, causal, itemsize, lengths=None) -> tuple[float, str]:
     """Least time for the call: visible (q, k) pairs at the peak rate for
-    the dtype vs each input read once and the output written once."""
-    if causal:
-        visible = sum(min(max(i + t_k - t_q + 1, 0), t_k) for i in range(t_q))
-    else:
-        visible = t_q * t_k
-    flops = 4 * b * h * visible * d
+    the dtype vs each input read once and the output written once. With
+    ``lengths`` (K2) only each example's valid kv prefix is read and seen."""
+    flops = nbytes = 0
+    for n in lengths if lengths is not None else [t_k] * b:
+        if causal:
+            visible = sum(min(max(i + t_k - t_q + 1, 0), t_k, n) for i in range(t_q))
+        else:
+            visible = t_q * n
+        flops += 4 * h * visible * d
+        nbytes += h * (2 * t_q + 2 * n) * d * itemsize + (4 if lengths is not None else 0)
     peak = H100_BF16_FLOPS if itemsize == 2 else H100_F32_FLOPS
-    nbytes = b * h * (2 * t_q + 2 * t_k) * d * itemsize
     t_ops, t_bytes = flops / peak, nbytes / H100_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_kernels() -> dict:
+def phase_kernels() -> list[dict]:
     import torch
     import torch.nn.functional as F
 
@@ -139,10 +176,11 @@ def phase_kernels() -> dict:
                 q.float(), k.float(), v.float(), causal=causal
             )
             err = (out.float() - ref).abs().max().item()
-            if not (out.shape == q.shape and out.dtype == dtype and err <= TOL[name]):
+            limit = _limit(name, ref)
+            if not (out.shape == q.shape and out.dtype == dtype and err <= limit):
                 raise AssertionError(
                     f"flash_attention {name} [{b},{h},{t_q},{t_k},{d}] causal={causal}: "
-                    f"max_abs_err {err:.3e} > {TOL[name]:.0e}"
+                    f"max_abs_err {err:.3e} > {limit:.3e}"
                 )
             if t_q > t_k and causal:  # rows left of the first key are zeros
                 n_zero = t_q - t_k
@@ -150,7 +188,7 @@ def phase_kernels() -> dict:
                     raise AssertionError("flash_attention: zero-key rows are not zero")
             worst = max(worst, err)
             log(f"flash_attention {name:8s} [{b},{h},{t_q},{t_k},{d}] causal={int(causal)} "
-                f"max_abs_err {err:.3e} (tol {TOL[name]:.0e})")
+                f"max_abs_err {err:.3e} (tol {limit:.3e})")
 
     # times at the encoder shape, bf16 (the served path)
     b, h, t, d = 1, 20, 1500, 64
@@ -162,11 +200,77 @@ def phase_kernels() -> dict:
     bound_ms, bound_by = _flash_bound_ms(b, h, t, t, d, False, 2)
     log(f"flash_attention bf16 [1,20,1500,64]: kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} "
         f"library_ms {library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})")
-    return {
+    k1 = {
         "name": "flash_attention",
         "route": "cuda",
         "source": "open_speech_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "open_speech_tpu/ops/attention.py:256",
+        "launches": 0,
+        "max_abs_err": worst,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
+    return [k1, _phase_kernels_varlen(gen)]
+
+
+def _phase_kernels_varlen(gen) -> dict:
+    """K2 against its plain version, then its times at the streaming block."""
+    import torch
+    import torch.nn.functional as F
+
+    from open_speech_tpu_torch.ops import attention as A
+
+    worst = 0.0
+    for b, h, t_q, t_k, d, causal, lens in VARLEN_SHAPES:
+        kv_length = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            q = torch.randn(b, h, t_q, d, generator=gen, device="cuda").to(dtype)
+            k = torch.randn(b, h, t_k, d, generator=gen, device="cuda").to(dtype)
+            v = torch.randn(b, h, t_k, d, generator=gen, device="cuda").to(dtype)
+            out = A.flash_attention(q, k, v, causal=causal, kv_length=kv_length)
+            torch.cuda.synchronize()
+            ref = A.flash_attention_varlen_reference(
+                q.float(), k.float(), v.float(), kv_length, causal=causal
+            )
+            err = (out.float() - ref).abs().max().item()
+            tag = f"flash_attention_varlen {name} [{b},{h},{t_q},{t_k},{d}] causal={int(causal)} lens={list(lens)}"
+            limit = _limit(name, ref)
+            if not (out.shape == q.shape and out.dtype == dtype and err <= limit):
+                raise AssertionError(f"{tag}: max_abs_err {err:.3e} > {limit:.3e}")
+            for i, n in enumerate(lens):
+                if n == 0 and out[i].abs().max().item() != 0.0:
+                    raise AssertionError(f"{tag}: the length-0 example is not zero")
+            worst = max(worst, err)
+            log(f"{tag} max_abs_err {err:.3e} (tol {limit:.3e})")
+
+    # times at the streaming block shape, bf16 (the served path), at the
+    # length of an early block and of the full window
+    b, h, t_q, t_k, d = 1, 20, 128, 1500, 64
+    q = torch.randn(b, h, t_q, d, generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(b, h, t_k, d, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    times = {}
+    for n in (256, 1500):
+        lens = torch.tensor([n], dtype=torch.int32, device="cuda")
+        kp, vp = k[:, :, :n], v[:, :, :n]
+        times[n] = (
+            cuda_ms(lambda: A.flash_attention(q, k, v, kv_length=lens)),
+            cuda_ms(lambda: A.flash_attention_varlen_reference(q, k, v, lens), iters=10),
+            cuda_ms(lambda: F.scaled_dot_product_attention(q, kp, vp)),
+            *_flash_bound_ms(b, h, t_q, t_k, d, False, 2, [n]),
+        )
+        log(f"flash_attention_varlen bf16 [1,20,128,1500,64] length {n}: kernel_ms {times[n][0]:.4f} "
+            f"plain_ms {times[n][1]:.4f} library_ms {times[n][2]:.4f} "
+            f"bound_ms {times[n][3]:.4f} ({times[n][4]})")
+    kernel_ms, plain_ms, library_ms, bound_ms, bound_by = times[1500]
+    return {
+        "name": "flash_attention_varlen",
+        "route": "cuda",
+        "source": "open_speech_tpu_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "open_speech_tpu/ops/attention.py:271",
         "launches": 0,
         "max_abs_err": worst,
         "ms": kernel_ms,
@@ -186,13 +290,14 @@ def main() -> int:
         return 1
     device = phase_device()
     phase_build()
-    kernels = [phase_kernels()]
-    launches = phase_main()
+    kernels = phase_kernels()
+    launches, router = phase_main()
+    launches.update(phase_streaming(router))
     phase_fixture()
-    for entry in kernels:
+    for entry in kernels:  # K1 from the REST path, K2 from the streaming path
         entry["launches"] = launches.get(entry["name"], 0)
         if entry["launches"] == 0:
-            raise AssertionError(f"{entry['name']} was not launched on the main path")
+            raise AssertionError(f"{entry['name']} was not launched on its path")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"], "count": device["count"]}}))
@@ -246,7 +351,7 @@ class _EncodeCounter:
         self.mod.encode = self.real
 
 
-def phase_main() -> dict:
+def phase_main() -> tuple[dict, object]:
     import math
 
     import torch
@@ -310,10 +415,308 @@ def phase_main() -> dict:
             log(f"main {name}: {len(body['segments'])} segment(s), language {body['language']}")
         elif not isinstance(body, str):
             raise AssertionError(f"{name}: srt body {type(body)}")
-    return total
+    return total, router
 
 
-# ── phase 5: the trained fixture, card against CPU ───────────────────────
+# ── phase 5: the streaming path at full width ───────────────────────────
+
+STREAM_SECONDS = 29.0  # > 28.2 s: the commits pass n_audio_ctx - 128, so the
+#                        last interims run the clamped last block
+TELEPHONY_SECONDS = 6.0
+FRAME_S = 0.1  # the client's frame: 100 ms, one session chunk
+
+
+class _WordTokenizer:
+    """A synthetic vocabulary for random weights: text token i reads as the
+    word "t<i>". Without vocab files the fallback tokenizer prints only byte
+    tokens (< 256), which random weights almost never pick, so every
+    transcript would be empty and a session would emit no transcript event.
+    Token ids, and so every decode, are unchanged."""
+
+    non_speech_tokens: list[int] = []
+
+    def __init__(self, tok) -> None:
+        self.special, self.n_vocab = tok.special, tok.n_vocab
+
+    def encode(self, text: str) -> list[int]:
+        return [int(w[1:]) for w in text.split() if w[:1] == "t" and w[1:].isdigit()]
+
+    def decode(self, ids) -> str:
+        return "".join(f" t{i}" for i in ids if i < self.special.eot)
+
+
+class _ClientWS:
+    """The client's side of a ``/v1/audio/stream`` socket, in process.
+
+    Yields BINARY ``frames`` then a stop message. ``pace`` sends each frame
+    at its real-time offset; ``sync`` instead holds each message until the
+    session's interim in flight has finished. Records every server event
+    with its arrival time.
+    """
+
+    def __init__(self, frames, *, pace: bool, sync: bool = False, on_frame=None) -> None:
+        self.frames, self.pace, self.sync, self.on_frame = frames, pace, sync, on_frame
+        self.events: list[tuple[float, dict]] = []
+        self.session = None
+        self.stop_at = None
+        self.error = None  # the session swallows what its socket raises
+
+    async def send_str(self, text: str) -> None:
+        self.events.append((time.perf_counter(), json.loads(text)))
+
+    async def close(self, **kw) -> None:
+        raise AssertionError(f"the endpoint refused the session: {kw}")
+
+    def __aiter__(self):
+        return self._messages()
+
+    async def _messages(self):
+        from open_speech_tpu_torch.server import streaming as S
+
+        (self.session,) = S._active_sessions.values()
+        t0 = time.perf_counter()
+        for i, frame in enumerate(self.frames):
+            if self.pace:
+                await asyncio.sleep(max(0.0, t0 + i * FRAME_S - time.perf_counter()))
+            if self.sync and self.session._interim_task is not None:
+                await asyncio.wait([self.session._interim_task])
+            if self.on_frame is not None:
+                try:
+                    self.on_frame(i, self.session)
+                except Exception as e:
+                    self.error = e
+                    raise
+            yield S.Message(S.MsgType.BINARY, frame)
+        self.stop_at = time.perf_counter()
+        yield S.Message(S.MsgType.TEXT, json.dumps({"type": "stop"}))
+
+    def of_type(self, kind: str) -> list[dict]:
+        return [e for _, e in self.events if e["type"] == kind]
+
+
+def _check_session_bounds(name: str, ws: _ClientWS) -> None:
+    if ws.error is not None:
+        raise AssertionError(f"{name}: the client side failed") from ws.error
+    kinds = [e["type"] for _, e in ws.events]
+    if not kinds or kinds[0] != "session.begin" or kinds[-1] != "session.end":
+        raise AssertionError(f"{name}: events {kinds[:3]} ... {kinds[-3:]}")
+    if ws.events[-1][1]["errors"] != 0 or ws.of_type("error"):
+        raise AssertionError(f"{name}: errors {ws.of_type('error')} / {ws.events[-1][1]}")
+
+
+def phase_streaming(router) -> dict:
+    backend = router.get_backend(MAIN_MODEL)
+    entry = backend._ensure_model(MAIN_MODEL)
+    real_tok = entry["tok"]
+    entry["tok"] = _WordTokenizer(real_tok)
+    executor_calls = []
+    real_transcribe = router.transcribe
+    router.transcribe = lambda **kw: executor_calls.append(kw) or real_transcribe(**kw)
+    try:
+        s1 = _stream_s1(router, entry, executor_calls)
+        s2 = _stream_s2(router)
+    finally:
+        entry["tok"] = real_tok
+        router.transcribe = real_transcribe
+    return {"flash_attention_varlen": s1 + s2}
+
+
+def _stream_s1(router, entry: dict, executor_calls: list) -> int:
+    """29 s of 16 kHz PCM16, paced; auto-detect, VAD off, interims on."""
+    import torch
+
+    from open_speech_tpu_torch.models.whisper import streaming as St
+    from open_speech_tpu_torch.ops import attention as A
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.server.streaming import streaming_endpoint
+
+    cfg = entry["cfg"]
+    pcm = codec.float_to_pcm16(_speechlike(STREAM_SECONDS, 4))
+    step = int(SR * FRAME_S) * 2
+    frames = [pcm[i : i + step] for i in range(0, len(pcm), step)]
+    newest_chunk, turnaround, passes = {"t": 0.0}, [], []
+
+    def on_frame(i: int, session) -> None:
+        if i:
+            return
+        # time each interim pass from the newest chunk it covers to its end,
+        # and to its transcript event when it sends one
+        schedule, transcribe = session._schedule_interim, session._transcribe_utterance
+
+        def timed_schedule():
+            newest_chunk["t"] = time.perf_counter()
+            schedule()
+
+        async def timed_transcribe():
+            t_chunk, n = newest_chunk["t"], len(ws.events)
+            await transcribe()
+            passes.append(time.perf_counter() - t_chunk)
+            turnaround.extend(
+                [t - t_chunk for t, e in ws.events[n:] if e["type"] == "transcript"][:1]
+            )
+
+        session._schedule_interim, session._transcribe_utterance = timed_schedule, timed_transcribe
+
+    # K2's device time: CUDA events around each launch (on the launching
+    # thread's stream; they add no sync)
+    k2_events, flash = [], St.flash_attention
+
+    def timed_flash(q, k, v, **kw):
+        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev[0].record()
+        out = flash(q, k, v, **kw)
+        ev[1].record()
+        k2_events.append(ev)
+        return out
+
+    # the most committed positions an interim or the final started from:
+    # past n_audio_ctx - block_pos, its tail is the clamped last block
+    interim_states, most_committed = St.StreamingWhisperEncoder.interim_states, [0]
+
+    def counted_interim_states(enc):
+        most_committed[0] = max(most_committed[0], enc._committed)
+        return interim_states(enc)
+
+    ws = _ClientWS(frames, pace=True, on_frame=on_frame)
+    for key in A.launches:
+        A.launches[key] = 0  # count this session only
+    St.flash_attention, St.StreamingWhisperEncoder.interim_states = timed_flash, counted_interim_states
+    try:
+        t0 = time.perf_counter()
+        asyncio.run(streaming_endpoint(ws, router, model=MAIN_MODEL, language=None,
+                                       sample_rate=SR, interim_results=True, vad=False))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        St.flash_attention, St.StreamingWhisperEncoder.interim_states = flash, interim_states
+    n_k2, n_k1 = A.launches["flash_attention_varlen"], A.launches["flash_attention"]
+    session, enc = ws.session, ws.session._inc_encoder
+
+    _check_session_bounds("S1", ws)
+    transcripts = ws.of_type("transcript")
+    interims = [e for e in transcripts if not e["is_final"]]
+    finals = [e for e in transcripts if e["speech_final"]]
+    final_at = next(t for t, e in ws.events if e.get("speech_final"))
+    if not interims or len(finals) != 1:
+        raise AssertionError(f"S1: {len(interims)} interims, {len(finals)} finals")
+    if session._inc_failures or session._inc_broken or executor_calls:
+        raise AssertionError(
+            f"S1: the incremental path fell back (failures {session._inc_failures}, "
+            f"broken {session._inc_broken}, executor calls {len(executor_calls)})"
+        )
+    blocks = enc.block_encodes + enc.tail_encodes
+    if n_k2 != cfg.n_audio_layer * blocks or n_k1 <= 0 or len(k2_events) != n_k2:
+        raise AssertionError(f"S1: K2 launches {n_k2} for {blocks} block encodes; K1 {n_k1}")
+    if most_committed[0] <= cfg.n_audio_ctx - enc.block_pos:
+        raise AssertionError(f"S1: committed {most_committed[0]}: no clamped last block")
+    if not isinstance(session._detected_language, str):
+        raise AssertionError("S1: language detection did not pin a language")
+
+    k2_s = sum(a.elapsed_time(b) for a, b in k2_events) / 1e3
+    turnaround.sort()
+    passes.sort()
+    log(f"stream S1 16 kHz pcm16 {STREAM_SECONDS} s paced: wall_s {wall:.3f} "
+        f"language {session._detected_language} events {len(ws.events)} "
+        f"interims {len(interims)} confirmed {len(transcripts) - len(interims) - len(finals)} "
+        f"interim_passes {len(passes)} coalesced {session._interims_coalesced}")
+    log(f"stream S1 interim turnaround (newest chunk -> transcript event, {len(turnaround)} "
+        f"passes with an event) s: p50 {turnaround[len(turnaround) // 2]:.4f} "
+        f"max {turnaround[-1]:.4f}; every pass (newest chunk -> pass end) s: "
+        f"p50 {passes[len(passes) // 2]:.4f} max {passes[-1]:.4f}; "
+        f"final latency after stop s {final_at - ws.stop_at:.4f}")
+    log(f"stream S1 K2 launches {n_k2} = {cfg.n_audio_layer} x ({enc.block_encodes} committed + "
+        f"{enc.tail_encodes} tail block encodes), device s {k2_s:.4f} "
+        f"({k2_s / wall:.4f} of the session wall); K1 launches {n_k1}; "
+        f"most committed positions at an interim {most_committed[0]}")
+    _profile_interim(entry, pcm, session._detected_language)
+    return n_k2
+
+
+def _profile_interim(entry: dict, pcm: bytes, language: str) -> None:
+    """One interim pass as the session runs it at the end of S1 (the
+    clamped tail block over 1408 committed positions, then a greedy decode
+    at its budget), on this thread under torch.profiler: device busy time,
+    idle share and K2's share of the device time."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from open_speech_tpu_torch.models.whisper.decode import DecodeOptions, greedy_decode
+    from open_speech_tpu_torch.models.whisper.streaming import (
+        StreamingWhisperEncoder,
+        interim_budget,
+    )
+    from open_speech_tpu_torch.ops.audio import pcm16_to_float
+
+    model, cfg, sp = entry["model"], entry["cfg"], entry["tok"].special
+    enc = StreamingWhisperEncoder(model, cfg)
+    enc.append_audio(pcm16_to_float(pcm))
+    prompt = np.asarray([sp.sot_sequence(language, "transcribe", timestamps=False)], np.int32)
+
+    def one_pass() -> int:
+        states, bucket = enc.interim_states()
+        opts = DecodeOptions(language=language, timestamps=False, beam_size=1,
+                             max_new_tokens=interim_budget(bucket, 0), suppress_blank=True)
+        res = greedy_decode(model, cfg, sp, states, prompt, opts,
+                            enc_len=np.asarray([enc.real_positions], np.int32))
+        return int(res.lengths[0])
+
+    one_pass()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        n_tokens = one_pass()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # kernel events only: op-level events (aten::*) repeat their kernels' time
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    k2 = sum(e.self_device_time_total for e in kernels
+             if "flash_fwd" in e.key and "true>" in e.key) / 1e6
+    if busy <= 0:
+        raise AssertionError("interim profile: no device time in the trace")
+    log(f"stream S1 profiled interim pass (committed {enc._committed}, tail from "
+        f"{cfg.n_audio_ctx - enc.block_pos}, {n_tokens} tokens): wall_s {wall:.4f} "
+        f"device_busy_s {busy:.4f} idle_share {1 - busy / wall:.4f} K2_s {k2:.6f} "
+        f"K2_share_of_device {k2 / busy:.4f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} x  {e.key[:90]}")
+
+
+def _stream_s2(router) -> int:
+    """6 s of 8 kHz mu-law, paced; language en, VAD on (the default)."""
+    import numpy as np
+
+    from open_speech_tpu_torch.ops import attention as A
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.server.streaming import streaming_endpoint
+
+    audio = _speechlike(TELEPHONY_SECONDS, 5)[::2]  # 8 kHz
+    codes = codec.ulaw_encode((audio * 32767).astype(np.int16)).tobytes()
+    step = int(8000 * FRAME_S)
+    frames = [codes[i : i + step] for i in range(0, len(codes), step)]
+    ws = _ClientWS(frames, pace=True)
+    for key in A.launches:
+        A.launches[key] = 0  # count this session only
+    asyncio.run(streaming_endpoint(ws, router, model=MAIN_MODEL, language="en",
+                                   sample_rate=8000, encoding="mulaw", interim_results=True))
+    n_k2 = A.launches["flash_attention_varlen"]
+    _check_session_bounds("S2", ws)
+    session = ws.session
+    if session.vad_state is None or session.vad_state.calls != len(frames):
+        calls = session.vad_state.calls if session.vad_state else None
+        raise AssertionError(f"S2: VAD ran {calls} times for {len(frames)} chunks")
+    speech = len([e for e in ws.of_type("vad") if e["state"] == "speech_start"])
+    log(f"stream S2 8 kHz mulaw {TELEPHONY_SECONDS} s, VAD on (random weights): "
+        f"vad_calls {session.vad_state.calls} speech_starts {speech} "
+        f"transcripts {len(ws.of_type('transcript'))} K2 launches {n_k2} "
+        f"vad_device {session.vad_state.session.device}")
+    return n_k2
+
+
+# ── phase 6: the trained fixture, card against CPU ───────────────────────
 
 
 def _beeps(k: int, rng):
@@ -339,17 +742,18 @@ def phase_fixture() -> None:
     import numpy as np
     import torch
 
-    from open_speech_tpu_torch.backends.torch_whisper import TorchWhisperBackend
     from open_speech_tpu_torch.config import settings
     from open_speech_tpu_torch.models.whisper.model import decoder_forward
     from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.runtime.router import BackendRouter
 
     settings.stt_model_dir = str(Path(__file__).resolve().parent / "tests" / "fixtures")
     model_id = "test-tiny-eot"
-    card = TorchWhisperBackend(device="cuda", compute_type="float32")  # TF32 off
-    host = TorchWhisperBackend(device="cpu", compute_type="float32")
-    card.load_model(model_id)
-    host.load_model(model_id)
+    routers = {dev: BackendRouter(device=dev, compute_type="float32")  # TF32 off
+               for dev in ("cuda", "cpu")}
+    for router in routers.values():
+        router.load_model(model_id)
+    card, host = (routers[dev].get_backend(model_id) for dev in ("cuda", "cpu"))
     rng = np.random.default_rng(11)  # the clips of tests/test_eot_ckpt.py
     clips = {k: _beeps(k, rng) for k in (1, 3)}
     for k, clip in clips.items():
@@ -382,6 +786,48 @@ def phase_fixture() -> None:
                     f"(cuda {toks_c[i:i + 3]} vs cpu {toks_h[i:i + 3]}); "
                     f"top-2 logit margin there {float(top2[0] - top2[1]):.3e}"
                 )
+
+    _fixture_streaming(routers, model_id)
+
+
+def _fixture_streaming(routers: dict, model_id: str) -> None:
+    """The streaming session on the card (K2 in float32) against the CPU:
+    VAD off, language en, interims driven one at a time, the same PCM; the
+    event lists (minus the session id) must be equal. 1.0 s finalizes over
+    the incremental states; 2.0 s overflows the 1.2 s window and finalizes
+    on the executor path."""
+    import numpy as np
+
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.ops import attention as A
+    from open_speech_tpu_torch.server.streaming import streaming_endpoint
+
+    rng = np.random.default_rng(21)
+    for seconds in (1.0, 2.0):
+        clip = np.concatenate([_beeps(3, rng)[: int(SR * seconds / 2)],
+                               _beeps(2, rng)[: int(SR * seconds / 2)]])
+        pcm = codec.float_to_pcm16(clip)
+        frames = [pcm[i : i + 3200] for i in range(0, len(pcm), 3200)]
+        events = {}
+        for dev, router in routers.items():
+            before = A.launches["flash_attention_varlen"]
+            ws = _ClientWS(frames, pace=False, sync=True)
+            asyncio.run(streaming_endpoint(ws, router, model=model_id, language="en",
+                                           sample_rate=SR, interim_results=True, vad=False))
+            _check_session_bounds(f"fixture stream {dev}", ws)
+            events[dev] = [{k: v for k, v in e.items() if k != "session_id"} for _, e in ws.events]
+            launched = A.launches["flash_attention_varlen"] - before
+            if (launched > 0) != (dev == "cuda"):
+                raise AssertionError(f"fixture stream {dev}: {launched} K2 launches")
+        n = len([e for e in events["cpu"] if e["type"] == "transcript"])
+        log(f"fixture stream {seconds} s: {len(events['cuda'])} events on cuda, "
+            f"{len(events['cpu'])} on cpu ({n} transcripts), equal={events['cuda'] == events['cpu']}")
+        if events["cuda"] != events["cpu"] or n == 0:
+            diff = next((i for i, (a, b) in enumerate(zip(events["cuda"], events["cpu"]))
+                         if a != b), None)
+            raise AssertionError(f"fixture stream {seconds} s: events differ at {diff}: "
+                                 f"{events['cuda'][diff:diff + 2]} vs {events['cpu'][diff:diff + 2]}"
+                                 if diff is not None else f"fixture stream {seconds} s: {n} transcripts")
 
 
 if __name__ == "__main__":

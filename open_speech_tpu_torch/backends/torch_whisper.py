@@ -25,17 +25,20 @@ from typing import Any
 import numpy as np
 import torch
 
-from open_speech_tpu_torch.audio.ingest import TARGET_RATE, resample_unported
+from open_speech_tpu_torch.audio.ingest import TARGET_RATE
 from open_speech_tpu_torch.config import settings
 from open_speech_tpu_torch.models.whisper import PRESETS, get_tokenizer, init_params
 from open_speech_tpu_torch.models.whisper.convert import load_params
-from open_speech_tpu_torch.models.whisper.model import WhisperConfig
+from open_speech_tpu_torch.models.whisper.decode import detect_language
+from open_speech_tpu_torch.models.whisper.model import WhisperConfig, encode
 from open_speech_tpu_torch.models.whisper.transcribe import (
     TranscribeOptions,
     build_response,
     transcribe,
 )
 from open_speech_tpu_torch.ops import audio as codec
+from open_speech_tpu_torch.ops.mel import log_mel_spectrogram, pad_or_trim
+from open_speech_tpu_torch.ops.resample import resample_array
 from open_speech_tpu_torch.schemas import LoadedModelInfo
 
 logger = logging.getLogger(__name__)
@@ -210,7 +213,10 @@ class TorchWhisperBackend:
 
     def _warmup(self, model_id: str) -> None:
         """Build the CUDA kernels and drive one beam-5 transcribe of 30 s of
-        silence through the public path, so the first request pays neither.
+        silence through the public path, so the first request pays neither;
+        with ``os_stream_incremental``, also one streaming block encode and
+        ``interim_states``, so the first streaming chunk does not pay K2's
+        first launch.
 
         The JAX package precompiles a ladder of XLA programs here (decode
         budgets, prompt-length buckets, mel rungs, streaming shapes). Eager
@@ -230,6 +236,14 @@ class TorchWhisperBackend:
             wav, model_id, language="en", beam_size=5, fallback=False,
             _budget_override=max(_warmed_budgets(), default=224),
         )
+        if settings.os_stream_incremental:
+            from open_speech_tpu_torch.models.whisper.streaming import (
+                StreamingWhisperEncoder,
+            )
+
+            senc = StreamingWhisperEncoder(entry["model"], entry["cfg"])
+            senc.append_audio(np.zeros(TARGET_RATE, np.float32))
+            senc.interim_states()
         logger.info("STT warmup for %s done in %.1fs", model_id, time.time() - t0)
 
     def unload_model(self, model_id: str) -> None:
@@ -265,6 +279,19 @@ class TorchWhisperBackend:
 
     # ── protocol: inference ───────────────────────────────────────────
 
+    def detect_language_pcm(self, model_id: str, pcm: np.ndarray) -> str:
+        """Detect the spoken language of (up to) the first window of 16 kHz
+        float PCM. The streaming session calls it once per auto-detect
+        session, after ~1 s of speech, and pins the result."""
+        entry = self._ensure_model(model_id)
+        cfg = entry["cfg"]
+        window_samples = cfg.n_audio_ctx * 2 * 160
+        audio = torch.as_tensor(np.asarray(pcm, np.float32), device=self._device)
+        mel = log_mel_spectrogram(pad_or_trim(audio, window_samples), n_mels=cfg.n_mels)
+        enc_out = encode(entry["model"], mel[None], cfg)
+        codes, _probs = detect_language(entry["model"], cfg, entry["tok"].special, enc_out)
+        return str(codes[0])
+
     def _ensure_model(self, model_id: str) -> dict[str, Any]:
         # get-then-load loop: an eviction between a membership test and the
         # lookup must not turn a valid request into a KeyError
@@ -294,8 +321,7 @@ class TorchWhisperBackend:
             codec.pcm16_to_float(audio),
             TARGET_RATE,
         )
-        if rate != TARGET_RATE:
-            raise resample_unported(rate)
+        pcm = resample_array(pcm, rate, TARGET_RATE, self._device)
         temps: tuple[float, ...] = (
             (temperature,)
             if temperature > 0 or not fallback

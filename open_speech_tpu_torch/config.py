@@ -1,8 +1,9 @@
 """Settings read from the environment (the subset the served path reads).
 
 Counterpart of ``open_speech_tpu/config.py``: the same field names, the same
-upper-case environment variables and the same parsing, for the fields the
-REST transcription path reads. ``stt_device`` defaults to ``cuda``.
+upper-case environment variables, the same parsing and the same alias
+properties, for the fields the REST transcription path and the streaming
+session read. ``stt_device`` defaults to ``cuda``.
 """
 
 from __future__ import annotations
@@ -23,6 +24,15 @@ _DEFAULTS: dict[str, object] = {
     "stt_compute_type": "bfloat16",
     "stt_model_dir": None,
     "stt_normalize": True,
+    # streaming sessions (/v1/audio/stream)
+    "os_stream_chunk_ms": 100,
+    "os_stream_max_connections": 10,
+    "stt_vad_enabled": True,
+    "stt_vad_threshold": 0.5,
+    # interims over the O(n) block-causal incremental encoder
+    "os_stream_incremental": True,
+    # the continuous batcher (not in the port yet: ROADMAP.md)
+    "os_batcher_enabled": False,
 }
 
 _OPTIONAL_STR = {"stt_model_dir"}
@@ -61,6 +71,10 @@ class Settings:
                 value = _parse(raw, default)
             setattr(self, name, value)
 
+    # ── aliases of the JAX package's Settings ────────────────────────
+    stt_stream_chunk_ms = property(lambda self: self.os_stream_chunk_ms)
+    stt_stream_max_connections = property(lambda self: self.os_stream_max_connections)
+    stt_default_model = property(lambda self: self.stt_model)
+
 
 settings = Settings()
-

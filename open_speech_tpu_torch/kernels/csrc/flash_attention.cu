@@ -1,13 +1,25 @@
 // Flash attention forward for Hopper (sm_90a): tiled online-softmax MHA.
 //
-// Replaces the Pallas TPU kernel `open_speech_tpu/ops/attention.py`
-// (`_flash_kernel` through `_flash_call`, entry `_flash_attention_tpu`).
-// Computes exactly `mha_reference` with kv_length=None:
-//   q [B,H,Tq,D], k/v [B,H,Tk,D], contiguous, one dtype (f32 or bf16),
-//   D in {32, 64}; logits = (q . k) * scale; optional end-aligned causal
-//   mask (row i sees keys j <= i + Tk - Tq); rows with no visible key give
-//   zeros; output in the input dtype. Any Tq is accepted, including Tq < 8
-//   (the decoder prefill of 1-3 prompt tokens).
+// Replaces the Pallas TPU kernels of `open_speech_tpu/ops/attention.py`
+// (`_flash_kernel` through `_flash_call`):
+//   K1 `_flash_attention_tpu`: exactly `mha_reference` with kv_length=None;
+//   K2 `_flash_attention_tpu_dyn`: the same with a per-example valid kv
+//      prefix kv_len [B] (int32, device memory).
+// q [B,H,Tq,D], k/v [B,H,Tk,D], contiguous, one dtype (f32 or bf16),
+// D in {32, 64}; logits = (q . k) * scale; optional end-aligned causal mask
+// (row i sees keys j <= i + Tk - Tq, Tk the padded length) and, for K2,
+// keys j < kv_len[b]; rows with no visible key give zeros; output in the
+// input dtype. Any Tq is accepted, including Tq < 8 (the decoder prefill of
+// 1-3 prompt tokens).
+//
+// K2 is the same two kernels instantiated with kVarlen: each block reads
+// its example's length once and cuts its kv loop bound there, so tiles past
+// the length are neither copied nor computed (the Pallas dead-block DMA
+// skip). Its caller, the streaming encoder block [1,20,128,1500,64] bf16
+// at length L, moves 2*L*D*H*2 bytes of k/v (7.7 MB at L = 1500, ~2.3 us
+// at 3.35 TB/s) for 4*H*128*L*D operations (~1.0 us at 989 TFLOP/s): it is
+// bytes-bound, and with ceil(128/64) * 20 = 40 blocks it fills well under
+// a third of the 132 SMs; a split-kv grid is later work.
 //
 // What bounds it: the whisper encoder call [1,20,1500,64] bf16 is
 // 4*B*H*Tq*Tk*D = 11.5 GFLOP against 15.4 MB of q/k/v/o, i.e. ~11.6 us at
@@ -51,6 +63,19 @@ __device__ __forceinline__ int visible_keys(int r, int tk, int offs, int causal)
   return causal ? min(max(r + offs + 1, 0), tk) : tk;
 }
 
+// ... of which the first `len` exist (K2); K1 has len == Tk by definition
+template <bool kVarlen>
+__device__ __forceinline__ int row_keys(int r, int tk, int len, int offs, int causal) {
+  const int n = visible_keys(r, tk, offs, causal);
+  return kVarlen ? min(n, len) : n;
+}
+
+// keys that exist for this block's example: Tk, or its valid prefix (K2)
+template <bool kVarlen>
+__device__ __forceinline__ int example_keys(const int* kv_len, int Tk) {
+  return kVarlen ? min(max(kv_len[blockIdx.z], 0), Tk) : Tk;
+}
+
 // ── bf16: tensor cores ──────────────────────────────────────────────────
 
 constexpr int kWarps = 4;    // 16 query rows each
@@ -74,11 +99,12 @@ __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-template <int D>
+template <int D, bool kVarlen>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-               int H, int Tq, int Tk, float scale, int causal) {
+               const int* __restrict__ kv_len, int H, int Tq, int Tk, float scale,
+               int causal) {
   // +8 pads: row strides of 144/80 bytes spread a fragment's 8 rows over
   // distinct banks
   __shared__ __align__(16) __nv_bfloat16 ks[kTileK][D + 8];  // [key][dim]
@@ -96,10 +122,12 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   const int wrow = row0 + warp * 16;
   const int r_lo = wrow + g, r_hi = wrow + g + 8;  // this thread's two rows
   const int offs = Tk - Tq;
-  const int kv_end = visible_keys(min(row0 + kBlockQ, Tq) - 1, Tk, offs, causal);
-  const int warp_end = wrow < Tq ? visible_keys(min(wrow + 15, Tq - 1), Tk, offs, causal) : 0;
-  const int n_lo = r_lo < Tq ? visible_keys(r_lo, Tk, offs, causal) : 0;
-  const int n_hi = r_hi < Tq ? visible_keys(r_hi, Tk, offs, causal) : 0;
+  const int len = example_keys<kVarlen>(kv_len, Tk);
+  const int kv_end = row_keys<kVarlen>(min(row0 + kBlockQ, Tq) - 1, Tk, len, offs, causal);
+  const int warp_end =
+      wrow < Tq ? row_keys<kVarlen>(min(wrow + 15, Tq - 1), Tk, len, offs, causal) : 0;
+  const int n_lo = r_lo < Tq ? row_keys<kVarlen>(r_lo, Tk, len, offs, causal) : 0;
+  const int n_hi = r_hi < Tq ? row_keys<kVarlen>(r_hi, Tk, len, offs, causal) : 0;
 
   // Q as A fragments: a0 (row g, cols 2t..), a1 (row g+8), a2/a3 (cols +8)
   uint32_t qa[D / 16][4];
@@ -118,12 +146,12 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
 
   for (int kv0 = 0; kv0 < kv_end; kv0 += kTileK) {
     __syncthreads();  // the previous tile is fully consumed
-    // 16-byte loads; keys past Tk are zero-filled (masked below, but V must
-    // not carry NaN garbage into 0 * p)
+    // 16-byte loads; keys past Tk (K2: past the length) are zero-filled
+    // (masked below, but V must not carry NaN garbage into 0 * p)
     for (int i = threadIdx.x; i < kTileK * D / 8; i += kWarps * 32) {
       const int kk = i / (D / 8), d0 = (i % (D / 8)) * 8;
       uint4 kx = make_uint4(0, 0, 0, 0), vx = make_uint4(0, 0, 0, 0);
-      if (kv0 + kk < Tk) {
+      if (kv0 + kk < len) {
         kx = *reinterpret_cast<const uint4*>(kp + (size_t)(kv0 + kk) * D + d0);
         vx = *reinterpret_cast<const uint4*>(vp + (size_t)(kv0 + kk) * D + d0);
       }
@@ -146,7 +174,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
         mma_bf16(s[j], qa[c], ld_u32(kr), ld_u32(kr + 8));
       }
     }
-    // scale, mask (ragged tail and causal), running max over the quad
+    // scale, mask (ragged tail, causal, K2 length), running max over the quad
     float mx_lo = m_lo, mx_hi = m_hi;
 #pragma unroll
     for (int j = 0; j < kTileK / 8; ++j) {
@@ -228,11 +256,12 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
 
 constexpr int kTileKf = 32;  // keys per shared-memory tile
 
-template <int D>
+template <int D, bool kVarlen>
 __global__ void __launch_bounds__(kBlockQ)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o,
-              int H, int Tq, int Tk, float scale, int causal) {
+              const int* __restrict__ kv_len, int H, int Tq, int Tk, float scale,
+              int causal) {
   __shared__ __align__(16) float ks[kTileKf][D];
   __shared__ __align__(16) float vs[kTileKf][D];
 
@@ -245,8 +274,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int row0 = blockIdx.x * kBlockQ;
   const int row = row0 + threadIdx.x;
   const int offs = Tk - Tq;
-  const int kv_end = visible_keys(min(row0 + kBlockQ, Tq) - 1, Tk, offs, causal);
-  const int n_row = row < Tq ? visible_keys(row, Tk, offs, causal) : 0;
+  const int len = example_keys<kVarlen>(kv_len, Tk);
+  const int kv_end = row_keys<kVarlen>(min(row0 + kBlockQ, Tq) - 1, Tk, len, offs, causal);
+  const int n_row = row < Tq ? row_keys<kVarlen>(row, Tk, len, offs, causal) : 0;
 
   float qr[D];
   float acc[D];
@@ -259,7 +289,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   float l = 0.f;
 
   for (int kv0 = 0; kv0 < kv_end; kv0 += kTileKf) {
-    const int nt = min(kTileKf, Tk - kv0);
+    const int nt = min(kTileKf, len - kv0);
     __syncthreads();  // the previous tile is fully consumed
     for (int i = threadIdx.x; i < nt * D; i += kBlockQ) {
       ks[i / D][i % D] = kp[(size_t)kv0 * D + i];
@@ -320,37 +350,60 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool kVarlen>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int Tq, int Tk, float scale, int causal,
-                   cudaStream_t stream) {
+                   const int* kv_len, int B, int H, int Tq, int Tk, float scale,
+                   int causal, cudaStream_t stream) {
   const dim3 grid((Tq + kBlockQ - 1) / kBlockQ, H, B);
   if (dtype == 1) {
-    flash_fwd_bf16<D><<<grid, kWarps * 32, 0, stream>>>(
+    flash_fwd_bf16<D, kVarlen><<<grid, kWarps * 32, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-        H, Tq, Tk, scale, causal);
+        kv_len, H, Tq, Tk, scale, causal);
   } else {
-    flash_fwd_f32<D><<<grid, kBlockQ, 0, stream>>>(
+    flash_fwd_f32<D, kVarlen><<<grid, kBlockQ, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), H, Tq, Tk, scale, causal);
+        static_cast<const float*>(v), static_cast<float*>(o), kv_len, H, Tq, Tk,
+        scale, causal);
   }
   return cudaGetLastError();
 }
 
+template <bool kVarlen>
+int dispatch(const void* q, const void* k, const void* v, void* o, const int* kv_len,
+             int B, int H, int Tq, int Tk, int D, int dtype, float scale, int causal,
+             void* stream) {
+  if (B < 1 || H < 1 || Tq < 1 || Tk < 0 || B > 65535 || H > 65535 ||
+      (dtype != 0 && dtype != 1) || (kVarlen && kv_len == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64) {
+    return (int)launch<64, kVarlen>(dtype, q, k, v, o, kv_len, B, H, Tq, Tk, scale, causal, s);
+  }
+  if (D == 32) {
+    return (int)launch<32, kVarlen>(dtype, q, k, v, o, kv_len, B, H, Tq, Tk, scale, causal, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// K1. dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
 extern "C" int os_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* o, int B, int H,
                                       int Tq, int Tk, int D, int dtype,
                                       float scale, int causal, void* stream) {
-  if (B < 1 || H < 1 || Tq < 1 || Tk < 0 || B > 65535 || H > 65535 ||
-      (dtype != 0 && dtype != 1)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)launch<64>(dtype, q, k, v, o, B, H, Tq, Tk, scale, causal, s);
-  if (D == 32) return (int)launch<32>(dtype, q, k, v, o, B, H, Tq, Tk, scale, causal, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(q, k, v, o, nullptr, B, H, Tq, Tk, D, dtype, scale, causal, stream);
+}
+
+// K2: K1 with kv_len, B int32 valid kv lengths in device memory (clamped to
+// [0, Tk]). Returns a cudaError_t (0 = launched).
+extern "C" int os_flash_attention_varlen_fwd(const void* q, const void* k,
+                                             const void* v, void* o,
+                                             const int* kv_len, int B, int H,
+                                             int Tq, int Tk, int D, int dtype,
+                                             float scale, int causal,
+                                             void* stream) {
+  return dispatch<true>(q, k, v, o, kv_len, B, H, Tq, Tk, D, dtype, scale, causal, stream);
 }

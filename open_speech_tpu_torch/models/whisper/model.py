@@ -254,13 +254,25 @@ def mlp(x: torch.Tensor, blk: Block) -> torch.Tensor:
 # ──────────────────────────────────────────────────────────────────────
 
 
+def conv_stem(enc: AudioEncoder, mel: torch.Tensor, first_frame: int = 0) -> torch.Tensor:
+    """mel [B, n_mels, T] -> conv features [B, T // 2, d] (before positions).
+
+    ``first_frame`` is the global mel index of ``mel``'s first column. conv1
+    outputs at global indices < 0 are zeroed: there the full encoder's
+    stride-2 conv sees zero padding, not computed activations (the
+    streaming encoder's blocks start two frames early).
+    """
+    x = F.gelu(enc.conv1(mel.to(enc.conv1.weight.dtype)))  # features f32 -> compute dtype
+    if first_frame < 0:
+        x[:, :, : -first_frame] = 0
+    return F.gelu(enc.conv2(x)).transpose(1, 2)
+
+
 @torch.no_grad()
 def encode(model: Whisper, mel: torch.Tensor, cfg: WhisperConfig) -> torch.Tensor:
     """mel [B, n_mels, 3000] -> encoder states [B, 1500, d]."""
     enc = model.encoder
-    x = mel.to(enc.conv1.weight.dtype)  # features f32 -> compute dtype
-    x = F.gelu(enc.conv1(x))
-    x = F.gelu(enc.conv2(x)).transpose(1, 2)  # [B, T, d]
+    x = conv_stem(enc, mel)  # [B, T, d]
     x = x + enc.pos[: x.shape[1]]
     for blk in enc.blocks:
         x = x + self_attention(layer_norm(x, blk.ln1), blk.attn, cfg.n_audio_head, False)

@@ -2,10 +2,13 @@
 
 Counterpart of ``open_speech_tpu/ops/attention.py``:
 
-  - ``flash_attention``: tiled online-softmax attention. A CUDA tensor runs
-    the hand-written sm_90a kernel (``kernels/csrc/flash_attention.cu``); a
-    CPU tensor runs its plain version ``flash_attention_reference``. There is
-    no fallback between the two: a CUDA call that cannot launch raises.
+  - ``flash_attention``: tiled online-softmax attention, optionally over a
+    per-example valid kv prefix (``kv_length``). A CUDA tensor runs the
+    hand-written sm_90a kernels (``kernels/csrc/flash_attention.cu``: K1
+    without lengths, K2 with them); a CPU tensor runs their plain versions
+    ``flash_attention_reference`` and ``flash_attention_varlen_reference``.
+    There is no fallback between the two: a CUDA call that cannot launch
+    raises.
   - ``decode_attention`` and ``beam_select_attention``: single-position
     attention over a padded KV cache, as plain PyTorch on either device.
 
@@ -20,8 +23,8 @@ import torch
 
 NEG_INF = -1e30
 
-# launches of the flash kernel, counted where it is launched
-launches = {"flash_attention": 0}
+# launches of the flash kernels (K1, K2), counted where each is launched
+launches = {"flash_attention": 0, "flash_attention_varlen": 0}
 
 
 def mha_reference(
@@ -63,29 +66,42 @@ def flash_attention_reference(
     causal: bool = False,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """The flash kernel's plain version: ``mha_reference`` without kv_length."""
+    """K1's plain version: ``mha_reference`` without kv_length."""
     return mha_reference(q, k, v, causal=causal, scale=scale)
 
 
+def flash_attention_varlen_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_length: torch.Tensor,
+    *,
+    causal: bool = False,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """K2's plain version: ``mha_reference`` with kv_length [B]."""
+    return mha_reference(q, k, v, causal=causal, kv_length=kv_length, scale=scale)
+
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {  # C entry -> argument types after the four tensor pointers
+    "os_flash_attention_fwd": [_I] * 6 + [ctypes.c_float, _I, _P],
+    "os_flash_attention_varlen_fwd": [_P] + [_I] * 6 + [ctypes.c_float, _I, _P],
+}
+_fns: dict[str, ctypes._CFuncPtr] = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(entry: str):
+    fn = _fns.get(entry)
+    if fn is None:
         from open_speech_tpu_torch.kernels import build
 
-        fn = build.load("flash_attention").os_flash_attention_fwd
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
+        fn = getattr(build.load("flash_attention"), entry)
+        fn.argtypes = [_P] * 4 + _SIGNATURES[entry]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[entry] = fn
+    return fn
 
 
 def _check_hopper(device: torch.device) -> None:
@@ -103,15 +119,22 @@ def flash_attention(
     v: torch.Tensor,
     *,
     causal: bool = False,
+    kv_length: torch.Tensor | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
     """Multi-head attention, [B, H, T, D] layout, any Tq.
 
+    ``kv_length`` [B] (integer): keys at or past it are masked, per example.
     A CPU tensor runs the plain version. A CUDA tensor launches the sm_90a
-    kernel on the current stream, or raises on anything the kernel does not
-    take. Rows with zero attendable keys return zeros on both paths.
+    kernel on the current stream (K1, or K2 with ``kv_length``), or raises
+    on anything the kernel does not take. Rows with zero attendable keys
+    return zeros on both paths.
     """
     if not q.is_cuda:
+        if kv_length is not None:
+            return flash_attention_varlen_reference(
+                q, k, v, kv_length, causal=causal, scale=scale
+            )
         return flash_attention_reference(q, k, v, causal=causal, scale=scale)
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k, v must be on one CUDA device")
@@ -136,19 +159,39 @@ def flash_attention(
         raise ValueError("flash_attention: q, k, v must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must start on 16-byte boundaries")
+    if kv_length is not None:
+        if not (
+            isinstance(kv_length, torch.Tensor)
+            and kv_length.shape == (b,)
+            and kv_length.device == q.device
+            and not kv_length.dtype.is_floating_point
+            and not kv_length.dtype.is_complex
+            and kv_length.dtype != torch.bool
+        ):
+            raise ValueError(
+                "flash_attention: kv_length must be an integer tensor of shape "
+                f"[{b}] on {q.device}"
+            )
+        # int32 on the device; no host sync (the kernel clamps to [0, Tk])
+        kv_length = kv_length.to(torch.int32).contiguous()
     _check_hopper(q.device)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     scale = (d**-0.5) if scale is None else float(scale)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _kernel()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, h, t_q, t_k, d, _DTYPE_CODES[q.dtype], scale, int(causal), stream,
-    )
+    tensors = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    shape = (b, h, t_q, t_k, d, _DTYPE_CODES[q.dtype], scale, int(causal), stream)
+    if kv_length is None:
+        name, err = "flash_attention", _kernel("os_flash_attention_fwd")(*tensors, *shape)
+    else:
+        name = "flash_attention_varlen"
+        err = _kernel("os_flash_attention_varlen_fwd")(
+            *tensors, kv_length.data_ptr(), *shape
+        )
     if err != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: cudaError {err}")
-    launches["flash_attention"] += 1
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    launches[name] += 1
     return out
 
 

@@ -1,6 +1,6 @@
-"""Host-side PCM/WAV codecs (numpy only).
+"""Host-side PCM/WAV and G.711 codecs (numpy only).
 
-Copy of the WAV and PCM16 parts of ``open_speech_tpu/ops/audio.py``,
+Copy of the WAV, PCM16 and G.711 parts of ``open_speech_tpu/ops/audio.py``,
 without the optional native-library path: the bytes in and out are the
 same.
 """
@@ -66,6 +66,11 @@ def write_wav(audio: np.ndarray, sample_rate: int, channels: int = 1) -> bytes:
         channels = audio.shape[1]
         audio = audio.reshape(-1)
     pcm = float_to_pcm16(audio)
+    return wav_header(len(pcm), sample_rate, channels) + pcm
+
+
+def pcm16_to_wav(pcm: bytes, sample_rate: int, channels: int = 1) -> bytes:
+    """Wrap raw PCM16 bytes in a WAV container."""
     return wav_header(len(pcm), sample_rate, channels) + pcm
 
 
@@ -152,3 +157,104 @@ def read_wav(data: bytes) -> tuple[np.ndarray, int]:
         usable = len(audio) - len(audio) % info.channels
         audio = audio[:usable].reshape(-1, info.channels).mean(axis=1)
     return np.ascontiguousarray(audio, dtype=np.float32), info.sample_rate
+
+
+# ──────────────────────────────────────────────────────────────────────
+# G.711 mu-law / A-law (LUT based; replaces audioop)
+# ──────────────────────────────────────────────────────────────────────
+
+_ULAW_BIAS = 0x84
+_ULAW_CLIP = 32635
+
+
+def _build_ulaw_decode_table() -> np.ndarray:
+    codes = np.arange(256, dtype=np.int32) ^ 0xFF
+    sign = codes & 0x80
+    exponent = (codes >> 4) & 0x07
+    mantissa = codes & 0x0F
+    magnitude = ((mantissa << 3) + _ULAW_BIAS) << exponent
+    magnitude -= _ULAW_BIAS
+    return np.where(sign != 0, -magnitude, magnitude).astype(np.int16)
+
+
+def _build_alaw_decode_table() -> np.ndarray:
+    codes = np.arange(256, dtype=np.int32) ^ 0x55
+    sign = codes & 0x80
+    exponent = (codes >> 4) & 0x07
+    mantissa = codes & 0x0F
+    magnitude = np.where(
+        exponent == 0,
+        (mantissa << 4) + 8,
+        ((mantissa << 4) + 0x108) << (exponent - 1),
+    )
+    # A-law sign convention is inverted vs μ-law: sign bit SET → positive
+    # (g711.c st_alaw2linear16; verified bit-exact vs audioop.alaw2lin)
+    return np.where(sign != 0, magnitude, -magnitude).astype(np.int16)
+
+
+_ULAW_DECODE = _build_ulaw_decode_table()
+_ALAW_DECODE = _build_alaw_decode_table()
+
+
+def _build_ulaw_encode_table() -> np.ndarray:
+    """ITU-T G.711 μ-law segment encoder over all 65536 int16 values.
+
+    Bit-exact with audioop.lin2ulaw (Sun g711.c st_14linear2ulaw on
+    sample >> 2) — a nearest-decode inverse differs from the standard
+    quantizer on ~1% of values, breaking wire parity with G.711 peers.
+    """
+    samples = np.arange(-32768, 32768, dtype=np.int32)
+    pcm = samples >> 2  # 14-bit domain
+    mask = np.where(pcm < 0, 0x7F, 0xFF)
+    mag = np.minimum(np.abs(pcm), 8159) + (_ULAW_BIAS >> 2)
+    seg_ends = np.array(
+        [0x3F, 0x7F, 0xFF, 0x1FF, 0x3FF, 0x7FF, 0xFFF, 0x1FFF], np.int32
+    )
+    seg = np.searchsorted(seg_ends, mag)
+    seg_c = np.minimum(seg, 7)
+    uval = (seg_c << 4) | ((mag >> (seg_c + 1)) & 0xF)
+    out = np.where(seg >= 8, 0x7F, uval) ^ mask
+    return out.astype(np.uint8)
+
+
+def _build_alaw_encode_table() -> np.ndarray:
+    """ITU-T G.711 A-law segment encoder (audioop.lin2alaw: st_linear2alaw
+    on sample >> 3, 13-bit domain)."""
+    samples = np.arange(-32768, 32768, dtype=np.int32)
+    pcm = samples >> 3
+    mask = np.where(pcm >= 0, 0xD5, 0x55)
+    mag = np.where(pcm >= 0, pcm, -pcm - 1)
+    seg_ends = np.array(
+        [0x1F, 0x3F, 0x7F, 0xFF, 0x1FF, 0x3FF, 0x7FF, 0xFFF], np.int32
+    )
+    seg = np.searchsorted(seg_ends, mag)
+    seg_c = np.minimum(seg, 7)
+    aval = (seg_c << 4) | np.where(
+        seg_c < 2, (mag >> 1) & 0xF, (mag >> seg_c) & 0xF
+    )
+    out = np.where(seg >= 8, 0x7F, aval) ^ mask
+    return out.astype(np.uint8)
+
+
+_ULAW_ENCODE = _build_ulaw_encode_table()
+_ALAW_ENCODE = _build_alaw_encode_table()
+
+
+def ulaw_decode(codes: bytes | np.ndarray) -> np.ndarray:
+    u8 = np.frombuffer(codes, dtype=np.uint8) if isinstance(codes, bytes) else codes
+    return _ULAW_DECODE[u8.astype(np.uint8)]
+
+
+def ulaw_encode(pcm: np.ndarray) -> np.ndarray:
+    ints = np.clip(pcm.astype(np.int32), -32768, 32767) + 32768
+    return _ULAW_ENCODE[ints]
+
+
+def alaw_decode(codes: bytes | np.ndarray) -> np.ndarray:
+    u8 = np.frombuffer(codes, dtype=np.uint8) if isinstance(codes, bytes) else codes
+    return _ALAW_DECODE[u8.astype(np.uint8)]
+
+
+def alaw_encode(pcm: np.ndarray) -> np.ndarray:
+    ints = np.clip(pcm.astype(np.int32), -32768, 32767) + 32768
+    return _ALAW_ENCODE[ints]

@@ -71,11 +71,15 @@ class BackendRouter:
         return self.get_backend(model).translate(audio, model, **kwargs)
 
 
-def _prepare(audio_bytes: bytes, content_type: str | None) -> bytes:
+def _prepare(
+    router: BackendRouter, model: str, audio_bytes: bytes, content_type: str | None
+) -> bytes:
     if not audio_bytes:
         raise ValueError("Empty audio file")
+    # ingest resamples on the device the model runs on
+    device = getattr(router.get_backend(model), "device", None)
     return preprocess_stt_audio(
-        convert_to_wav(audio_bytes, content_type), normalize=settings.stt_normalize
+        convert_to_wav(audio_bytes, content_type, device), normalize=settings.stt_normalize
     )
 
 
@@ -97,9 +101,10 @@ def transcription_response(
         if response_format in ("srt", "vtt", "json", "verbose_json")
         else response_format
     )
+    model = model or settings.stt_model
     result = router.transcribe(
-        audio=_prepare(audio_bytes, content_type),
-        model=model or settings.stt_model,
+        audio=_prepare(router, model, audio_bytes, content_type),
+        model=model,
         language=language,
         response_format=backend_format,
         temperature=temperature,
@@ -126,9 +131,10 @@ def translation_response(
     content_type: str | None = None,
 ) -> str | dict[str, Any]:
     """The body of a translation response (English text in any format)."""
+    model = model or settings.stt_model
     result = router.translate(
-        audio=_prepare(audio_bytes, content_type),
-        model=model or settings.stt_model,
+        audio=_prepare(router, model, audio_bytes, content_type),
+        model=model,
         response_format=response_format,
         temperature=temperature,
         prompt=prompt,

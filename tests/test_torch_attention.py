@@ -1,14 +1,15 @@
 """Attention: the PyTorch port against the JAX package.
 
-The flash kernel's plain version (what a CPU tensor runs) is held against
-the JAX Pallas kernel run in interpret mode (``_flash_call`` with small
-blocks, as ``tests/test_flash_attention.py`` runs it) and against
-``mha_reference``; ``decode_attention`` and ``beam_select_attention``
-against their JAX versions. Inputs are numpy-seeded; float32; tolerance
+The flash kernels' plain versions (what a CPU tensor runs: K1 without
+``kv_length``, K2 with it) are held against the JAX Pallas kernel run in
+interpret mode (``_flash_call`` with small blocks, as
+``tests/test_flash_attention.py`` runs it) and against ``mha_reference``;
+``decode_attention`` and ``beam_select_attention`` against their JAX
+versions. Inputs are numpy-seeded; float32; tolerance
 1e-5 absolute (O(1) outputs, different summation orders).
 
-The hand-written CUDA kernel itself runs only on the card:
-``tests/test_torch_cuda.py`` holds it against the plain version there.
+The hand-written CUDA kernels themselves run only on the card:
+``tests/test_torch_cuda.py`` holds them against the plain versions there.
 """
 
 from __future__ import annotations
@@ -112,3 +113,46 @@ def test_beam_select_attention_matches_jax(scalar_len):
     ))
     np.testing.assert_allclose(out, ref, atol=TOL, rtol=0)
 
+
+
+# K2, (B, H, Tq, Tk, D, causal, lengths): lengths 0 and Tk, causal with
+# lengths, Tq < 8, Tq > Tk, ragged T, the test-tiny streaming block
+VARLEN_CASES = [
+    (2, 2, 16, 40, 32, False, (0, 40)),
+    (2, 2, 16, 40, 64, True, (17, 40)),
+    (3, 1, 3, 24, 64, True, (24, 5, 0)),
+    (1, 2, 1, 13, 32, False, (13,)),
+    (2, 1, 29, 13, 32, True, (13, 7)),
+    (1, 2, 20, 60, 32, False, (17,)),
+]
+
+
+@pytest.mark.parametrize("b,h,t_q,t_k,d,causal,lens", VARLEN_CASES)
+def test_flash_varlen_plain_matches_jax_kernel_and_reference(b, h, t_q, t_k, d, causal, lens):
+    q, k, v = _qkv(b, h, t_q, t_k, d, seed=t_q * 7 + t_k)
+    lens = np.asarray(lens, np.int32)
+    out = TA.flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal, kv_length=torch.from_numpy(lens),
+    ).numpy()
+    plain = TA.flash_attention_varlen_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(lens), causal=causal,
+    ).numpy()
+    jq, jk, jv, jl = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lens)
+    kern = np.asarray(JA._flash_call(jq, jk, jv, jl, causal, None, 8, 16, interpret=True))
+    ref = np.asarray(JA.mha_reference(jq, jk, jv, causal=causal, kv_length=jl))
+    np.testing.assert_array_equal(out, plain)
+    np.testing.assert_allclose(out, kern, atol=TOL, rtol=0)
+    np.testing.assert_allclose(out, ref, atol=TOL, rtol=0)
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert not out[i].any(), "a length-0 example must give zeros"
+
+
+def test_flash_launch_counters_name_both_kernels():
+    assert set(TA.launches) == {"flash_attention", "flash_attention_varlen"}
+    q = torch.zeros(1, 1, 4, 32)
+    before = dict(TA.launches)
+    TA.flash_attention(q, q, q, kv_length=torch.tensor([2]))
+    assert TA.launches == before, "the plain version on the CPU launches nothing"

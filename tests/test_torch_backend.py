@@ -160,3 +160,30 @@ def test_translate_and_router_path(backends):
     assert isinstance(translation_response(router, wav, model=MODEL, response_format="text"), str)
     info = router.loaded_models()
     assert [(m.model, m.backend, m.device) for m in info] == [(MODEL, "torch-whisper", "cpu")]
+
+
+@pytest.mark.parametrize("clip", ["beeps1", "silence"])
+def test_detect_language_pcm_matches_jax(backends, clip):
+    jb, tb = backends
+    pcm = _clips()[clip]
+    assert tb.detect_language_pcm(MODEL, pcm) == jb.detect_language_pcm(MODEL, pcm)
+
+
+@pytest.mark.parametrize("rate", [8000, 44100])
+def test_non_16k_input_is_resampled_like_jax(backends, rate):
+    """A WAV at another rate goes through the polyphase resampler, in the
+    backend and in the REST handler's ingest, and decodes to the same
+    response as in the JAX package."""
+    from open_speech_tpu.audio.ingest import convert_to_wav as jax_convert
+    from open_speech_tpu_torch.runtime.router import BackendRouter, transcription_response
+
+    jb, tb = backends
+    clip = _clips()["beeps3"]
+    src = np.interp(np.arange(int(len(clip) * rate / SR)) * SR / rate, np.arange(len(clip)), clip)
+    wav = jcodec.write_wav(src.astype(np.float32), rate)
+    kw = dict(language="en", beam_size=1, fallback=False, response_format="verbose_json")
+    _assert_close(tb.transcribe(wav, MODEL, **kw), jb.transcribe(wav, MODEL, **kw))
+    router = BackendRouter(device="cpu")
+    router.load_model(MODEL)
+    body = transcription_response(router, wav, model=MODEL, language="en")
+    assert body == {"text": jb.transcribe(jax_convert(wav), MODEL, language="en")["text"]}

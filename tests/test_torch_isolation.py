@@ -1,8 +1,9 @@
-"""The PyTorch port stands alone: no jax, nothing of open_speech_tpu.
+"""The PyTorch port stands alone: no jax, no aiohttp, nothing of
+open_speech_tpu.
 
-``open_speech_tpu_torch`` runs where JAX is not installed, so importing it
-(and every submodule) must pull in neither ``jax`` nor any module of the
-JAX package. The check runs in a fresh interpreter, because this test
+``open_speech_tpu_torch`` runs where JAX and aiohttp are not installed, so
+importing it (and every submodule, the streaming session included) must
+pull in neither ``jax``, ``aiohttp`` nor any module of the JAX package. The check runs in a fresh interpreter, because this test
 process already imported both.
 """
 
@@ -27,8 +28,9 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "aiohttp" or m.startswith("aiohttp.")
              or m == "open_speech_tpu" or m.startswith("open_speech_tpu."))
-print(len(names), ",".join(bad))
+print(len(names), ",".join(bad), int("open_speech_tpu_torch.server.streaming" in names))
 """
 
 
@@ -37,13 +39,16 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
         [sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
         text=True, timeout=120, check=True,
     ).stdout.split()
-    n_modules, bad = int(out[0]), (out[1] if len(out) > 1 else "")
-    assert n_modules >= 20, "walk_packages should find every submodule"
+    n_modules, streaming = int(out[0]), out[-1]
+    bad = out[1] if len(out) == 3 else ""
+    assert n_modules >= 27, "walk_packages should find every submodule"
+    assert streaming == "1", "the streaming session must be among them"
     assert bad == "", f"port imported: {bad}"
 
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+jaxlib\b|"
+    r"import\s+aiohttp\b|from\s+aiohttp\b|"
     r"import\s+open_speech_tpu(\.|\s|$)|from\s+open_speech_tpu(\.|\s))",
     re.MULTILINE,
 )
