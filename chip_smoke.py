@@ -7,13 +7,17 @@ Phases, each of which raises on failure (exit code 1, no result line):
 
   1. device: CUDA with capability (9, 0); prints the card's name and power
      limit as nvidia-smi reports them.
-  2. build: compiles the port's CUDA kernels from ``kernels/csrc`` with nvcc.
+  2. build: compiles the port's CUDA kernels from ``kernels/csrc`` with nvcc
+     and prints each kernel's registers, shared memory and spills; fails if
+     a bf16 kernel spills.
   3. kernels: each kernel (K1 flash attention, K2 length-masked flash
-     attention) against its plain PyTorch version on the card, at the shapes
-     the served paths give it, in bf16 and f32; times at the whisper encoder
-     shape and the streaming block shape (kernel, plain version, the PyTorch
-     library call as a yardstick, and the card's lower bound for the same
-     work).
+     attention and its split-combine pass) against its plain PyTorch version
+     on the card, at the shapes the served paths give it, in bf16 and f32;
+     times at the whisper encoder shape and the streaming block shape
+     (kernel, plain version, the PyTorch library call as a yardstick, and
+     the card's lower bound for the same work), rates and shares of the
+     bound, K2's split count and blocks, and the wrapper's host time per
+     call.
   4. REST path: whisper-large-v3-turbo (random weights from seed 0, bf16)
      through the port's router with the REST defaults (beam 5, temperature
      fallback), at full width; counts K1 launches per request.
@@ -35,6 +39,7 @@ from __future__ import annotations
 
 import asyncio
 import json
+import re
 import subprocess
 import sys
 import time
@@ -48,8 +53,13 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` in ms, from CUDA events after warmup."""
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, *, held: bool = False) -> float:
+    """Mean time per call of ``fn`` in ms, from CUDA events around ``iters``
+    back-to-back calls after warmup. The span includes the host's time
+    between launches where the card waits for it, so a call whose host side
+    outlasts its kernels reads its host time. With ``held`` a sleep kernel
+    holds the card while the host queues the calls, so the span is the
+    kernels' device time only."""
     import torch
 
     for _ in range(warmup):
@@ -57,12 +67,34 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if held:
+        torch.cuda._sleep(20_000_000)  # ~10 ms at the H100's clocks
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, calls: int = 1000, rounds: int = 5) -> tuple[float, float]:
+    """Host microseconds per call of ``fn``: the median and the least over
+    ``rounds`` runs of ``calls`` calls without a sync in between (the host
+    is shared, so runs spread; the least is the call's own cost)."""
+    import statistics
+
+    import torch
+
+    fn()
+    per_call = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_call.append((time.perf_counter() - t0) / calls)
+    torch.cuda.synchronize()
+    return 1e6 * statistics.median(per_call), 1e6 * min(per_call)
 
 
 # ── phase 1: device ──────────────────────────────────────────────────────
@@ -86,30 +118,63 @@ def phase_device() -> dict:
 # ── phase 2: build ───────────────────────────────────────────────────────
 
 
+def ptxas_kernels(text: str) -> list[dict]:
+    """Each entry function of ``nvcc -Xptxas -v`` output: its mangled name
+    (``...14flash_fwd_bf16ILi64ELb0E...`` is ``flash_fwd_bf16<64, false>``),
+    registers, static shared memory and spill bytes (stores + loads)."""
+    kernels, entry = [], None
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            entry = {"name": m.group(1), "spill_bytes": 0}
+        elif entry and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            entry["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        elif entry and (m := re.search(r"Used (\d+) registers", line)):
+            smem = re.search(r"(\d+) bytes smem", line)
+            entry.update(registers=int(m.group(1)), smem_bytes=int(smem.group(1)) if smem else 0)
+            kernels.append(entry)
+            entry = None
+    return kernels
+
+
 def phase_build() -> None:
     from open_speech_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
     logs = build.build(force=True)  # from the checkout's sources
     log(f"build: {len(logs)} kernel source(s) in {time.perf_counter() - t0:.2f} s")
+    smem_bytes = build.load("flash_attention").os_flash_attention_smem_bytes
     for stem, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"  {stem}: {line.strip()}")
+        kernels = ptxas_kernels(text)
+        for k in kernels:
+            dyn = ""
+            if t := re.search(r"14flash_fwd_bf16ILi(\d+)E", k["name"]):
+                dyn = f" + dynamic {smem_bytes(int(t.group(1)))} B"
+            log(f"  {stem}: registers {k['registers']:3d} smem {k['smem_bytes']} B{dyn} "
+                f"spills {k['spill_bytes']} B  {k['name']}")
+        spilled = [k["name"] for k in kernels if "_bf16" in k["name"] and k["spill_bytes"]]
+        if not kernels or spilled:
+            raise AssertionError(f"{stem}: bf16 kernels that spill: {spilled} "
+                                 f"({len(kernels)} kernels read from ptxas)")
 
 
 # ── phase 3: kernels against their plain versions ────────────────────────
 
 # (B, H, Tq, Tk, D, causal): the encoder, the decoder prefill at the prompt
-# lengths the seek loop makes, rectangular causal both ways, test-tiny
+# lengths the seek loop makes (and beam 5 x 36), rectangular causal both
+# ways, a causal diagonal one row into a second 64-row block, cross
+# attention one row past two 64-row blocks, test-tiny
 FLASH_SHAPES = [
     (1, 20, 1500, 1500, 64, False),
+    (1, 2, 1500, 1500, 64, False),
     (1, 20, 1, 1, 64, True),
     (1, 20, 3, 3, 64, True),
     (1, 20, 12, 12, 64, True),
     (1, 20, 140, 140, 64, True),
+    (5, 20, 36, 36, 64, True),
     (2, 4, 37, 100, 64, True),
     (2, 4, 100, 37, 64, True),
+    (1, 2, 65, 65, 64, True),
+    (1, 3, 129, 1500, 64, False),
     (1, 2, 60, 60, 32, False),
     (1, 2, 60, 60, 32, True),
 ]
@@ -127,13 +192,16 @@ def _limit(name: str, ref) -> float:
 
 
 # K2, (B, H, Tq, Tk, D, causal, kv lengths): the streaming block against
-# the 1500-position caches at four lengths, length 0 beside a ragged one
+# the 1500-position caches at four lengths, then at lengths around its
+# 128-key tiles and split boundaries, length 0 beside a ragged one
 # (non-causal and causal), the test-tiny block
 VARLEN_SHAPES = [
     (1, 20, 128, 1500, 64, False, (128,)),
     (1, 20, 128, 1500, 64, False, (256,)),
     (1, 20, 128, 1500, 64, False, (700,)),
     (1, 20, 128, 1500, 64, False, (1500,)),
+    *((1, 4, 128, 1500, 64, False, (n,))
+      for n in (1, 63, 64, 65, 127, 128, 129, 255, 256, 1499, 1500)),
     (2, 4, 37, 100, 64, False, (0, 53)),
     (2, 4, 37, 100, 64, True, (0, 53)),
     (1, 2, 60, 60, 32, False, (17,)),
@@ -190,16 +258,27 @@ def phase_kernels() -> list[dict]:
             log(f"flash_attention {name:8s} [{b},{h},{t_q},{t_k},{d}] causal={int(causal)} "
                 f"max_abs_err {err:.3e} (tol {limit:.3e})")
 
-    # times at the encoder shape, bf16 (the served path)
+    # times at the encoder shape, bf16 (the served path): blocks of one
+    # warpgroup (64 rows), two blocks per SM; device_ms with the queue held
     b, h, t, d = 1, 20, 1500, 64
     q, k, v = (torch.randn(b, h, t, d, generator=gen, device="cuda").to(torch.bfloat16)
                for _ in range(3))
     kernel_ms = cuda_ms(lambda: A.flash_attention(q, k, v))
     plain_ms = cuda_ms(lambda: A.flash_attention_reference(q, k, v), iters=10)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    device_ms = cuda_ms(lambda: A.flash_attention(q, k, v), held=True)
+    library_device_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), held=True)
     bound_ms, bound_by = _flash_bound_ms(b, h, t, t, d, False, 2)
+    blocks = -(-t // A.BLOCK_Q) * h * b
     log(f"flash_attention bf16 [1,20,1500,64]: kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} "
-        f"library_ms {library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by})")
+        f"library_ms {library_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) "
+        f"TFLOP/s {4 * b * h * t * t * d / kernel_ms / 1e9:.1f} share_of_bound "
+        f"{bound_ms / kernel_ms:.4f} blocks {blocks} waves {blocks / (2 * A.N_SMS):.2f}; "
+        f"device_ms (queue held) kernel {device_ms:.4f} library {library_device_ms:.4f}")
+    qp = torch.randn(5, 20, 3, d, generator=gen, device="cuda").to(torch.bfloat16)
+    med, least = host_us(lambda: A.flash_attention(qp, qp, qp, causal=True))
+    log(f"flash_attention bf16 [5,20,3,3,64] causal (a beam-5 prefill): host_us per call "
+        f"{med:.2f} median, {least:.2f} least (5 x 1000 calls, no sync)")
     k1 = {
         "name": "flash_attention",
         "route": "cuda",
@@ -213,7 +292,7 @@ def phase_kernels() -> list[dict]:
         "bound_by": bound_by,
         "library_ms": library_ms,
     }
-    return [k1, _phase_kernels_varlen(gen)]
+    return [k1, _phase_kernels_varlen(gen), _phase_kernels_combine(gen)]
 
 
 def _phase_kernels_varlen(gen) -> dict:
@@ -246,14 +325,18 @@ def _phase_kernels_varlen(gen) -> dict:
             worst = max(worst, err)
             log(f"{tag} max_abs_err {err:.3e} (tol {limit:.3e})")
 
-    # times at the streaming block shape, bf16 (the served path), at the
-    # length of an early block and of the full window
+    # times at the streaming block shape, bf16 (the served path), from the
+    # length of the first block to the full window; the kernel's time is
+    # the wrapper's (the split kernel, then the combine); device_ms with the
+    # queue held
     b, h, t_q, t_k, d = 1, 20, 128, 1500, 64
     q = torch.randn(b, h, t_q, d, generator=gen, device="cuda").to(torch.bfloat16)
     k, v = (torch.randn(b, h, t_k, d, generator=gen, device="cuda").to(torch.bfloat16)
             for _ in range(2))
+    splits, per = A.plan_splits(b, h, t_q, t_k)
+    blocks = -(-t_q // A.BLOCK_Q) * h * b * splits
     times = {}
-    for n in (256, 1500):
+    for n in (128, 256, 700, 1500):
         lens = torch.tensor([n], dtype=torch.int32, device="cuda")
         kp, vp = k[:, :, :n], v[:, :, :n]
         times[n] = (
@@ -262,9 +345,21 @@ def _phase_kernels_varlen(gen) -> dict:
             cuda_ms(lambda: F.scaled_dot_product_attention(q, kp, vp)),
             *_flash_bound_ms(b, h, t_q, t_k, d, False, 2, [n]),
         )
-        log(f"flash_attention_varlen bf16 [1,20,128,1500,64] length {n}: kernel_ms {times[n][0]:.4f} "
+        kernel_ms, bound_ms = times[n][0], times[n][3]
+        device_ms = cuda_ms(lambda: A.flash_attention(q, k, v, kv_length=lens), held=True)
+        library_device_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, kp, vp), held=True)
+        nbytes = h * (2 * t_q + 2 * n) * d * 2 + 4
+        log(f"flash_attention_varlen bf16 [1,20,128,1500,64] length {n}: kernel_ms {kernel_ms:.4f} "
             f"plain_ms {times[n][1]:.4f} library_ms {times[n][2]:.4f} "
-            f"bound_ms {times[n][3]:.4f} ({times[n][4]})")
+            f"bound_ms {bound_ms:.4f} ({times[n][4]}) GB/s {nbytes / kernel_ms / 1e6:.1f} "
+            f"share_of_bound {bound_ms / kernel_ms:.4f} splits {splits} x {per} tiles "
+            f"blocks {blocks}; device_ms (queue held) kernel {device_ms:.4f} "
+            f"library {library_device_ms:.4f}")
+    lens = torch.tensor([700], dtype=torch.int32, device="cuda")
+    med, least = host_us(lambda: A.flash_attention(q, k, v, kv_length=lens))
+    log(f"flash_attention_varlen bf16 [1,20,128,1500,64] length 700: host_us per call "
+        f"{med:.2f} median, {least:.2f} least (5 x 1000 calls, no sync; the split kernel "
+        "and the combine)")
     kernel_ms, plain_ms, library_ms, bound_ms, bound_by = times[1500]
     return {
         "name": "flash_attention_varlen",
@@ -281,6 +376,49 @@ def _phase_kernels_varlen(gen) -> dict:
     }
 
 
+def _phase_kernels_combine(gen) -> dict:
+    """K2's combine pass against its plain version on random partials at
+    the streaming block's split shape, one split with no key; its times."""
+    import torch
+
+    from open_speech_tpu_torch.ops import attention as A
+
+    b, h, t_q, d = 1, 20, 128, 64
+    s, _ = A.plan_splits(b, h, t_q, 1500)
+    o_part = torch.randn(b, s, h, t_q, d, generator=gen, device="cuda")
+    m_part = 4 * torch.randn(b, s, h, t_q, generator=gen, device="cuda")
+    l_part = torch.rand(b, s, h, t_q, generator=gen, device="cuda") + 0.5
+    o_part[:, -1], m_part[:, -1], l_part[:, -1] = 0.0, float("-inf"), 0.0  # past the length
+    out = A.flash_combine(o_part, m_part, l_part)
+    torch.cuda.synchronize()
+    ref = A.flash_combine_reference(o_part, m_part, l_part)
+    err = (out.float() - ref).abs().max().item()
+    limit = _limit("bfloat16", ref)
+    if not (out.shape == (b, h, t_q, d) and err <= limit):
+        raise AssertionError(f"flash_combine [{b},{s},{h},{t_q},{d}]: max_abs_err {err:.3e} > {limit:.3e}")
+    kernel_ms = cuda_ms(lambda: A.flash_combine(o_part, m_part, l_part))
+    plain_ms = cuda_ms(lambda: A.flash_combine_reference(o_part, m_part, l_part), iters=10)
+    device_ms = cuda_ms(lambda: A.flash_combine(o_part, m_part, l_part), held=True)
+    nbytes = b * s * h * t_q * (d + 2) * 4 + b * h * t_q * d * 2
+    bound_ms = 1e3 * nbytes / H100_BYTES_PER_S
+    log(f"flash_combine [{b},{s},{h},{t_q},{d}] max_abs_err {err:.3e} (tol {limit:.3e}) "
+        f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} (bytes); "
+        f"device_ms (queue held) {device_ms:.4f}")
+    return {
+        "name": "flash_combine",
+        "route": "cuda",
+        "source": "open_speech_tpu_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "open_speech_tpu/ops/attention.py:271",
+        "launches": 0,
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -294,7 +432,7 @@ def main() -> int:
     launches, router = phase_main()
     launches.update(phase_streaming(router))
     phase_fixture()
-    for entry in kernels:  # K1 from the REST path, K2 from the streaming path
+    for entry in kernels:  # K1 from the REST path, K2 and its combine from streaming
         entry["launches"] = launches.get(entry["name"], 0)
         if entry["launches"] == 0:
             raise AssertionError(f"{entry['name']} was not launched on its path")
@@ -518,10 +656,10 @@ def phase_streaming(router) -> dict:
     finally:
         entry["tok"] = real_tok
         router.transcribe = real_transcribe
-    return {"flash_attention_varlen": s1 + s2}
+    return {"flash_attention_varlen": s1[0] + s2[0], "flash_combine": s1[1] + s2[1]}
 
 
-def _stream_s1(router, entry: dict, executor_calls: list) -> int:
+def _stream_s1(router, entry: dict, executor_calls: list) -> tuple[int, int]:
     """29 s of 16 kHz PCM16, paced; auto-detect, VAD off, interims on."""
     import torch
 
@@ -590,6 +728,7 @@ def _stream_s1(router, entry: dict, executor_calls: list) -> int:
     finally:
         St.flash_attention, St.StreamingWhisperEncoder.interim_states = flash, interim_states
     n_k2, n_k1 = A.launches["flash_attention_varlen"], A.launches["flash_attention"]
+    n_combine = A.launches["flash_combine"]
     session, enc = ws.session, ws.session._inc_encoder
 
     _check_session_bounds("S1", ws)
@@ -607,6 +746,8 @@ def _stream_s1(router, entry: dict, executor_calls: list) -> int:
     blocks = enc.block_encodes + enc.tail_encodes
     if n_k2 != cfg.n_audio_layer * blocks or n_k1 <= 0 or len(k2_events) != n_k2:
         raise AssertionError(f"S1: K2 launches {n_k2} for {blocks} block encodes; K1 {n_k1}")
+    if n_combine != n_k2:  # every block runs split: [1,20,128,1500] plans 4 splits
+        raise AssertionError(f"S1: {n_combine} combine launches for {n_k2} K2 launches")
     if most_committed[0] <= cfg.n_audio_ctx - enc.block_pos:
         raise AssertionError(f"S1: committed {most_committed[0]}: no clamped last block")
     if not isinstance(session._detected_language, str):
@@ -625,11 +766,12 @@ def _stream_s1(router, entry: dict, executor_calls: list) -> int:
         f"p50 {passes[len(passes) // 2]:.4f} max {passes[-1]:.4f}; "
         f"final latency after stop s {final_at - ws.stop_at:.4f}")
     log(f"stream S1 K2 launches {n_k2} = {cfg.n_audio_layer} x ({enc.block_encodes} committed + "
-        f"{enc.tail_encodes} tail block encodes), device s {k2_s:.4f} "
+        f"{enc.tail_encodes} tail block encodes), combine launches {n_combine}, "
+        f"device s {k2_s:.4f} (split kernel + combine) "
         f"({k2_s / wall:.4f} of the session wall); K1 launches {n_k1}; "
         f"most committed positions at an interim {most_committed[0]}")
     _profile_interim(entry, pcm, session._detected_language)
-    return n_k2
+    return n_k2, n_combine
 
 
 def _profile_interim(entry: dict, pcm: bytes, language: str) -> None:
@@ -674,7 +816,7 @@ def _profile_interim(entry: dict, pcm: bytes, language: str) -> None:
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
     k2 = sum(e.self_device_time_total for e in kernels
-             if "flash_fwd" in e.key and "true>" in e.key) / 1e6
+             if ("flash_fwd" in e.key and "true>" in e.key) or "flash_combine" in e.key) / 1e6
     if busy <= 0:
         raise AssertionError("interim profile: no device time in the trace")
     log(f"stream S1 profiled interim pass (committed {enc._committed}, tail from "
@@ -685,7 +827,7 @@ def _profile_interim(entry: dict, pcm: bytes, language: str) -> None:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} x  {e.key[:90]}")
 
 
-def _stream_s2(router) -> int:
+def _stream_s2(router) -> tuple[int, int]:
     """6 s of 8 kHz mu-law, paced; language en, VAD on (the default)."""
     import numpy as np
 
@@ -702,7 +844,7 @@ def _stream_s2(router) -> int:
         A.launches[key] = 0  # count this session only
     asyncio.run(streaming_endpoint(ws, router, model=MAIN_MODEL, language="en",
                                    sample_rate=8000, encoding="mulaw", interim_results=True))
-    n_k2 = A.launches["flash_attention_varlen"]
+    n_k2, n_combine = A.launches["flash_attention_varlen"], A.launches["flash_combine"]
     _check_session_bounds("S2", ws)
     session = ws.session
     if session.vad_state is None or session.vad_state.calls != len(frames):
@@ -711,9 +853,9 @@ def _stream_s2(router) -> int:
     speech = len([e for e in ws.of_type("vad") if e["state"] == "speech_start"])
     log(f"stream S2 8 kHz mulaw {TELEPHONY_SECONDS} s, VAD on (random weights): "
         f"vad_calls {session.vad_state.calls} speech_starts {speech} "
-        f"transcripts {len(ws.of_type('transcript'))} K2 launches {n_k2} "
+        f"transcripts {len(ws.of_type('transcript'))} K2 launches {n_k2} combine {n_combine} "
         f"vad_device {session.vad_state.session.device}")
-    return n_k2
+    return n_k2, n_combine
 
 
 # ── phase 6: the trained fixture, card against CPU ───────────────────────

@@ -8,7 +8,10 @@ Counterpart of ``open_speech_tpu/ops/attention.py``:
     without lengths, K2 with them); a CPU tensor runs their plain versions
     ``flash_attention_reference`` and ``flash_attention_varlen_reference``.
     There is no fallback between the two: a CUDA call that cannot launch
-    raises.
+    raises. In bf16, K2 splits the kv axis over more blocks
+    (``plan_splits``) and ``flash_combine`` merges the splits' partials;
+    ``flash_attention_partial_reference`` and ``flash_combine_reference``
+    are the plain versions of the two passes.
   - ``decode_attention`` and ``beam_select_attention``: single-position
     attention over a padded KV cache, as plain PyTorch on either device.
 
@@ -18,13 +21,23 @@ Layouts are the JAX package's: q/k/v [B, H, T, D].
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
 NEG_INF = -1e30
+LOG2E = math.log2(math.e)
 
-# launches of the flash kernels (K1, K2), counted where each is launched
-launches = {"flash_attention": 0, "flash_attention_varlen": 0}
+# launches of the flash kernels (K1, K2 and K2's combine pass), counted
+# where each is launched
+launches = {"flash_attention": 0, "flash_attention_varlen": 0, "flash_combine": 0}
+
+# the bf16 kernel's tiles (kBlockN keys, kBlockQ query rows per block in
+# flash_attention.cu) and the card's SM count, which K2's split plan fills
+BLOCK_N = 128
+BLOCK_Q = 64
+N_SMS = 132
 
 
 def mha_reference(
@@ -83,11 +96,91 @@ def flash_attention_varlen_reference(
     return mha_reference(q, k, v, causal=causal, kv_length=kv_length, scale=scale)
 
 
+@functools.lru_cache(maxsize=256)
+def plan_splits(b: int, h: int, t_q: int, t_k: int) -> tuple[int, int]:
+    """K2's kv split in bf16: ``(splits, tiles_per_split)`` from the shape
+    alone (the lengths stay on the card). The fewest splits that give every
+    SM a block, with at least two 128-key tiles per split; each split owns
+    ``tiles_per_split`` whole tiles and none is empty."""
+    tiles = max(1, -(-t_k // BLOCK_N))
+    blocks = b * h * -(-t_q // BLOCK_Q)  # query blocks
+    splits = max(1, min(-(-N_SMS // blocks), tiles // 2))
+    per = -(-tiles // splits)
+    return -(-tiles // per), per
+
+
+def split_ranges(t_k: int, tiles_per_split: int) -> list[tuple[int, int]]:
+    """The kv ranges [begin, end) of the splits: whole tiles, covering [0, Tk)."""
+    step = tiles_per_split * BLOCK_N
+    return [(lo, min(lo + step, t_k)) for lo in range(0, max(t_k, 1), step)]
+
+
+def flash_attention_partial_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_begin: int,
+    kv_end: int,
+    *,
+    causal: bool = False,
+    kv_length: torch.Tensor | None = None,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One kv split of K2, plain: the keys in [kv_begin, kv_end) that each
+    row sees (causal bound, ``kv_length``), in float32.
+
+    With x_j = (q . k_j) * scale * log2(e): m [B,H,Tq] = max_j x_j (-inf
+    where the row sees no key of the range), l = sum_j 2^(x_j - m) and the
+    unnormalised o [B,H,Tq,D] = sum_j 2^(x_j - m) v_j. V rows at or past
+    the length count as zeros, as the kernel zeroes them.
+    """
+    b, h, t_q, d = q.shape
+    t_k = k.shape[2]
+    scale = (d**-0.5) if scale is None else scale
+    if kv_end <= kv_begin:
+        return (q.new_zeros(b, h, t_q, d, dtype=torch.float32),
+                q.new_full((b, h, t_q), -math.inf, dtype=torch.float32),
+                q.new_zeros(b, h, t_q, dtype=torch.float32))
+    keys = torch.arange(kv_begin, kv_end, device=q.device)
+    x = torch.matmul(q.float(), k[:, :, kv_begin:kv_end].float().transpose(-1, -2))
+    x = x * (scale * LOG2E)
+    seen = torch.ones(1, 1, t_q, keys.numel(), dtype=torch.bool, device=q.device)
+    vs = v[:, :, kv_begin:kv_end].float()
+    if causal:
+        rows = torch.arange(t_q, device=q.device)[:, None]
+        seen = seen & (keys[None, :] <= rows + (t_k - t_q))
+    if kv_length is not None:
+        live = keys[None, :] < kv_length.to(q.device)[:, None]  # [B, n]
+        seen = seen & live[:, None, None, :]
+        vs = torch.where(live[:, None, :, None], vs, 0.0)
+    x = torch.where(seen, x, -math.inf)
+    m = x.amax(dim=-1)
+    p = torch.exp2(x - torch.where(m == -math.inf, 0.0, m)[..., None])
+    o = torch.matmul(p.to(v.dtype).float(), vs)
+    return o, m, p.sum(dim=-1)
+
+
+def flash_combine_reference(
+    o_part: torch.Tensor, m_part: torch.Tensor, l_part: torch.Tensor
+) -> torch.Tensor:
+    """K2's combine pass, plain: merges S partials o_part [B,S,H,Tq,D],
+    m_part and l_part [B,S,H,Tq] (``flash_attention_partial_reference``'s
+    (o, m, l) per split) into [B,H,Tq,D] float32, with log-sum-exp weights
+    2^(m_s - max m); zeros where every l_s is 0."""
+    mx = m_part.amax(dim=1, keepdim=True)
+    w = torch.exp2(m_part - torch.where(mx == -math.inf, 0.0, mx))
+    live = (w > 0)[..., None]
+    o = torch.where(live, w[..., None] * o_part, 0.0).sum(dim=1)
+    l = (w * l_part).sum(dim=1)
+    return o * torch.where(l > 0, 1.0 / l, 0.0)[..., None]
+
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {  # C entry -> argument types after the four tensor pointers
     "os_flash_attention_fwd": [_I] * 6 + [ctypes.c_float, _I, _P],
-    "os_flash_attention_varlen_fwd": [_P] + [_I] * 6 + [ctypes.c_float, _I, _P],
+    "os_flash_attention_varlen_fwd": [_P] * 3 + [_I] * 8 + [ctypes.c_float, _I, _P],
+    "os_flash_combine": [_I] * 5 + [_P],
 }
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
@@ -104,13 +197,19 @@ def _kernel(entry: str):
     return fn
 
 
+_hopper: set[int] = set()  # device indices checked
+
+
 def _check_hopper(device: torch.device) -> None:
+    if device.index in _hopper:
+        return
     cap = torch.cuda.get_device_capability(device)
     if cap != (9, 0):
         raise RuntimeError(
             f"flash_attention's kernel is built for sm_90a (Hopper); "
             f"{torch.cuda.get_device_name(device)} has capability {cap}"
         )
+    _hopper.add(device.index)
 
 
 def flash_attention(
@@ -126,9 +225,10 @@ def flash_attention(
 
     ``kv_length`` [B] (integer): keys at or past it are masked, per example.
     A CPU tensor runs the plain version. A CUDA tensor launches the sm_90a
-    kernel on the current stream (K1, or K2 with ``kv_length``), or raises
-    on anything the kernel does not take. Rows with zero attendable keys
-    return zeros on both paths.
+    kernel on the current stream (K1, or K2 with ``kv_length``; in bf16 K2
+    runs ``plan_splits`` kv splits and, when there is more than one, the
+    combine pass), or raises on anything the kernel does not take. Rows with
+    zero attendable keys return zeros on both paths.
     """
     if not q.is_cuda:
         if kv_length is not None:
@@ -175,23 +275,85 @@ def flash_attention(
         # int32 on the device; no host sync (the kernel clamps to [0, Tk])
         kv_length = kv_length.to(torch.int32).contiguous()
     _check_hopper(q.device)
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
+    if q.numel() == 0:
+        return torch.empty_like(q)
     scale = (d**-0.5) if scale is None else float(scale)
+    if q.dtype == torch.bfloat16 and not scale > 0:
+        raise ValueError(f"flash_attention: the bf16 kernel takes a positive scale, not {scale}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    tensors = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     shape = (b, h, t_q, t_k, d, _DTYPE_CODES[q.dtype], scale, int(causal), stream)
     if kv_length is None:
-        name, err = "flash_attention", _kernel("os_flash_attention_fwd")(*tensors, *shape)
-    else:
-        name = "flash_attention_varlen"
-        err = _kernel("os_flash_attention_varlen_fwd")(
-            *tensors, kv_length.data_ptr(), *shape
+        out = torch.empty_like(q)
+        err = _kernel("os_flash_attention_fwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *shape
         )
+        _launched("flash_attention", err)
+        return out
+    # f32 (the scalar kernel) runs one split over every tile
+    tiles = max(1, -(-t_k // BLOCK_N))
+    splits, per = plan_splits(b, h, t_q, t_k) if q.dtype == torch.bfloat16 else (1, tiles)
+    out = torch.empty_like(q)
+    qkv = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    varlen = _kernel("os_flash_attention_varlen_fwd")
+    if splits == 1:
+        err = varlen(*qkv, out.data_ptr(), kv_length.data_ptr(), None, None, 1, per, *shape)
+        _launched("flash_attention_varlen", err)
+        return out
+    # one f32 workspace [B,S,H,Tq] x (D + 2): the partial O, then m, then l
+    rows = b * splits * h * t_q
+    ws = torch.empty(rows * (d + 2), dtype=torch.float32, device=q.device)
+    o_part = ws.data_ptr()
+    m_part, l_part = o_part + 4 * rows * d, o_part + 4 * rows * (d + 1)
+    err = varlen(*qkv, o_part, kv_length.data_ptr(), m_part, l_part, splits, per, *shape)
+    _launched("flash_attention_varlen", err)
+    _combine(o_part, m_part, l_part, out, (b, splits, h, t_q, d), stream)
+    return out
+
+
+def _launched(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     launches[name] += 1
+
+
+def _combine(o_part: int, m_part: int, l_part: int, out: torch.Tensor, dims, stream) -> None:
+    """Launches the combine kernel on partials given by device pointers
+    (dims: B, S, H, Tq, D) into ``out``: its one launch site, for
+    ``flash_attention``'s split path and for ``flash_combine``."""
+    err = _kernel("os_flash_combine")(o_part, m_part, l_part, out.data_ptr(), *dims, stream)
+    _launched("flash_combine", err)
+
+
+def flash_combine(
+    o_part: torch.Tensor, m_part: torch.Tensor, l_part: torch.Tensor
+) -> torch.Tensor:
+    """Merges K2's kv-split partials (o_part [B,S,H,Tq,D], m_part and
+    l_part [B,S,H,Tq], float32, contiguous) into [B,H,Tq,D] bfloat16.
+
+    A CPU tensor runs ``flash_combine_reference``; a CUDA tensor launches
+    the combine kernel on the current stream or raises.
+    """
+    if not o_part.is_cuda:
+        return flash_combine_reference(o_part, m_part, l_part).to(torch.bfloat16)
+    if o_part.dim() != 5 or m_part.shape != o_part.shape[:4] or l_part.shape != m_part.shape:
+        raise ValueError(
+            f"flash_combine: shapes {tuple(o_part.shape)}, {tuple(m_part.shape)}, "
+            f"{tuple(l_part.shape)}; want [B,S,H,Tq,D] and [B,S,H,Tq] twice"
+        )
+    b, splits, h, t_q, d = o_part.shape
+    parts = (o_part, m_part, l_part)
+    if any(t.dtype != torch.float32 or not t.is_contiguous() or t.device != o_part.device
+           for t in parts) or d not in (32, 64) or o_part.data_ptr() % 16:
+        raise ValueError(
+            "flash_combine: partials must be contiguous float32 on one device, "
+            "O 16-byte aligned, D 32 or 64"
+        )
+    _check_hopper(o_part.device)
+    out = torch.empty(b, h, t_q, d, dtype=torch.bfloat16, device=o_part.device)
+    if out.numel() == 0:
+        return out
+    _combine(*(t.data_ptr() for t in parts), out, (b, splits, h, t_q, d),
+             torch.cuda.current_stream(o_part.device).cuda_stream)
     return out
 
 

@@ -151,8 +151,82 @@ def test_flash_varlen_plain_matches_jax_kernel_and_reference(b, h, t_q, t_k, d, 
 
 
 def test_flash_launch_counters_name_both_kernels():
-    assert set(TA.launches) == {"flash_attention", "flash_attention_varlen"}
+    """K1, K2 and K2's combine pass each have a counter; the plain versions
+    on the CPU launch nothing."""
+    assert set(TA.launches) == {"flash_attention", "flash_attention_varlen", "flash_combine"}
     q = torch.zeros(1, 1, 4, 32)
     before = dict(TA.launches)
     TA.flash_attention(q, q, q, kv_length=torch.tensor([2]))
+    TA.flash_combine(torch.zeros(1, 2, 1, 4, 32), torch.zeros(1, 2, 1, 4), torch.ones(1, 2, 1, 4))
     assert TA.launches == before, "the plain version on the CPU launches nothing"
+
+
+# K2's kv split: (B, H, Tq, Tk, D, causal, tiles per split, lengths). Lengths
+# 0 and 1, both sides of each 128-key split boundary, Tk; with one tile per
+# split the later splits of the short lengths lie wholly past the length;
+# causal with Tq > Tk leaves rows that see no key
+SPLIT_CASES = [
+    (9, 2, 5, 300, 32, False, 1, (0, 1, 127, 128, 129, 255, 256, 257, 300)),
+    (9, 1, 20, 300, 64, True, 1, (0, 1, 127, 128, 129, 255, 256, 257, 300)),
+    (4, 2, 7, 700, 32, False, 2, (1, 255, 256, 700)),
+    (2, 1, 40, 30, 32, True, 1, (30, 29)),
+]
+
+
+@pytest.mark.parametrize("b,h,t_q,t_k,d,causal,per,lens", SPLIT_CASES)
+def test_split_partials_combine_to_the_reference(b, h, t_q, t_k, d, causal, per, lens):
+    """Partials of each kv split (``flash_attention_partial_reference``)
+    merged by ``flash_combine_reference`` equal ``mha_reference`` (f32), and
+    rows with no key are exact zeros."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(b, h, t_q, t_k, d, seed=t_k + per))
+    kv_length = torch.tensor(lens)
+    parts = [
+        TA.flash_attention_partial_reference(q, k, v, lo, hi, causal=causal, kv_length=kv_length)
+        for lo, hi in TA.split_ranges(t_k, per)
+    ]
+    o_part, m_part, l_part = (torch.stack([p[i] for p in parts], dim=1) for i in range(3))
+    out = TA.flash_combine_reference(o_part, m_part, l_part)
+    ref = TA.mha_reference(q, k, v, causal=causal, kv_length=kv_length)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=TOL, rtol=0)
+    seen = torch.isfinite(m_part).any(dim=1)  # [B, H, Tq]: the row saw some key
+    assert not out[~seen].any(), "rows with no key must be exact zeros"
+    if 0 in lens:
+        assert not out[lens.index(0)].any()
+
+
+def test_split_partials_ignore_values_past_the_length():
+    """V past the length counts as zeros in the split that holds it: NaN
+    there leaves the merged output finite and unchanged."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 2, 6, 300, 32, seed=1))
+    kv_length = torch.tensor([150])
+    def merged(v):
+        parts = [TA.flash_attention_partial_reference(q, k, v, lo, hi, kv_length=kv_length)
+                 for lo, hi in TA.split_ranges(300, 1)]
+        return TA.flash_combine_reference(*(torch.stack([p[i] for p in parts], 1) for i in range(3)))
+    clean = merged(v)
+    v[:, :, 150:] = float("nan")
+    assert torch.equal(merged(v), clean)
+
+
+@pytest.mark.parametrize("t_k", [1, 37, 100, 128, 129, 1500])
+@pytest.mark.parametrize("b,h,t_q", [(1, 20, 128), (1, 4, 128), (2, 1, 5)])
+def test_split_plan_covers_the_keys_in_whole_tiles(b, h, t_q, t_k):
+    splits, per = TA.plan_splits(b, h, t_q, t_k)
+    ranges = TA.split_ranges(t_k, per)
+    assert splits >= 1 and per >= 1 and len(ranges) == splits
+    assert ranges[0][0] == 0 and ranges[-1][1] == t_k
+    for (lo, hi), (nxt, _) in zip(ranges, ranges[1:] + [(t_k, None)]):
+        assert hi == nxt and lo % TA.BLOCK_N == 0 and lo < hi
+        assert hi == t_k or hi - lo == per * TA.BLOCK_N
+    tiles = -(-t_k // TA.BLOCK_N)
+    blocks = b * h * -(-t_q // TA.BLOCK_Q) * splits
+    # every SM gets a block, unless more splits would leave one below two tiles
+    assert per >= 2 or tiles == 1
+    assert blocks >= TA.N_SMS or per == 2 or tiles < 4
+
+
+def test_split_plan_fills_the_card_at_the_streaming_block():
+    """The streaming block [1,20,128,1500]: 4 splits of 3 tiles, 160 blocks
+    on the 132 SMs."""
+    assert TA.plan_splits(1, 20, 128, 1500) == (4, 3)
+    assert 2 * 20 * 4 >= TA.N_SMS

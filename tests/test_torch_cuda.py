@@ -32,7 +32,10 @@ def _limit(dtype: torch.dtype, ref: torch.Tensor) -> float:
 
 # (B, H, Tq, Tk, D, causal): 1- and 3-token prefills, a ragged tail past
 # one 64-row block, end-aligned rectangles both ways (Tq > Tk has zero rows),
-# the test-tiny head dim
+# the test-tiny head dim; the encoder's 1500 (12 128-key tiles, the last
+# ragged; 24 blocks of 64 rows per head), a causal diagonal one row into a
+# second 64-row block, cross attention one row past two 64-row blocks, the
+# beam-5 prefill of 36
 CASES = [
     (1, 2, 1, 1, 64, True),
     (1, 2, 3, 3, 64, True),
@@ -41,6 +44,10 @@ CASES = [
     (2, 3, 100, 37, 64, True),
     (1, 2, 60, 60, 32, False),
     (1, 2, 60, 60, 32, True),
+    (1, 2, 1500, 1500, 64, False),
+    (1, 2, 65, 65, 64, True),
+    (1, 3, 129, 1500, 64, False),
+    (5, 20, 36, 36, 64, True),
 ]
 
 
@@ -97,6 +104,8 @@ def test_kernel_refuses_what_it_does_not_take(card):
                           v[..., :48].contiguous())
     with pytest.raises(ValueError, match="one CUDA device"):
         A.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="positive scale"):  # bf16 folds it into ex2
+        A.flash_attention(q, k, v, scale=-0.125)
     assert A.launches["flash_attention"] == before
 
 
@@ -144,6 +153,77 @@ def test_varlen_kernel_ignores_keys_past_the_length(card):
     v[:, :, 200:] = float("nan")
     dirty = A.flash_attention(q, k, v, kv_length=lens)
     assert torch.equal(clean, dirty)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("length", [1, 63, 64, 65, 127, 128, 129, 255, 256, 1499, 1500])
+def test_varlen_kernel_at_split_and_tile_edges(card, length, dtype):
+    """The streaming block shape at lengths around K2's 128-key tiles and
+    its split boundaries (bf16: 6 splits of 256 keys)."""
+    q, k, v = _qkv(card, 1, 4, 128, 1500, 64, dtype, seed=length)
+    kv_length = torch.tensor([length], dtype=torch.int32, device=card)
+    out = A.flash_attention(q, k, v, kv_length=kv_length)
+    ref = A.flash_attention_varlen_reference(q.float(), k.float(), v.float(), kv_length)
+    assert out.shape == q.shape and out.dtype == dtype
+    assert (out.float() - ref).abs().max().item() <= _limit(dtype, ref)
+
+
+def test_varlen_kernel_ignores_keys_past_the_length_in_an_inner_split(card):
+    """NaN past a length that ends inside a split other than the last: that
+    split zeroes V there, and the later splits load nothing."""
+    assert A.plan_splits(1, 2, 128, 1500) == (6, 2)  # splits of 256 keys
+    q, k, v = _qkv(card, 1, 2, 128, 1500, 64, torch.bfloat16, seed=4)
+    lens = torch.tensor([300], dtype=torch.int32, device=card)  # inside split 1
+    clean = A.flash_attention(q, k, v, kv_length=lens)
+    k[:, :, 300:] = float("nan")
+    v[:, :, 300:] = float("nan")
+    dirty = A.flash_attention(q, k, v, kv_length=lens)
+    assert torch.equal(clean, dirty)
+
+
+@pytest.mark.parametrize("kv", [None, 700])
+def test_kernels_are_deterministic(card, kv):
+    """Two launches give the same bits: K1 at the encoder shape, K2 with its
+    fixed-order combine at the streaming block."""
+    t_q = 1500 if kv is None else 128
+    q, k, v = _qkv(card, 1, 20, t_q, 1500, 64, torch.bfloat16, seed=5)
+    lens = None if kv is None else torch.tensor([kv], dtype=torch.int32, device=card)
+    first = A.flash_attention(q, k, v, kv_length=lens)
+    second = A.flash_attention(q, k, v, kv_length=lens)
+    assert torch.equal(first, second)
+
+
+def test_combine_launches_are_counted(card):
+    """The streaming block in bf16 runs K2 over 4 splits and one combine;
+    f32 and a one-split shape launch no combine."""
+    assert A.plan_splits(1, 20, 128, 1500) == (4, 3)
+    lens = torch.tensor([900], dtype=torch.int32, device=card)
+    before = dict(A.launches)
+    for dtype, t_k, n_combine in ((torch.bfloat16, 1500, 1), (torch.float32, 1500, 0),
+                                  (torch.bfloat16, 200, 0)):
+        q, k, v = _qkv(card, 1, 20, 128, t_k, 64, dtype, seed=6)
+        A.flash_attention(q, k, v, kv_length=lens.clamp(max=t_k))
+        torch.cuda.synchronize()
+        assert A.launches["flash_combine"] == before["flash_combine"] + n_combine
+        before = dict(A.launches)
+
+
+def test_combine_kernel_matches_plain_version(card):
+    """The combine kernel on random partials, one split with no key
+    (m = -inf, l = 0, O = 0), against ``flash_combine_reference``."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    b, s, h, t_q, d = 1, 4, 20, 128, 64
+    o_part = torch.randn(b, s, h, t_q, d, generator=gen, device=card)
+    m_part = 4 * torch.randn(b, s, h, t_q, generator=gen, device=card)
+    l_part = torch.rand(b, s, h, t_q, generator=gen, device=card) + 0.5
+    o_part[:, 3], m_part[:, 3], l_part[:, 3] = 0.0, float("-inf"), 0.0
+    before = A.launches["flash_combine"]
+    out = A.flash_combine(o_part, m_part, l_part)
+    torch.cuda.synchronize()
+    assert A.launches["flash_combine"] == before + 1
+    ref = A.flash_combine_reference(o_part, m_part, l_part)
+    assert out.dtype == torch.bfloat16 and out.shape == (b, h, t_q, d)
+    assert (out.float() - ref).abs().max().item() <= _limit(torch.bfloat16, ref)
 
 
 def test_varlen_kernel_refuses_bad_lengths(card):
