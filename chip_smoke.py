@@ -18,18 +18,28 @@ Phases, each of which raises on failure (exit code 1, no result line):
      the card's lower bound for the same work), rates and shares of the
      bound, K2's split count and blocks, and the wrapper's host time per
      call.
+     K1 also runs at the batch widths of the batch modes: the encoder at 8
+     and 16 windows and a 16-row prompted prefill.
   4. REST path: whisper-large-v3-turbo (random weights from seed 0, bf16)
      through the port's router with the REST defaults (beam 5, temperature
-     fallback), at full width; counts K1 launches per request.
-  5. streaming path: the same loaded model behind two ``/v1/audio/stream``
+     fallback), at full width, loaded with ``OS_STT_BATCHED_LONGFORM`` on;
+     counts K1 launches per request. The sequential requests are at most
+     two windows long; then one 460 s upload (16 chunks, one batch of 16)
+     takes the batched long-form path, its RTFx beside the sequential ones.
+  5. streaming path: the same loaded model behind ``/v1/audio/stream``
      sessions (``server/streaming.py:streaming_endpoint``, an in-process
      client socket): S1 29 s of 16 kHz PCM16 paced in real time, language
      auto-detect, VAD off, interims on; S2 6 s of 8 kHz mu-law with the VAD
      on. Counts K2 launches against the encoder's block encodes and fails if
-     the incremental path fell back to the executor.
+     the incremental path fell back to the executor. S3: eight concurrent
+     sessions of 8 s paced PCM16 through the continuous batcher
+     (``OS_BATCHER_ENABLED``, incremental encoder off); every pass must go
+     through the batcher, and each tick may sync with the host once (CUDA's
+     sync debug mode counts the syncs of ticks run on this thread).
   6. fixture: the trained tiny checkpoint ``tests/fixtures/test-tiny-eot``
-     in float32 on the card against the CPU; REST tokens and streaming
-     session events must be equal.
+     in float32 on the card against the CPU; REST tokens, streaming session
+     events, the batcher's tokens (and B=1 greedy's) and a 75 s batched
+     long-form request must be equal.
 
 The last two lines of standard output are the kernels' JSON line and the
 result line ``{"ok": true, "device": {...}}``.
@@ -279,6 +289,7 @@ def phase_kernels() -> list[dict]:
     med, least = host_us(lambda: A.flash_attention(qp, qp, qp, causal=True))
     log(f"flash_attention bf16 [5,20,3,3,64] causal (a beam-5 prefill): host_us per call "
         f"{med:.2f} median, {least:.2f} least (5 x 1000 calls, no sync)")
+    worst = max(worst, _phase_kernels_batched(gen))
     k1 = {
         "name": "flash_attention",
         "route": "cuda",
@@ -293,6 +304,54 @@ def phase_kernels() -> list[dict]:
         "library_ms": library_ms,
     }
     return [k1, _phase_kernels_varlen(gen), _phase_kernels_combine(gen)]
+
+
+# K1 at the batch modes' widths (bf16): the encoder over 8 and 16 windows
+# (B*H = 160 and 320 heads in the kernel's 3-D tensor maps), the prompted
+# prefill of a 16-row batch (1 + 32 + 3 tokens)
+BATCHED_SHAPES = [
+    (8, 20, 1500, 1500, 64, False),
+    (16, 20, 1500, 1500, 64, False),
+    (16, 20, 36, 36, 64, True),
+]
+
+
+def _phase_kernels_batched(gen) -> float:
+    """K1 against its plain version at the batched shapes, then its times
+    there: per call, device (queue held), SDPA's, the bound and its share.
+    Returns the largest error."""
+    import torch
+    import torch.nn.functional as F
+
+    from open_speech_tpu_torch.ops import attention as A
+
+    worst = 0.0
+    for b, h, t_q, t_k, d, causal in BATCHED_SHAPES:
+        q = torch.randn(b, h, t_q, d, generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn(b, h, t_k, d, generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        out = A.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        ref = A.flash_attention_reference(q.float(), k.float(), v.float(), causal=causal)
+        err = (out.float() - ref).abs().max().item()
+        limit = _limit("bfloat16", ref)
+        tag = f"flash_attention bf16 [{b},{h},{t_q},{t_k},{d}] causal={int(causal)}"
+        del ref
+        if not (out.shape == q.shape and err <= limit):
+            raise AssertionError(f"{tag}: max_abs_err {err:.3e} > {limit:.3e}")
+        worst = max(worst, err)
+        kernel_ms = cuda_ms(lambda: A.flash_attention(q, k, v, causal=causal))
+        device_ms = cuda_ms(lambda: A.flash_attention(q, k, v, causal=causal), held=True)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
+        library_device_ms = cuda_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal), held=True)
+        bound_ms, bound_by = _flash_bound_ms(b, h, t_q, t_k, d, causal, 2)
+        blocks = -(-t_q // A.BLOCK_Q) * h * b
+        log(f"{tag} max_abs_err {err:.3e} (tol {limit:.3e}): kernel_ms {kernel_ms:.4f} "
+            f"device_ms {device_ms:.4f} library_ms {library_ms:.4f} library_device_ms "
+            f"{library_device_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) share_of_bound "
+            f"{bound_ms / kernel_ms:.4f} (device {bound_ms / device_ms:.4f}) blocks {blocks}")
+    return worst
 
 
 def _phase_kernels_varlen(gen) -> dict:
@@ -429,10 +488,13 @@ def main() -> int:
     device = phase_device()
     phase_build()
     kernels = phase_kernels()
-    launches, router = phase_main()
-    launches.update(phase_streaming(router))
+    launches, router, seq_rtfx = phase_main()
+    launches["flash_attention"] += phase_rest_batched(router, seq_rtfx)
+    streaming = phase_streaming(router)
+    launches["flash_attention"] += streaming.pop("flash_attention")  # S3's admissions
+    launches.update(streaming)
     phase_fixture()
-    for entry in kernels:  # K1 from the REST path, K2 and its combine from streaming
+    for entry in kernels:  # K1 from REST (both paths) and S3, K2 and its combine from S1/S2
         entry["launches"] = launches.get(entry["name"], 0)
         if entry["launches"] == 0:
             raise AssertionError(f"{entry['name']} was not launched on its path")
@@ -489,11 +551,30 @@ class _EncodeCounter:
         self.mod.encode = self.real
 
 
-def phase_main() -> tuple[dict, object]:
+def _check_body(name: str, body, response_format: str, seconds: float) -> None:
     import math
 
+    if response_format == "json":
+        if set(body) != {"text"} or not isinstance(body["text"], str):
+            raise AssertionError(f"{name}: json body {body!r}")
+    elif response_format == "verbose_json":
+        if set(body) != VERBOSE_KEYS or body["duration"] != seconds:
+            raise AssertionError(f"{name}: verbose_json keys {sorted(body)}")
+        for seg in body["segments"]:
+            if set(seg) != SEGMENT_KEYS or not all(
+                math.isfinite(seg[k]) for k in ("start", "end", "avg_logprob",
+                                                "compression_ratio", "no_speech_prob")
+            ):
+                raise AssertionError(f"{name}: segment {seg!r}")
+        log(f"main {name}: {len(body['segments'])} segment(s), language {body['language']}")
+    elif not isinstance(body, str):
+        raise AssertionError(f"{name}: srt body {type(body)}")
+
+
+def phase_main() -> tuple[dict, object, dict]:
     import torch
 
+    from open_speech_tpu_torch.config import settings
     from open_speech_tpu_torch.models.whisper import transcribe as T
     from open_speech_tpu_torch.ops import attention as A
     from open_speech_tpu_torch.ops import audio as codec
@@ -503,12 +584,16 @@ def phase_main() -> tuple[dict, object]:
         translation_response,
     )
 
+    # on before the load, as a deployment sets it: the warmup then also
+    # drives the batched rung (phase 4b); uploads of at most two windows
+    # stay on the sequential path
+    settings.os_stt_batched_longform = True
     t0 = time.perf_counter()
     router = BackendRouter()  # settings defaults: cuda, bfloat16, beam 5
     router.load_model(MAIN_MODEL)  # random init from seed 0 + warmup
     torch.cuda.synchronize()
-    log(f"main: loaded {MAIN_MODEL} (random weights, bf16) with warmup in "
-        f"{time.perf_counter() - t0:.2f} s")
+    log(f"main: loaded {MAIN_MODEL} (random weights, bf16) with warmup (batched rung "
+        f"{settings.os_stt_batch_windows} included) in {time.perf_counter() - t0:.2f} s")
     cfg = router.get_backend(MAIN_MODEL)._models[MAIN_MODEL]["cfg"]
     requests = [
         ("a transcribe 5 s json", 5.0, 1, dict(response_format="json")),
@@ -516,7 +601,7 @@ def phase_main() -> tuple[dict, object]:
          dict(response_format="verbose_json", prompt=PROMPT)),
         ("c translate 10 s srt", 10.0, 3, dict(response_format="srt")),
     ]
-    total = {"flash_attention": 0}
+    total, rtfx = {"flash_attention": 0}, {}
     for name, seconds, seed, kw in requests:
         wav = codec.write_wav(_speechlike(seconds, seed), SR)
         A.launches["flash_attention"] = 0  # count this request only
@@ -531,6 +616,7 @@ def phase_main() -> tuple[dict, object]:
         n = A.launches["flash_attention"]
         total["flash_attention"] += n
         prefill = n - enc.encoder_launches
+        rtfx[name] = seconds / wall
         log(f"main {name}: wall_s {wall:.3f} audio_s {seconds} rtfx {seconds / wall:.3f} "
             f"windows {enc.windows} flash_launches {n} (encoder {enc.encoder_launches}, "
             f"prefill {prefill})")
@@ -538,22 +624,67 @@ def phase_main() -> tuple[dict, object]:
             raise AssertionError(f"{name}: want {cfg.n_audio_layer} encoder launches per window")
         if prefill <= 0 or prefill % cfg.n_text_layer:
             raise AssertionError(f"{name}: causal prefill launches {prefill}")
-        if kw["response_format"] == "json":
-            if set(body) != {"text"} or not isinstance(body["text"], str):
-                raise AssertionError(f"{name}: json body {body!r}")
-        elif kw["response_format"] == "verbose_json":
-            if set(body) != VERBOSE_KEYS or body["duration"] != seconds:
-                raise AssertionError(f"{name}: verbose_json keys {sorted(body)}")
-            for seg in body["segments"]:
-                if set(seg) != SEGMENT_KEYS or not all(
-                    math.isfinite(seg[k]) for k in ("start", "end", "avg_logprob",
-                                                    "compression_ratio", "no_speech_prob")
-                ):
-                    raise AssertionError(f"{name}: segment {seg!r}")
-            log(f"main {name}: {len(body['segments'])} segment(s), language {body['language']}")
-        elif not isinstance(body, str):
-            raise AssertionError(f"{name}: srt body {type(body)}")
-    return total, router
+        _check_body(name, body, kw["response_format"], seconds)
+    return total, router, rtfx
+
+
+# ── phase 4b: batched long-form REST at full width ───────────────────────
+
+BATCHED_SECONDS = 460.0  # 16 chunks of 27-30 s: one batch of 16 windows
+
+
+def phase_rest_batched(router, seq_rtfx: dict) -> int:
+    """One 460 s upload through the router with the REST defaults and
+    OS_STT_BATCHED_LONGFORM on: cut at quiet points, encoded and decoded as
+    one batch. Returns its K1 launches."""
+    import torch
+
+    from open_speech_tpu_torch.models.whisper import batched as Bd
+    from open_speech_tpu_torch.ops import attention as A
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.runtime.router import transcription_response
+
+    cfg = router.get_backend(MAIN_MODEL)._models[MAIN_MODEL]["cfg"]
+    wav = codec.write_wav(_speechlike(BATCHED_SECONDS, 6), SR)
+    chunks, buckets, encoder_launches = [], [], [0]
+    real_chunks, real_encode = Bd.chunk_boundaries, Bd.encode
+
+    def counted_chunks(*args, **kw):
+        chunks.append(real_chunks(*args, **kw))
+        return chunks[-1]
+
+    def counted_encode(model, mel, cfg_):
+        before = A.launches["flash_attention"]
+        out = real_encode(model, mel, cfg_)
+        buckets.append(int(mel.shape[0]))
+        encoder_launches[0] += A.launches["flash_attention"] - before
+        return out
+
+    A.launches["flash_attention"] = 0
+    Bd.chunk_boundaries, Bd.encode = counted_chunks, counted_encode
+    try:
+        t0 = time.perf_counter()
+        body = transcription_response(router, wav, model=MAIN_MODEL,
+                                      response_format="verbose_json")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        Bd.chunk_boundaries, Bd.encode = real_chunks, real_encode
+    n = A.launches["flash_attention"]
+    name = f"d transcribe {BATCHED_SECONDS:.0f} s verbose_json, batched long-form"
+    _check_body(name, body, "verbose_json", BATCHED_SECONDS)
+    if len(chunks) != 1 or buckets != [16] or len(chunks[0]) != 16:
+        raise AssertionError(f"{name}: chunks {[len(c) for c in chunks]}, buckets {buckets}")
+    if encoder_launches[0] != cfg.n_audio_layer or n <= encoder_launches[0]:
+        raise AssertionError(f"{name}: K1 launches {n}, encoder {encoder_launches[0]}")
+    seq = " ".join(f"{k[0]} {v:.3f}" for k, v in seq_rtfx.items())
+    log(f"main {name}: wall_s {wall:.3f} audio_s {BATCHED_SECONDS} "
+        f"rtfx {BATCHED_SECONDS / wall:.3f} (sequential requests a-c in this call: {seq}) "
+        f"chunks {len(chunks[0])} buckets {buckets} flash_launches {n} "
+        f"(encoder {encoder_launches[0]}, prefill {n - encoder_launches[0]}) "
+        f"segments {len(body['segments'])} temperatures "
+        f"{sorted({s['temperature'] for s in body['segments']})}")
+    return n
 
 
 # ── phase 5: the streaming path at full width ───────────────────────────
@@ -589,15 +720,37 @@ class _ClientWS:
     Yields BINARY ``frames`` then a stop message. ``pace`` sends each frame
     at its real-time offset; ``sync`` instead holds each message until the
     session's interim in flight has finished. Records every server event
-    with its arrival time.
+    with its arrival time. ``timed`` times each interim pass from the newest
+    chunk it covers to its end (``passes``), and to its transcript event
+    when it sends one (``turnaround``).
     """
 
-    def __init__(self, frames, *, pace: bool, sync: bool = False, on_frame=None) -> None:
-        self.frames, self.pace, self.sync, self.on_frame = frames, pace, sync, on_frame
+    def __init__(self, frames, *, pace: bool, sync: bool = False, timed: bool = False) -> None:
+        self.frames, self.pace, self.sync, self.timed = frames, pace, sync, timed
         self.events: list[tuple[float, dict]] = []
         self.session = None
         self.stop_at = None
         self.error = None  # the session swallows what its socket raises
+        self.newest_chunk = 0.0
+        self.turnaround: list[float] = []
+        self.passes: list[float] = []
+
+    def _time_interims(self, session) -> None:
+        schedule, transcribe = session._schedule_interim, session._transcribe_utterance
+
+        def timed_schedule():
+            self.newest_chunk = time.perf_counter()
+            schedule()
+
+        async def timed_transcribe():
+            t_chunk, n = self.newest_chunk, len(self.events)
+            await transcribe()
+            self.passes.append(time.perf_counter() - t_chunk)
+            self.turnaround.extend(
+                [t - t_chunk for t, e in self.events[n:] if e["type"] == "transcript"][:1]
+            )
+
+        session._schedule_interim, session._transcribe_utterance = timed_schedule, timed_transcribe
 
     async def send_str(self, text: str) -> None:
         self.events.append((time.perf_counter(), json.loads(text)))
@@ -611,19 +764,19 @@ class _ClientWS:
     async def _messages(self):
         from open_speech_tpu_torch.server import streaming as S
 
-        (self.session,) = S._active_sessions.values()
+        try:
+            self.session = next(s for s in S._active_sessions.values() if s.ws is self)
+            if self.timed:
+                self._time_interims(self.session)
+        except Exception as e:
+            self.error = e
+            raise
         t0 = time.perf_counter()
         for i, frame in enumerate(self.frames):
             if self.pace:
                 await asyncio.sleep(max(0.0, t0 + i * FRAME_S - time.perf_counter()))
             if self.sync and self.session._interim_task is not None:
                 await asyncio.wait([self.session._interim_task])
-            if self.on_frame is not None:
-                try:
-                    self.on_frame(i, self.session)
-                except Exception as e:
-                    self.error = e
-                    raise
             yield S.Message(S.MsgType.BINARY, frame)
         self.stop_at = time.perf_counter()
         yield S.Message(S.MsgType.TEXT, json.dumps({"type": "stop"}))
@@ -642,6 +795,20 @@ def _check_session_bounds(name: str, ws: _ClientWS) -> None:
         raise AssertionError(f"{name}: errors {ws.of_type('error')} / {ws.events[-1][1]}")
 
 
+def _pcm16_frames(seconds: float, seed: int) -> list[bytes]:
+    """Speech-like 16 kHz PCM16 in 100 ms frames."""
+    from open_speech_tpu_torch.ops import audio as codec
+
+    pcm = codec.float_to_pcm16(_speechlike(seconds, seed))
+    step = int(SR * FRAME_S) * 2
+    return [pcm[i : i + step] for i in range(0, len(pcm), step)]
+
+
+def _p50_max(values: list[float]) -> str:
+    values = sorted(values)
+    return f"p50 {values[len(values) // 2]:.4f} max {values[-1]:.4f}" if values else "none"
+
+
 def phase_streaming(router) -> dict:
     backend = router.get_backend(MAIN_MODEL)
     entry = backend._ensure_model(MAIN_MODEL)
@@ -653,10 +820,13 @@ def phase_streaming(router) -> dict:
     try:
         s1 = _stream_s1(router, entry, executor_calls)
         s2 = _stream_s2(router)
+        s3 = _stream_s3(router, executor_calls)
+        _batcher_sync_probe(entry)
     finally:
         entry["tok"] = real_tok
         router.transcribe = real_transcribe
-    return {"flash_attention_varlen": s1[0] + s2[0], "flash_combine": s1[1] + s2[1]}
+    return {"flash_attention_varlen": s1[0] + s2[0], "flash_combine": s1[1] + s2[1],
+            "flash_attention": s3}
 
 
 def _stream_s1(router, entry: dict, executor_calls: list) -> tuple[int, int]:
@@ -665,35 +835,10 @@ def _stream_s1(router, entry: dict, executor_calls: list) -> tuple[int, int]:
 
     from open_speech_tpu_torch.models.whisper import streaming as St
     from open_speech_tpu_torch.ops import attention as A
-    from open_speech_tpu_torch.ops import audio as codec
     from open_speech_tpu_torch.server.streaming import streaming_endpoint
 
     cfg = entry["cfg"]
-    pcm = codec.float_to_pcm16(_speechlike(STREAM_SECONDS, 4))
-    step = int(SR * FRAME_S) * 2
-    frames = [pcm[i : i + step] for i in range(0, len(pcm), step)]
-    newest_chunk, turnaround, passes = {"t": 0.0}, [], []
-
-    def on_frame(i: int, session) -> None:
-        if i:
-            return
-        # time each interim pass from the newest chunk it covers to its end,
-        # and to its transcript event when it sends one
-        schedule, transcribe = session._schedule_interim, session._transcribe_utterance
-
-        def timed_schedule():
-            newest_chunk["t"] = time.perf_counter()
-            schedule()
-
-        async def timed_transcribe():
-            t_chunk, n = newest_chunk["t"], len(ws.events)
-            await transcribe()
-            passes.append(time.perf_counter() - t_chunk)
-            turnaround.extend(
-                [t - t_chunk for t, e in ws.events[n:] if e["type"] == "transcript"][:1]
-            )
-
-        session._schedule_interim, session._transcribe_utterance = timed_schedule, timed_transcribe
+    frames = _pcm16_frames(STREAM_SECONDS, 4)
 
     # K2's device time: CUDA events around each launch (on the launching
     # thread's stream; they add no sync)
@@ -715,7 +860,7 @@ def _stream_s1(router, entry: dict, executor_calls: list) -> tuple[int, int]:
         most_committed[0] = max(most_committed[0], enc._committed)
         return interim_states(enc)
 
-    ws = _ClientWS(frames, pace=True, on_frame=on_frame)
+    ws = _ClientWS(frames, pace=True, timed=True)
     for key in A.launches:
         A.launches[key] = 0  # count this session only
     St.flash_attention, St.StreamingWhisperEncoder.interim_states = timed_flash, counted_interim_states
@@ -754,8 +899,7 @@ def _stream_s1(router, entry: dict, executor_calls: list) -> tuple[int, int]:
         raise AssertionError("S1: language detection did not pin a language")
 
     k2_s = sum(a.elapsed_time(b) for a, b in k2_events) / 1e3
-    turnaround.sort()
-    passes.sort()
+    turnaround, passes = sorted(ws.turnaround), sorted(ws.passes)
     log(f"stream S1 16 kHz pcm16 {STREAM_SECONDS} s paced: wall_s {wall:.3f} "
         f"language {session._detected_language} events {len(ws.events)} "
         f"interims {len(interims)} confirmed {len(transcripts) - len(interims) - len(finals)} "
@@ -770,7 +914,7 @@ def _stream_s1(router, entry: dict, executor_calls: list) -> tuple[int, int]:
         f"device s {k2_s:.4f} (split kernel + combine) "
         f"({k2_s / wall:.4f} of the session wall); K1 launches {n_k1}; "
         f"most committed positions at an interim {most_committed[0]}")
-    _profile_interim(entry, pcm, session._detected_language)
+    _profile_interim(entry, b"".join(frames), session._detected_language)
     return n_k2, n_combine
 
 
@@ -858,6 +1002,165 @@ def _stream_s2(router) -> tuple[int, int]:
     return n_k2, n_combine
 
 
+S3_SESSIONS = 8
+S3_SECONDS = 8.0
+
+
+def _stream_s3(router, executor_calls: list) -> int:
+    """Eight concurrent sessions of 8 s paced PCM16 through the continuous
+    batcher: OS_BATCHER_ENABLED on, incremental encoder off, language en,
+    VAD off, interims on. Returns the K1 launches (admission encodes)."""
+    import torch
+
+    from open_speech_tpu_torch.config import settings
+    from open_speech_tpu_torch.ops import attention as A
+    from open_speech_tpu_torch.runtime import batcher as Bt
+    from open_speech_tpu_torch.runtime import batcher_pool as P
+    from open_speech_tpu_torch.server import streaming as S
+
+    counts, tick_s = {"windows": 0, "passes": 0}, []
+    real_window, real_tick, real_pcm = (
+        Bt.ContinuousBatcher.transcribe_window, Bt.ContinuousBatcher._tick,
+        S.transcribe_pcm_batched)
+
+    async def counted_window(self, mel, max_new_tokens=None):
+        counts["windows"] += 1
+        return await real_window(self, mel, max_new_tokens)
+
+    def timed_tick(self):  # on the executor thread; its one sync ends it
+        t0 = time.perf_counter()
+        real_tick(self)
+        tick_s.append(time.perf_counter() - t0)
+
+    async def counted_pcm(*args, **kw):
+        counts["passes"] += 1
+        return await real_pcm(*args, **kw)
+
+    wss = [_ClientWS(_pcm16_frames(S3_SECONDS, 30 + i), pace=True, timed=True)
+           for i in range(S3_SESSIONS)]
+
+    async def serve_all():
+        try:
+            await asyncio.gather(*(
+                S.streaming_endpoint(ws, router, model=MAIN_MODEL, language="en",
+                                     sample_rate=SR, interim_results=True, vad=False)
+                for ws in wss))
+            return P.pool_stats()
+        finally:
+            await P.shutdown_batchers()
+
+    settings.os_batcher_enabled, settings.os_stream_incremental = True, False
+    Bt.ContinuousBatcher.transcribe_window, Bt.ContinuousBatcher._tick = counted_window, timed_tick
+    S.transcribe_pcm_batched = counted_pcm
+    P.reset_pool()
+    for key in A.launches:
+        A.launches[key] = 0  # count this phase only
+    try:
+        t0 = time.perf_counter()
+        stats = asyncio.run(serve_all())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        settings.os_batcher_enabled, settings.os_stream_incremental = False, True
+        Bt.ContinuousBatcher.transcribe_window, Bt.ContinuousBatcher._tick = real_window, real_tick
+        S.transcribe_pcm_batched = real_pcm
+    n_k1 = A.launches["flash_attention"]
+
+    finals_at = []
+    for i, ws in enumerate(wss):
+        _check_session_bounds(f"S3 session {i}", ws)
+        if len([e for e in ws.of_type("transcript") if e["speech_final"]]) != 1:
+            raise AssertionError(f"S3 session {i}: no single final transcript")
+        finals_at.append(next(t for t, e in ws.events if e.get("speech_final")) - ws.stop_at)
+    transcriptions = sum(ws.session._transcription_count for ws in wss)
+    if len(stats) != 1:
+        raise AssertionError(f"S3: batchers {sorted(stats)}, want one shared batcher")
+    (b,) = stats.values()
+    if executor_calls or counts["passes"] != transcriptions or transcriptions == 0:
+        raise AssertionError(
+            f"S3: {transcriptions} transcriptions, {counts['passes']} through the batcher, "
+            f"{len(executor_calls)} executor fallbacks")
+    if b["completed"] != counts["windows"] or counts["windows"] != transcriptions:
+        raise AssertionError(f"S3: completed {b['completed']} of {counts['windows']} submitted")
+    if b["peak_occupancy"] < 2 or len(tick_s) != b["ticks"] or n_k1 <= 0:
+        raise AssertionError(f"S3: peak occupancy {b['peak_occupancy']}, ticks {b['ticks']} "
+                             f"({len(tick_s)} timed), K1 launches {n_k1}")
+    turnaround = [t for ws in wss for t in ws.turnaround]
+    passes = [t for ws in wss for t in ws.passes]
+    log(f"stream S3 {S3_SESSIONS} sessions x {S3_SECONDS} s pcm16 paced through the continuous "
+        f"batcher ({b['slots']} slots, K {settings.os_batch_steps_per_tick}): wall_s {wall:.3f} "
+        f"transcriptions {transcriptions} (all through the batcher, executor fallbacks 0) "
+        f"completed {b['completed']} ticks {b['ticks']} peak_occupancy {b['peak_occupancy']} "
+        f"tokens {b['tokens']} tokens_per_tick {b['tokens'] / max(b['ticks'], 1):.3f} "
+        f"K1 launches {n_k1}")
+    log(f"stream S3 tick ms: {_p50_max([1e3 * t for t in tick_s])}; interim turnaround "
+        f"(newest chunk -> transcript event, {len(turnaround)} passes) s: "
+        f"{_p50_max(turnaround)}; every pass s: {_p50_max(passes)}; final latency after "
+        f"stop s: {_p50_max(finals_at)}")
+    return n_k1
+
+
+def _count_syncs(fn) -> list[str]:
+    """Run ``fn`` under CUDA's sync debug mode; the source line (path:line:
+    text) of each host sync it made."""
+    import linecache
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [f"{w.filename}:{w.lineno}: {linecache.getline(w.filename, w.lineno).strip()}"
+            for w in caught if "synchroniz" in str(w.message)]
+
+
+def _batcher_sync_probe(entry: dict) -> None:
+    """Four ticks of an 8-slot batcher at full occupancy, run on this
+    thread under CUDA's sync debug mode: each must sync with the host
+    exactly once, where it reads back the packed result. Garbage from the
+    earlier phases is collected first (and its syncs reported apart): a
+    finalizer that a collection runs inside a tick is not the tick's."""
+    import gc
+
+    import torch
+
+    from open_speech_tpu_torch.ops.mel import log_mel_spectrogram
+    from open_speech_tpu_torch.runtime.batcher import ContinuousBatcher
+
+    model, cfg, sp = entry["model"], entry["cfg"], entry["tok"].special
+    b = ContinuousBatcher(model, cfg, sp, slots=8, max_new_tokens=224)
+    audio = torch.from_numpy(_speechlike(30.0, 7)).cuda()
+    mel = log_mel_spectrogram(audio, n_mels=cfg.n_mels)
+
+    async def probe():
+        loop = asyncio.get_running_loop()
+        b._admit_device([(i, mel, 224, loop.create_future()) for i in range(8)])
+        torch.cuda.synchronize()
+        in_gc = _count_syncs(gc.collect)
+        times, syncs = [], []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            syncs.append(_count_syncs(b._tick))
+            times.append(time.perf_counter() - t0)
+        return in_gc, syncs, times
+
+    in_gc, syncs, times = asyncio.run(probe())
+    log(f"stream S3 sync probe: collecting the earlier phases' garbage synced "
+        f"{len(in_gc)} time(s) {in_gc}")
+    if [len(s) for s in syncs] != [1] * len(syncs) or b.occupancy != 8:
+        raise AssertionError(f"batcher ticks synced at {syncs} (want 1 each), "
+                             f"occupancy {b.occupancy}")
+    log(f"stream S3 sync probe: {len(syncs)} ticks at occupancy 8, host syncs per tick "
+        f"{[len(s) for s in syncs]} at {syncs[0]}; tick ms "
+        f"{' '.join(f'{1e3 * t:.3f}' for t in times)}")
+
+
 # ── phase 6: the trained fixture, card against CPU ───────────────────────
 
 
@@ -930,6 +1233,83 @@ def phase_fixture() -> None:
                 )
 
     _fixture_streaming(routers, model_id)
+    _fixture_batcher(routers, model_id)
+    _fixture_batched_longform(routers, model_id)
+
+
+def _fixture_batcher(routers: dict, model_id: str) -> None:
+    """Three concurrent windows through the continuous batcher on the card
+    and on the CPU (the same mel windows): equal tokens, and each equal to
+    the card's B=1 greedy decode of its window."""
+    import numpy as np
+    import torch
+
+    from open_speech_tpu_torch.models.whisper.decode import DecodeOptions, greedy_decode
+    from open_speech_tpu_torch.models.whisper.model import encode
+    from open_speech_tpu_torch.ops.mel import log_mel_spectrogram
+    from open_speech_tpu_torch.runtime.batcher import ContinuousBatcher
+
+    rng = np.random.default_rng(41)
+    entries = {dev: r.get_backend(model_id)._ensure_model(model_id) for dev, r in routers.items()}
+    cfg, tok = entries["cpu"]["cfg"], entries["cpu"]["tok"]
+    suppress = tuple(tok.non_speech_tokens)
+    mels = [log_mel_spectrogram(torch.from_numpy(_beeps(k, rng)), n_mels=cfg.n_mels)
+            for k in (1, 2, 3)]
+
+    async def serve(model):
+        b = ContinuousBatcher(model, cfg, tok.special, slots=4, max_new_tokens=24,
+                              suppress_tokens=suppress)
+        b.start()
+        try:
+            return await asyncio.wait_for(
+                asyncio.gather(*(b.transcribe_window(m) for m in mels)), 120)
+        finally:
+            await b.stop()
+
+    got = {dev: asyncio.run(serve(e["model"])) for dev, e in entries.items()}
+    card = entries["cuda"]["model"]
+    prompt = np.asarray([tok.special.sot_sequence("en", "transcribe")], np.int32)
+    greedy = []
+    for m in mels:
+        res = greedy_decode(card, cfg, tok.special, encode(card, m[None].cuda(), cfg), prompt,
+                            DecodeOptions(max_new_tokens=24, suppress_tokens=suppress))
+        greedy.append([int(t) for t in res.tokens[0][: int(res.lengths[0])]])
+    log(f"fixture batcher, 3 windows: tokens per window {[len(t) for t in got['cuda']]} on "
+        f"cuda, equal to cpu={got['cuda'] == got['cpu']}, to cuda B=1 greedy="
+        f"{got['cuda'] == greedy}")
+    if got["cuda"] != got["cpu"] or got["cuda"] != greedy or not any(got["cpu"]):
+        raise AssertionError(f"fixture batcher: cuda {got['cuda']} cpu {got['cpu']} "
+                             f"greedy {greedy}")
+
+
+def _fixture_batched_longform(routers: dict, model_id: str) -> None:
+    """A 75 s upload (63 test-tiny windows: four batches of up to 16)
+    through each backend with OS_STT_BATCHED_LONGFORM on, beam 5, no
+    fallback: the card's segments equal the CPU's."""
+    import numpy as np
+
+    from open_speech_tpu_torch.backends import torch_whisper as TW
+    from open_speech_tpu_torch.ops import audio as codec
+
+    rng = np.random.default_rng(51)
+    wav = codec.write_wav(np.concatenate([_beeps(int(k), rng) for k in rng.integers(1, 4, 63)]),
+                          SR)
+    calls, real = [], TW.transcribe_batched
+    TW.transcribe_batched = lambda *a, **kw: calls.append(1) or real(*a, **kw)
+    try:
+        bodies = {dev: r.get_backend(model_id).transcribe(
+                      wav, model_id, language="en", beam_size=5, fallback=False,
+                      response_format="verbose_json")
+                  for dev, r in routers.items()}
+    finally:
+        TW.transcribe_batched = real
+    key = {dev: [(s["seek"], s["start"], s["end"], s["tokens"]) for s in b["segments"]]
+           for dev, b in bodies.items()}
+    log(f"fixture batched long-form 75.6 s: {len(key['cuda'])} segments on cuda, "
+        f"{len(key['cpu'])} on cpu, equal={key['cuda'] == key['cpu']}")
+    if calls != [1, 1] or key["cuda"] != key["cpu"] or not key["cpu"]:
+        raise AssertionError(f"fixture batched long-form: batched calls {len(calls)}, "
+                             f"segments differ or none")
 
 
 def _fixture_streaming(routers: dict, model_id: str) -> None:

@@ -9,7 +9,10 @@ initialises random weights from a generator seeded 0, with a warning.
 ``device`` defaults to ``settings.stt_device`` (``cuda``). The backend never
 falls back to the CPU by itself: a CUDA device that is missing raises.
 Compute types: ``bfloat16`` (default), ``float16`` (runs as bf16, as in the
-JAX package) and ``float32``; ``int8`` is a later slice of the port.
+JAX package) and ``float32``; ``int8`` is a later slice of the port. With
+``OS_STT_BATCHED_LONGFORM`` on, uploads longer than two windows decoded
+from temperature 0 take ``models/whisper/batched.py``'s batched path, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -28,6 +31,11 @@ import torch
 from open_speech_tpu_torch.audio.ingest import TARGET_RATE
 from open_speech_tpu_torch.config import settings
 from open_speech_tpu_torch.models.whisper import PRESETS, get_tokenizer, init_params
+from open_speech_tpu_torch.models.whisper.batched import (
+    BATCH_BUCKETS,
+    _decode_rows_with_fallback,
+    transcribe_batched,
+)
 from open_speech_tpu_torch.models.whisper.convert import load_params
 from open_speech_tpu_torch.models.whisper.decode import detect_language
 from open_speech_tpu_torch.models.whisper.model import WhisperConfig, encode
@@ -216,13 +224,18 @@ class TorchWhisperBackend:
         silence through the public path, so the first request pays neither;
         with ``os_stream_incremental``, also one streaming block encode and
         ``interim_states``, so the first streaming chunk does not pay K2's
-        first launch.
+        first launch; with ``os_stt_batched_longform``, one batched encode
+        and beam-5 decode at the largest batch rung <= ``os_stt_batch_windows``
+        (16 by default, the widest batch an upload makes).
 
         The JAX package precompiles a ladder of XLA programs here (decode
-        budgets, prompt-length buckets, mel rungs, streaming shapes). Eager
-        PyTorch compiles nothing per shape, so that ladder has no
-        counterpart: what is left is the nvcc build, CUDA and cuBLAS
-        start-up, and the allocator's first growth.
+        budgets, prompt-length buckets, mel rungs, streaming shapes, and
+        every batched long-form rung). Eager PyTorch compiles nothing per
+        shape, so that ladder has no counterpart: what is left is the nvcc
+        build, CUDA and cuBLAS start-up, and the allocator's first growth.
+        The largest rung holds the most memory (16 windows' cross-KV, 80
+        beam rows), so warming it alone grows the allocator's pool to what
+        every smaller rung needs.
         """
         entry = self._models[model_id]
         t0 = time.time()
@@ -236,6 +249,8 @@ class TorchWhisperBackend:
             wav, model_id, language="en", beam_size=5, fallback=False,
             _budget_override=max(_warmed_budgets(), default=224),
         )
+        if settings.os_stt_batched_longform:
+            self._warmup_batched(entry, window_samples)
         if settings.os_stream_incremental:
             from open_speech_tpu_torch.models.whisper.streaming import (
                 StreamingWhisperEncoder,
@@ -245,6 +260,25 @@ class TorchWhisperBackend:
             senc.append_audio(np.zeros(TARGET_RATE, np.float32))
             senc.interim_states()
         logger.info("STT warmup for %s done in %.1fs", model_id, time.time() - t0)
+
+    def _warmup_batched(self, entry: dict[str, Any], window_samples: int) -> None:
+        """One batched long-form rung: the largest bucket <= os_stt_batch_windows."""
+        cfg = entry["cfg"]
+        rung = max(b for b in BATCH_BUCKETS if b <= max(1, int(settings.os_stt_batch_windows)))
+        mel = log_mel_spectrogram(
+            torch.zeros(rung, window_samples, device=self._device), n_mels=cfg.n_mels
+        )
+        sot = entry["tok"].special.sot_sequence("en", "transcribe", timestamps=True)
+        _decode_rows_with_fallback(
+            entry["model"], cfg, entry["tok"], encode(entry["model"], mel, cfg),
+            np.asarray([sot], np.int32),
+            TranscribeOptions(
+                language="en", beam_size=5, temperature=(0.0,),
+                max_new_tokens=max(_warmed_budgets(), default=224),
+                compression_ratio_threshold=None, logprob_threshold=None,
+                no_speech_threshold=None,
+            ),
+        )
 
     def unload_model(self, model_id: str) -> None:
         if self._models.pop(model_id, None) is not None:
@@ -349,9 +383,20 @@ class TorchWhisperBackend:
             compression_ratio_threshold=2.4 if fallback else None,
             logprob_threshold=-1.0 if fallback else None,
         )
-        segments, info = transcribe(
-            entry["model"], entry["cfg"], entry["tok"], pcm, opts
-        )
+        window_s = entry["cfg"].n_audio_ctx * 2 * 0.01
+        if (
+            settings.os_stt_batched_longform
+            and duration_s > 2 * window_s
+            and temps[0] == 0.0
+        ):
+            segments, info = transcribe_batched(
+                entry["model"], entry["cfg"], entry["tok"], pcm, opts,
+                max_batch=int(settings.os_stt_batch_windows),
+            )
+        else:
+            segments, info = transcribe(
+                entry["model"], entry["cfg"], entry["tok"], pcm, opts
+            )
         return build_response(segments, info, task, response_format)
 
     def transcribe(

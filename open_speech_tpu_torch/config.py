@@ -2,8 +2,9 @@
 
 Counterpart of ``open_speech_tpu/config.py``: the same field names, the same
 upper-case environment variables, the same parsing and the same alias
-properties, for the fields the REST transcription path and the streaming
-session read. ``stt_device`` defaults to ``cuda``.
+properties, for the fields the REST transcription path (batched long-form
+included), the streaming session and the continuous batcher read.
+``stt_device`` defaults to ``cuda``.
 """
 
 from __future__ import annotations
@@ -31,8 +32,15 @@ _DEFAULTS: dict[str, object] = {
     "stt_vad_threshold": 0.5,
     # interims over the O(n) block-causal incremental encoder
     "os_stream_incremental": True,
-    # the continuous batcher (not in the port yet: ROADMAP.md)
+    # the continuous slot-pool batcher behind streaming sessions
     "os_batcher_enabled": False,
+    "os_batch_max_sessions": 8,
+    # decode positions per batcher tick (one host sync per tick)
+    "os_batch_steps_per_tick": 4,
+    "os_batch_max_tokens": 448,
+    # batched long-form REST: chunks of one window, decoded as a batch
+    "os_stt_batched_longform": False,
+    "os_stt_batch_windows": 16,
 }
 
 _OPTIONAL_STR = {"stt_model_dir"}

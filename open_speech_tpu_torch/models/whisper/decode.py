@@ -14,6 +14,7 @@ self-KV cache is written in place.
 
 from __future__ import annotations
 
+import functools
 import zlib
 from dataclasses import dataclass
 
@@ -106,7 +107,7 @@ def _blank_tokens(special: SpecialTokens, opts: DecodeOptions) -> tuple[int, ...
 def _apply_rules(
     logits: torch.Tensor,  # [B, V] f32
     *,
-    step_idx: int,  # sampled-token count so far (0 = first sampled token)
+    step_idx,  # sampled-token count so far (0 = first sampled token): an int, or [B]
     last: torch.Tensor,  # [B] previous sampled token (or sot-seq tail at step 0)
     penult: torch.Tensor,  # [B]
     max_ts: torch.Tensor,  # [B] highest timestamp token sampled so far
@@ -116,17 +117,27 @@ def _apply_rules(
     max_initial_ts_tok: int,
     blank_tokens: tuple[int, ...],
 ) -> torch.Tensor:
+    """Whisper's logit rules. ``step_idx`` is a Python int when every row is
+    at the same step (greedy and beam lockstep), or a [B] tensor on the
+    logits' device when each row is at its own step (the continuous
+    batcher's slots); the begin rules then apply per row through a mask,
+    with no host sync. Every mask here is built on the device: no index
+    list is copied from the host."""
     b, v = logits.shape
     dev = logits.device
     cols = torch.arange(v, device=dev)[None, :]
     logits = logits + suppress[None, :]
-    begin = step_idx == 0
+    if isinstance(step_idx, torch.Tensor):
+        sampled = step_idx.expand(b)
+        begin = (sampled == 0)[:, None]  # [B, 1]
+    else:
+        sampled = int(step_idx)
+        begin = sampled == 0  # the same for every row: skip when False
 
     # sample begin: suppress blank/eot regardless of timestamp mode
-    if begin and blank_tokens:
-        blank = torch.zeros(v, dtype=torch.bool, device=dev)
-        blank[list(blank_tokens)] = True
-        logits = torch.where(blank[None, :], NEG_INF, logits)
+    if begin is not False and blank_tokens:
+        blank = functools.reduce(torch.logical_or, (cols == t for t in blank_tokens))
+        logits = torch.where(begin & blank, NEG_INF, logits)
     if not timestamps:
         return logits
 
@@ -136,8 +147,8 @@ def _apply_rules(
 
     # openai semantics over *sampled* tokens only: with fewer than one/two
     # sampled tokens, last/penultimate count as not-a-timestamp/timestamp
-    last_ts = (last >= ts_begin) & (step_idx >= 1)
-    penult_ts = (penult >= ts_begin) | (step_idx < 2)
+    last_ts = (last >= ts_begin) & (sampled >= 1)
+    penult_ts = (penult >= ts_begin) | (sampled < 2)
     # paired timestamps: after a closing ts, no ts; after an opening ts, no text
     mask_ts = (last_ts & penult_ts)[:, None] & is_ts_col
     mask_text = (last_ts & ~penult_ts)[:, None] & is_text_col
@@ -146,9 +157,11 @@ def _apply_rules(
     mask_mono = is_ts_col & (cols < ts_floor[:, None])
     logits = torch.where(mask_ts | mask_text | mask_mono, NEG_INF, logits)
 
-    if begin:
+    if begin is not False:
         # only timestamps may open a sequence, up to the max initial one
-        logits = torch.where(~is_ts_col | (cols > max_initial_ts_tok), NEG_INF, logits)
+        logits = torch.where(
+            begin & (~is_ts_col | (cols > max_initial_ts_tok)), NEG_INF, logits
+        )
 
     # prob rule: if the total timestamp mass exceeds the best non-timestamp
     # token (eot included), force a timestamp

@@ -20,8 +20,10 @@ JAX package.
 The JAX package runs this over an aiohttp WebSocket. Here the session takes
 any ``ws`` that yields ``Message``s (``MsgType`` BINARY / TEXT / CLOSE) and
 has ``send_str`` and ``close``, and the router is a constructor argument.
-Binding a socket is a later slice of the port (ROADMAP.md). The continuous
-batcher (``OS_BATCHER_ENABLED``) is not ported yet.
+Binding a socket is a later slice of the port (ROADMAP.md). With
+``OS_BATCHER_ENABLED``, transcriptions that the incremental path does not
+serve go through the shared continuous batcher
+(``runtime/batcher_pool.py``) once the session's language is known.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from open_speech_tpu_torch.ops.audio import (
     ulaw_decode,
 )
 from open_speech_tpu_torch.ops.resample import resample_pcm16
+from open_speech_tpu_torch.runtime.batcher_pool import transcribe_pcm_batched
 
 logger = logging.getLogger(__name__)
 
@@ -174,11 +177,6 @@ class StreamingSession:
         vad_enabled: bool = True,
         encoding: str = "pcm_s16le",
     ):
-        if settings.os_batcher_enabled:
-            raise NotImplementedError(
-                "OS_BATCHER_ENABLED: the continuous batcher is not ported to "
-                "PyTorch yet (ROADMAP.md, module item 5)"
-            )
         self.ws = ws
         self.router = router
         self.session_id = str(uuid.uuid4())
@@ -458,7 +456,13 @@ class StreamingSession:
                 # encoder (finals re-decode fresh over the encoded states)
                 result = await self._transcribe_incremental(final=final)
             if result is None:
-                result = await self._transcribe_executor()
+                # the shared batcher builds one prompt per (model, language)
+                # and would force English on None: sessions ride it once a
+                # language is known, client-pinned or detected and pinned
+                if settings.os_batcher_enabled and self.effective_language:
+                    result = await self._transcribe_batched()
+                else:
+                    result = await self._transcribe_executor()
             self._transcription_count += 1
             return result
         except Exception as e:  # noqa: BLE001
@@ -620,6 +624,14 @@ class StreamingSession:
                 beam_size=1,
                 fallback=False,
             ),
+        )
+
+    async def _transcribe_batched(self) -> dict:
+        """Continuous-batching path: every live session's decode shares
+        device steps through the shared batcher pool."""
+        return await transcribe_pcm_batched(
+            self.router.get_backend(self.model), self.model, self.effective_language,
+            pcm16_to_float(bytes(self.utterance_audio)),
         )
 
     async def _transcribe_utterance(self):

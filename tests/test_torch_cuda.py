@@ -109,6 +109,22 @@ def test_kernel_refuses_what_it_does_not_take(card):
     assert A.launches["flash_attention"] == before
 
 
+# K1 at the batch widths of batched long-form and the batcher's admission:
+# the encoder at 8 and 16 windows (B*H = 160 and 320 heads in the 3-D
+# tensor maps) and the batched beam-free prefill of a prompted upload
+@pytest.mark.parametrize("b,h,t_q,t_k,d,causal", [
+    (8, 20, 1500, 1500, 64, False),
+    (16, 20, 1500, 1500, 64, False),
+    (16, 20, 36, 36, 64, True),
+])
+def test_kernel_at_batched_shapes(card, b, h, t_q, t_k, d, causal):
+    q, k, v = _qkv(card, b, h, t_q, t_k, d, torch.bfloat16, seed=b)
+    out = A.flash_attention(q, k, v, causal=causal)
+    ref = A.flash_attention_reference(q.float(), k.float(), v.float(), causal=causal)
+    assert out.shape == q.shape
+    assert (out.float() - ref).abs().max().item() <= _limit(torch.bfloat16, ref)
+
+
 # K2, (B, H, Tq, Tk, D, causal, lengths): the streaming block [.,128,1500]
 # at short and full lengths, length 0 and Tk in one batch, causal with
 # lengths, a ragged tail, the test-tiny block
@@ -263,3 +279,81 @@ def test_streaming_block_encode_card_matches_cpu(card, monkeypatch):
     assert cpu[2] == 0 and gpu[2] == cfg.n_audio_layer * (2 + 1)  # 2 commits + 1 tail
     assert (gpu[0] - cpu[0]).abs().max().item() <= 1e-4
     assert (gpu[1] - cpu[1]).abs().max().item() <= 1e-4
+
+
+def _fixture_model(card):
+    from pathlib import Path
+
+    from open_speech_tpu_torch.models.whisper.convert import load_params
+    from open_speech_tpu_torch.models.whisper.tokenizer import get_tokenizer
+
+    path = str(Path(__file__).parent / "fixtures" / "test-tiny-eot")
+    model, cfg = load_params(path, dtype=torch.float32)
+    return model, cfg, get_tokenizer(path, n_vocab=cfg.n_vocab, n_langs=cfg.n_langs)
+
+
+def _beep_windows(n: int, seconds: float = 1.2):
+    import numpy as np
+
+    rng = np.random.default_rng(31)
+    out = []
+    for i in range(n):
+        t = int(seconds * 16000)
+        clip = rng.normal(0, 0.003, t)
+        dur = 2400
+        for start in range(800 * (i + 1), t - dur, 7000):
+            clip[start : start + dur] += 0.5 * np.sin(
+                2 * np.pi * 440.0 * np.arange(dur) / 16000) * np.hanning(dur)
+        out.append(clip.astype(np.float32))
+    return out
+
+
+def _no_tf32(monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+
+def test_batcher_card_matches_cpu(card, monkeypatch):
+    """Three concurrent windows through the continuous batcher on the card
+    (float32, TF32 off) give the CPU batcher's tokens."""
+    import asyncio
+
+    from open_speech_tpu_torch.ops.mel import log_mel_spectrogram
+    from open_speech_tpu_torch.runtime.batcher import ContinuousBatcher
+
+    _no_tf32(monkeypatch)
+    model, cfg, tok = _fixture_model(card)
+    mels = [log_mel_spectrogram(torch.from_numpy(w), n_mels=cfg.n_mels)
+            for w in _beep_windows(3)]
+
+    async def serve(m):
+        b = ContinuousBatcher(m, cfg, tok.special, slots=4, max_new_tokens=24,
+                              suppress_tokens=tuple(tok.non_speech_tokens))
+        b.start()
+        try:
+            return await asyncio.wait_for(
+                asyncio.gather(*(b.transcribe_window(x) for x in mels)), 120)
+        finally:
+            await b.stop()
+
+    cpu = asyncio.run(serve(model))
+    gpu = asyncio.run(serve(model.to(card)))
+    assert gpu == cpu and any(cpu)
+
+
+def test_batched_longform_card_matches_cpu(card, monkeypatch):
+    """A 9 s upload in batches of four chunks (beam 5, temperature 0) on
+    the card (float32, TF32 off) gives the CPU's segments."""
+    import numpy as np
+
+    from open_speech_tpu_torch.models.whisper.batched import transcribe_batched
+    from open_speech_tpu_torch.models.whisper.transcribe import TranscribeOptions
+
+    _no_tf32(monkeypatch)
+    model, cfg, tok = _fixture_model(card)
+    audio = np.concatenate(_beep_windows(6, seconds=1.5))
+    opts = TranscribeOptions(language="en", beam_size=5, temperature=(0.0,), max_new_tokens=24)
+    cpu, _ = transcribe_batched(model, cfg, tok, audio, opts, max_batch=4)
+    gpu, _ = transcribe_batched(model.to(card), cfg, tok, audio, opts, max_batch=4)
+    key = lambda segs: [(s.seek, s.start, s.end, s.tokens) for s in segs]  # noqa: E731
+    assert key(gpu) == key(cpu) and cpu

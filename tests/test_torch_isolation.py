@@ -2,7 +2,8 @@
 open_speech_tpu.
 
 ``open_speech_tpu_torch`` runs where JAX and aiohttp are not installed, so
-importing it (and every submodule, the streaming session included) must
+importing it (and every submodule, the streaming session, the continuous
+batcher, its pool and batched long-form included) must
 pull in neither ``jax``, ``aiohttp`` nor any module of the JAX package. The check runs in a fresh interpreter, because this test
 process already imported both.
 """
@@ -30,7 +31,8 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "aiohttp" or m.startswith("aiohttp.")
              or m == "open_speech_tpu" or m.startswith("open_speech_tpu."))
-print(len(names), ",".join(bad), int("open_speech_tpu_torch.server.streaming" in names))
+want = ("server.streaming", "runtime.batcher", "runtime.batcher_pool", "models.whisper.batched")
+print(len(names), ",".join(bad), int(all("open_speech_tpu_torch." + w in names for w in want)))
 """
 
 
@@ -39,10 +41,10 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
         [sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
         text=True, timeout=120, check=True,
     ).stdout.split()
-    n_modules, streaming = int(out[0]), out[-1]
+    n_modules, named = int(out[0]), out[-1]
     bad = out[1] if len(out) == 3 else ""
-    assert n_modules >= 27, "walk_packages should find every submodule"
-    assert streaming == "1", "the streaming session must be among them"
+    assert n_modules >= 30, "walk_packages should find every submodule"
+    assert named == "1", "the streaming session, both batchers and batched long-form must be among them"
     assert bad == "", f"port imported: {bad}"
 
 

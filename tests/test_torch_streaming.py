@@ -12,7 +12,9 @@ does) and the port's (its own message type, the router passed in) run the
 trained fixture ``tests/fixtures/test-tiny-eot``, each loaded by its own
 converter, on the same PCM: VAD off, language "en", every interim awaited
 before the next message. The event lists must be identical (greedy, T=0),
-apart from the random session id.
+apart from the random session id. With ``OS_BATCHER_ENABLED`` (and the
+incremental encoder off) both sessions submit through their continuous
+batcher pools, and the event lists must still be identical.
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ import pytest
 import torch
 from aiohttp import WSMsgType
 
+import open_speech_tpu.runtime.batcher_pool as JBP
 import open_speech_tpu.server.streaming as JSS
+import open_speech_tpu_torch.runtime.batcher_pool as TBP
 import open_speech_tpu_torch.server.streaming as TSS
 from open_speech_tpu.config import settings as jax_settings
 from open_speech_tpu.models.whisper import convert as JC
@@ -171,6 +175,7 @@ class _Backend:
     def __init__(self, entry):
         self.entry = entry
         self.device = "cpu"
+        self._models = {"test-tiny-eot": entry}  # what the batcher pools read
 
     def _ensure_model(self, _model):
         return self.entry
@@ -263,8 +268,14 @@ def _run_both(monkeypatch, entries, messages, jax_entry=None, torch_entry=None, 
     tws = _WS([TSS.Message(kinds[k][1], d) for k, d in messages])
     tws.session = TSS.StreamingSession(ws=tws, router=trouter, **kw)
 
-    for ws in (jws, tws):
-        asyncio.new_event_loop().run_until_complete(ws.session.run())
+    async def serve(ws, pool):
+        try:
+            await ws.session.run()
+        finally:  # batchers the session started end with its loop
+            await pool.shutdown_batchers()
+
+    for ws, pool in ((jws, JBP), (tws, TBP)):
+        asyncio.run(serve(ws, pool))
     strip = lambda evs: [{k: v for k, v in e.items() if k != "session_id"} for e in evs]  # noqa: E731
     return strip(jws.sent), strip(tws.sent), jrouter, trouter, tws.session
 
@@ -366,13 +377,86 @@ def test_mock_backend_falls_back_to_executor_like_jax(monkeypatch, entries, stre
     assert tr.calls[0]["beam_size"] == 1 and tr.calls[0]["language"] == "en"
 
 
-def test_batcher_is_not_ported_yet(monkeypatch, entries):
-    monkeypatch.setattr(torch_settings, "os_batcher_enabled", True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TSS.StreamingSession(
-            ws=_WS([]), router=_Router(entries[1]), model="m", language="en",
-            sample_rate=SR, interim_results=True, endpointing_ms=300, vad_enabled=False,
-        )
+@pytest.fixture
+def batcher_settings(monkeypatch, stream_settings):
+    """OS_BATCHER_ENABLED=1 with the incremental encoder off, as the JAX
+    package's batcher tests run it; each call's submissions are counted."""
+    for s in (jax_settings, torch_settings):
+        monkeypatch.setattr(s, "os_batcher_enabled", True)
+        monkeypatch.setattr(s, "os_stream_incremental", False)
+    counts = {"jax": 0, "torch": 0}
+
+    def counted(name, fn):
+        async def wrapper(*args, **kw):
+            counts[name] += 1
+            return await fn(*args, **kw)
+        return wrapper
+
+    monkeypatch.setattr(JBP, "transcribe_pcm_batched", counted("jax", JBP.transcribe_pcm_batched))
+    monkeypatch.setattr(TSS, "transcribe_pcm_batched", counted("torch", TSS.transcribe_pcm_batched))
+    for pool in (JBP, TBP):
+        pool.reset_pool()
+    yield counts
+    for pool in (JBP, TBP):
+        pool.reset_pool()
+
+
+@pytest.mark.parametrize("seconds", [1.0, 2.0])
+def test_session_via_batcher_matches_jax(monkeypatch, entries, batcher_settings, seconds):
+    """Every interim and the final go through the shared batcher (2.0 s
+    overflows the 1.2 s window: the mel is trimmed, as in JAX)."""
+    audio = np.concatenate([_beeps(seconds / 2, 3, 8), _beeps(seconds / 2, 2, 9)])
+    jev, tev, jr, tr, session = _run_both(monkeypatch, entries, _frames(_pcm16(audio), 3200))
+    assert tev == jev
+    kinds = _kinds(tev)
+    assert ("transcript", False, False) in kinds and kinds.count(("transcript", True, True)) == 1
+    assert tev[-1]["errors"] == 0 and session._inc_encoder is None
+    assert tr.calls == jr.calls == []  # no executor fallback
+    assert batcher_settings["torch"] == batcher_settings["jax"] == session._transcription_count > 1
+
+
+def test_concurrent_sessions_share_one_batcher(entries, batcher_settings):
+    """Three sessions on one loop: one shared batcher decodes every pass
+    and retires every slot."""
+    async def go():
+        routers = [_Router(entries[1]) for _ in range(3)]
+        wss = []
+        for i, router in enumerate(routers):
+            audio = _beeps(1.0, 2 + i, 20 + i)
+            msgs = [TSS.Message(TSS.MsgType.BINARY, d) for _, d in _frames(_pcm16(audio), 3200)]
+            ws = _WS(msgs + [TSS.Message(TSS.MsgType.TEXT, json.dumps({"type": "stop"}))])
+            ws.session = TSS.StreamingSession(
+                ws=ws, router=router, model="test-tiny-eot", language="en", sample_rate=SR,
+                interim_results=True, endpointing_ms=300, vad_enabled=False)
+            wss.append(ws)
+        try:
+            await asyncio.wait_for(asyncio.gather(*(ws.session.run() for ws in wss)), 120)
+            return wss, routers, TBP.pool_stats()
+        finally:
+            await TBP.shutdown_batchers()
+
+    wss, routers, stats = asyncio.run(go())
+    (batcher,) = stats.values()
+    passes = sum(ws.session._transcription_count for ws in wss)
+    assert batcher_settings["torch"] == passes == batcher["completed"]
+    assert batcher["occupancy"] == 0
+    for ws, router in zip(wss, routers):
+        assert ws.sent[-1]["type"] == "session.end" and ws.sent[-1]["errors"] == 0
+        assert router.calls == []
+
+
+def test_batcher_is_not_ported_yet(monkeypatch, entries, batcher_settings):
+    """The batcher setting no longer refuses a session. An auto-detect
+    session whose backend cannot detect a language never rides the
+    batcher (it would force English): every pass takes the executor path,
+    as in JAX."""
+    audio = _beeps(1.5, 3, 10)
+    jev, tev, jr, tr, session = _run_both(
+        monkeypatch, entries, _frames(_pcm16(audio), 3200), language=None
+    )
+    assert tev == jev and session._lang_probe_failed
+    assert len(tr.calls) == len(jr.calls) > 1 and tr.calls == jr.calls
+    assert batcher_settings == {"jax": 0, "torch": 0}
 
 
 @pytest.mark.parametrize(
