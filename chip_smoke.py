@@ -40,6 +40,15 @@ Phases, each of which raises on failure (exit code 1, no result line):
      in float32 on the card against the CPU; REST tokens, streaming session
      events, the batcher's tokens (and B=1 greedy's) and a 75 s batched
      long-form request must be equal.
+  7. Kokoro: kokoro-82M at its full geometry (random weights from a seed,
+     float32) synthesizes as the JAX backend does per sentence
+     (``encode_utterance``, then ``vocode_blocks``). K-a times one
+     120-phoneme utterance (encode, first block, whole); K-b holds the card
+     against the CPU on the same weights and host-drawn noise (and reports
+     TF32's error and time beside the float32 kept); K-c holds four rows of
+     one batch against their solo runs; K-d holds the streamed blocks
+     against one-shot ``vocode``; K-e profiles one utterance. Kokoro
+     launches none of the port's hand kernels.
 
 The last two lines of standard output are the kernels' JSON line and the
 result line ``{"ok": true, "device": {...}}``.
@@ -345,10 +354,12 @@ def _phase_kernels_batched(gen) -> float:
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
         library_device_ms = cuda_ms(
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal), held=True)
+        plain_ms = cuda_ms(lambda: A.flash_attention_reference(q, k, v, causal=causal),
+                           iters=3, warmup=1)
         bound_ms, bound_by = _flash_bound_ms(b, h, t_q, t_k, d, causal, 2)
         blocks = -(-t_q // A.BLOCK_Q) * h * b
         log(f"{tag} max_abs_err {err:.3e} (tol {limit:.3e}): kernel_ms {kernel_ms:.4f} "
-            f"device_ms {device_ms:.4f} library_ms {library_ms:.4f} library_device_ms "
+            f"device_ms {device_ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} library_device_ms "
             f"{library_device_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) share_of_bound "
             f"{bound_ms / kernel_ms:.4f} (device {bound_ms / device_ms:.4f}) blocks {blocks}")
     return worst
@@ -494,6 +505,12 @@ def main() -> int:
     launches["flash_attention"] += streaming.pop("flash_attention")  # S3's admissions
     launches.update(streaming)
     phase_fixture()
+    from open_speech_tpu_torch.ops import attention as A
+
+    before = dict(A.launches)
+    phase_kokoro()
+    if dict(A.launches) != before:  # Kokoro has no hand kernel on its path
+        raise AssertionError(f"kokoro launched the flash kernels: {before} -> {dict(A.launches)}")
     for entry in kernels:  # K1 from REST (both paths) and S3, K2 and its combine from S1/S2
         entry["launches"] = launches.get(entry["name"], 0)
         if entry["launches"] == 0:
@@ -1350,6 +1367,314 @@ def _fixture_streaming(routers: dict, model_id: str) -> None:
             raise AssertionError(f"fixture stream {seconds} s: events differ at {diff}: "
                                  f"{events['cuda'][diff:diff + 2]} vs {events['cpu'][diff:diff + 2]}"
                                  if diff is not None else f"fixture stream {seconds} s: {n} transcripts")
+
+
+# ── phase 7: Kokoro synthesis at full width ──────────────────────────────
+
+KOKORO_PHONEMES = 120
+KOKORO_BATCH = (120, 14, 9, 4)  # phonemes per row of K-c
+# Card against CPU (K-b), batch rows against solo runs (K-c), streamed
+# blocks against one-shot vocode (K-d): float32 everywhere, so outputs
+# differ only in summation order. Each stage is held to the CPU parity
+# tests' tolerance against the JAX model (tests/test_torch_kokoro.py),
+# relative to the output's scale where that exceeds 1 (the random weights'
+# exp() spectrum makes loud audio): the text features, F0/N, the decoder's
+# output x, the harmonic features as re/im, and the generator's audio on the
+# same harmonic features. The whole synthesis on each side's own features
+# is held only in relative L2: the first STFT frame of the harmonic source is
+# a reflection, symmetric, so its phases' +-pi branch is rounding's choice,
+# and one such choice moves 1-5% of a short utterance's energy through the
+# generator's instance norms (tests/test_torch_kokoro.py:OWN_FEATURES_REL_L2).
+KOKORO_TOL = {"asr": 2e-5, "f0": 3e-4, "n": 3e-4, "x": 3e-4, "har": 1e-5, "audio": 2e-3}
+KOKORO_OWN_FEATURES_REL_L2 = 0.5
+KOKORO_MULTI_BLOCK_REL_L2 = 0.5  # tests/test_torch_kokoro.py:MULTI_BLOCK_REL_L2
+
+
+def _kokoro_inputs(cfg, lengths, seed: int, device: str):
+    """Phoneme ids drawn from ``seed``, ``voice_vector("af_heart")``, speed 1."""
+    import numpy as np
+    import torch
+
+    from open_speech_tpu_torch.models.kokoro import voice_vector
+
+    rng = np.random.default_rng(seed)
+    ph = np.zeros((len(lengths), cfg.max_phonemes), np.int64)
+    for i, n in enumerate(lengths):
+        ph[i, :n] = rng.integers(1, cfg.n_symbols, n)
+    style = np.repeat(voice_vector("af_heart", cfg.voice_dim)[None], len(lengths), 0)
+    return (torch.from_numpy(ph).to(device), torch.tensor(lengths, device=device),
+            torch.from_numpy(style).to(device), torch.ones(len(lengths), device=device))
+
+
+def _within(name: str, got, want, key: str) -> float:
+    """Max |got - want|, raising past KOKORO_TOL[key] * max(1, max|want|)."""
+    import torch
+
+    got, want = torch.as_tensor(got).float().cpu(), torch.as_tensor(want).float().cpu()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)} or not finite")
+    err = (got - want).abs().max().item()
+    limit = KOKORO_TOL[key] * max(1.0, want.abs().max().item())
+    if err > limit:
+        raise AssertionError(f"{name}: max |diff| {err:.3e} over {limit:.3e}")
+    return err
+
+
+def phase_kokoro() -> None:
+    import numpy as np
+    import torch
+
+    from open_speech_tpu_torch.models.kokoro import model as K
+
+    cfg = K.KokoroConfig()
+    spf = cfg.samples_per_frame
+    model = K.init_kokoro_params(torch.Generator(device="cuda").manual_seed(7), cfg, device="cuda")
+    log(f"kokoro: kokoro-82M geometry (PL-BERT 12 x 768, hidden 512, dec_mid 1024, upsample "
+        f"(10, 6), n_fft 20, hop 5, 24 kHz; buckets {cfg.max_phonemes} phonemes, {cfg.max_frames} "
+        f"frames), random weights from seed 7, float32: "
+        f"{sum(p.numel() for p in model.parameters())} parameters")
+    args = _kokoro_inputs(cfg, (KOKORO_PHONEMES,), 8, "cuda")
+
+    # K-a: one utterance as the backend runs a sentence; the second run counts
+    def utterance():
+        t0 = time.perf_counter()
+        g, n_frames = K.encode_utterance(model, cfg, *args)
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter()
+        blocks = K.vocode_blocks(model, cfg, g, n_frames,
+                                 rng=torch.Generator(device="cuda").manual_seed(1))
+        first = next(blocks)  # a host array: the card has finished it
+        t_first = time.perf_counter()
+        audio = np.concatenate([first, *blocks], axis=1)
+        t_end = time.perf_counter()
+        return g, n_frames, audio, (t_enc - t0, t_first - t0, t_end - t0)
+
+    for _ in range(2):
+        g, n_frames, audio, (enc_s, first_s, wall_s) = utterance()
+    frames = int(n_frames[0])
+    seconds = frames * spf / cfg.sample_rate
+    if audio.shape != (1, frames * spf) or not np.isfinite(audio).all():
+        raise AssertionError(f"kokoro K-a: audio {audio.shape} for {frames} frames, or not finite")
+    log(f"kokoro K-a: {KOKORO_PHONEMES} phonemes -> n_frames {frames} (random-weight durations "
+        f"~{cfg.max_dur // 2} frames per phoneme, compressed to the {cfg.max_frames}-frame bucket), "
+        f"{seconds:.2f} s of audio; encode_ms {1e3 * enc_s:.3f} first_block_ms {1e3 * first_s:.3f} "
+        f"(encode + first 64-frame block, on the host) wall_ms {1e3 * wall_s:.3f} "
+        f"RTFx {seconds / wall_s:.2f}; max|audio| {np.abs(audio).max():.4g}")
+
+    _kokoro_card_vs_cpu(K, cfg, model, args)
+    _kokoro_batch(K, cfg, model)
+    _kokoro_streaming(K, cfg, model, g, n_frames)
+    _kokoro_profile(K, cfg, model, args)
+
+
+def _rel_l2(name: str, got, want, bound: float) -> float:
+    """||got - want|| / ||want||, raising past ``bound``."""
+    import torch
+
+    got, want = torch.as_tensor(got).float().cpu(), torch.as_tensor(want).float().cpu()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)} or not finite")
+    rel = (torch.linalg.norm(got - want) / torch.linalg.norm(want)).item()
+    if not rel <= bound:
+        raise AssertionError(f"{name}: relative L2 {rel:.3e} over {bound}")
+    return rel
+
+
+def _kokoro_stages(K, cfg, m, args, gens, har=None) -> dict:
+    """encode -> decoder -> harmonic features -> generator, on m's device,
+    with noise from ``gens`` (per row) and the generator on ``har`` when
+    given, else on its own features. The harmonic features come back as
+    re/im (free of the phase's +-pi branch) under "har_c"."""
+    import torch
+
+    dev = m.device
+    g, n_frames = K.encode_utterance(m, cfg, *(a.to(dev) for a in args))
+    noise = K._source_noise(gens, len(gens), cfg.harmonics + 1,
+                            cfg.max_frames * cfg.samples_per_frame, dev)
+    with K._inference():
+        x, _ = K.decode_audio(m, cfg, *g[:3], g[3], n_frames)
+        own = K.har_features(m, cfg, g[1], *noise)
+        audio = K.generate_waveform(m, cfg, x, g[3], g[1], n_frames, *noise,
+                                    har_feat=own if har is None else har.to(dev))
+    nb = cfg.gen_n_fft // 2 + 1
+    mag, phase = own[:, :nb], own[:, nb:]
+    return {"n_frames": n_frames.tolist(), "asr": g[0], "f0": g[1], "n": g[2], "x": x,
+            "har": own, "har_c": torch.stack([mag * torch.cos(phase), mag * torch.sin(phase)], 1),
+            "audio": audio}
+
+
+def _compare_stages(name: str, got: dict, want: dict, rows=None) -> dict:
+    """Every stage of ``got`` (rows ``rows`` of it) against ``want``; returns
+    the max |diff| of each."""
+    if got["n_frames"][slice(*rows) if rows else slice(None)] != want["n_frames"]:
+        raise AssertionError(f"{name}: n_frames {got['n_frames']} vs {want['n_frames']}")
+    errs = {}
+    for key in ("asr", "f0", "n", "x", "har_c", "audio"):
+        a = got[key][slice(*rows)] if rows else got[key]
+        errs[key] = _within(f"{name} {key}", a, want[key], "har" if key == "har_c" else key)
+    return errs
+
+
+def _kokoro_card_vs_cpu(K, cfg, model, args) -> None:
+    """K-b: the same weights and the same host-drawn noise on both devices,
+    stage by stage (the card's generator on the CPU's harmonic features) and
+    whole (each on its own features); then the card with TF32 allowed in
+    cuDNN, for its error and time."""
+    import torch
+
+    cpu_model = K.KModel.empty(cfg, "cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    cpu_args = tuple(a.cpu() for a in args)
+
+    def gens():
+        return [torch.Generator().manual_seed(3)]  # host draws, moved to the model's device
+
+    host = _kokoro_stages(K, cfg, cpu_model, cpu_args, gens())
+
+    def whole(m, a, sync):
+        t0 = time.perf_counter()
+        g, n_frames = K.encode_utterance(m, cfg, *a)
+        audio = K.vocode(m, cfg, g, n_frames, rng=gens())
+        sync()
+        return audio, time.perf_counter() - t0
+
+    def card_run() -> tuple[dict, float, float]:
+        stages = _kokoro_stages(K, cfg, model, args, gens(), har=host["har"])
+        whole(model, args, torch.cuda.synchronize)
+        audio, wall = whole(model, args, torch.cuda.synchronize)
+        rel = (torch.linalg.norm(audio.cpu() - host_audio) / torch.linalg.norm(host_audio)).item()
+        return stages, wall, rel
+
+    host_audio, host_wall = whole(cpu_model, cpu_args, lambda: None)
+    card, card_wall, card_rel = card_run()
+    errs = _compare_stages("kokoro K-b card vs CPU", card, host)
+    if not card_rel <= KOKORO_OWN_FEATURES_REL_L2:
+        raise AssertionError(f"kokoro K-b whole synthesis: relative L2 {card_rel:.3e}")
+    real = K._CUDNN
+    try:
+        K._CUDNN = K._CudnnScope(allow_tf32=True)
+        tf32, tf32_wall, tf32_rel = card_run()
+    finally:
+        K._CUDNN = real
+    tf32_errs = {key: (tf32[key].float().cpu() - host[key]).abs().max().item()
+                 for key in ("asr", "f0", "n", "x", "har_c", "audio")}
+
+    def show(e: dict) -> str:
+        return " ".join(f"{k}_err {v:.3e}" for k, v in e.items())
+
+    log(f"kokoro K-b card vs CPU (n_frames {host['n_frames'][0]} both; float32, TF32 off in "
+        f"cuDNN): {show(errs)} (audio on the CPU's harmonic features; scale max|audio| "
+        f"{host['audio'].abs().max().item():.4g}, max|x| {host['x'].abs().max().item():.4g}); "
+        f"whole synthesis on own features rel_L2 {card_rel:.3e}; encode+vocode card_ms "
+        f"{1e3 * card_wall:.3f} cpu_ms {1e3 * host_wall:.3f}")
+    log(f"kokoro K-b with TF32 allowed in cuDNN (not kept): {show(tf32_errs)}; whole synthesis "
+        f"rel_L2 {tf32_rel:.3e}; encode+vocode card_ms {1e3 * tf32_wall:.3f}")
+
+
+def _kokoro_batch(K, cfg, model) -> None:
+    """K-c: four rows of different lengths, each with its own generator,
+    against each row's solo run: every stage (the batch's generator on the
+    solo runs' harmonic features), then the whole synthesis
+    (``synthesize_frames``) on each side's own features."""
+    import torch
+
+    args = _kokoro_inputs(cfg, KOKORO_BATCH, 9, "cuda")
+    seeds = list(range(11, 11 + len(KOKORO_BATCH)))
+
+    def gens(ss):
+        return [torch.Generator(device="cuda").manual_seed(s) for s in ss]
+
+    solo = [_kokoro_stages(K, cfg, model, tuple(a[i : i + 1] for a in args), gens([s]))
+            for i, s in enumerate(seeds)]
+    batch = _kokoro_stages(K, cfg, model, args, gens(seeds),
+                           har=torch.cat([one["har"] for one in solo]))
+    own = _kokoro_stages(K, cfg, model, args, gens(seeds))
+    worst = {}
+    for i, one in enumerate(solo):
+        for key, err in _compare_stages(f"kokoro K-c row {i}", batch, one, (i, i + 1)).items():
+            worst[key] = max(worst.get(key, 0.0), err)
+    K.synthesize_frames(model, cfg, *args, rng=gens(seeds))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    audio, n_frames = K.synthesize_frames(model, cfg, *args, rng=gens(seeds))
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    _within("kokoro K-c synthesize_frames vs its stages", audio, own["audio"], "audio")
+    solo_s, rels = 0.0, []
+    for i, s in enumerate(seeds):
+        t0 = time.perf_counter()
+        alone, _ = K.synthesize_frames(model, cfg, *(a[i : i + 1] for a in args), rng=gens([s]))
+        torch.cuda.synchronize()
+        solo_s += time.perf_counter() - t0
+        rels.append(_rel_l2(f"kokoro K-c row {i} whole synthesis", audio[i], alone[0],
+                            KOKORO_OWN_FEATURES_REL_L2))
+    log(f"kokoro K-c batch of {len(KOKORO_BATCH)} ({list(KOKORO_BATCH)} phonemes -> n_frames "
+        f"{n_frames.tolist()}): rows vs solo "
+        + " ".join(f"{k}_err {v:.3e}" for k, v in worst.items())
+        + f"; whole synthesis rel_L2 max {max(rels):.3e}; batch_ms {1e3 * batch_s:.3f} "
+        f"solo_sum_ms {1e3 * solo_s:.3f}")
+
+
+def _kokoro_streaming(K, cfg, model, g, n_frames) -> None:
+    """K-d: the streamed blocks cover n_frames x 600 samples; they equal
+    ``vocode`` where the utterance fits one block, and stay within the CPU
+    test's bound where it does not."""
+    import numpy as np
+    import torch
+
+    spf = cfg.samples_per_frame
+    short = _kokoro_inputs(cfg, (2,), 10, "cuda")
+    cases = [("one block", *K.encode_utterance(model, cfg, *short)), ("multi-block", g, n_frames)]
+    for name, gg, nf in cases:
+        frames = int(nf[0])
+        full = K.vocode(model, cfg, gg, nf, rng=torch.Generator(device="cuda").manual_seed(5))
+        full = full[:, : frames * spf].cpu().numpy()
+        blocks = list(K.vocode_streaming(model, cfg, gg, nf,
+                                         rng=torch.Generator(device="cuda").manual_seed(5)))
+        joined = np.concatenate(blocks, axis=1)
+        if joined.shape != (1, frames * spf):
+            raise AssertionError(f"kokoro K-d {name}: {joined.shape[1]} samples for {frames} frames")
+        if frames <= 64:  # vocode_streaming's block
+            err = _within(f"kokoro K-d {name}", joined, full, "audio")
+            detail = f"max_err {err:.3e} vs vocode"
+        else:
+            rel = float(np.linalg.norm(joined - full) / np.linalg.norm(full))
+            if not rel < KOKORO_MULTI_BLOCK_REL_L2:
+                raise AssertionError(f"kokoro K-d {name}: relative L2 {rel:.3f} vs vocode")
+            detail = f"rel_L2 {rel:.4f} vs vocode (bound {KOKORO_MULTI_BLOCK_REL_L2})"
+        log(f"kokoro K-d {name}: n_frames {frames}, {len(blocks)} blocks, "
+            f"{joined.shape[1]} samples = n_frames x {spf}; {detail}")
+
+
+def _kokoro_profile(K, cfg, model, args) -> None:
+    """K-e: one utterance (encode, then every block) under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def once():
+        g, n_frames = K.encode_utterance(model, cfg, *args)
+        for _ in K.vocode_blocks(model, cfg, g, n_frames,
+                                 rng=torch.Generator(device="cuda").manual_seed(1)):
+            pass
+
+    once()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        once()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    if busy <= 0:
+        raise AssertionError("kokoro profile: no device time in the trace")
+    launches = sum(e.count for e in kernels)
+    log(f"kokoro K-e profiled utterance: wall_s {wall:.4f} device_busy_s {busy:.4f} "
+        f"idle_share {1 - busy / wall:.4f} kernel launches {launches}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} x  {e.key[:90]}")
 
 
 if __name__ == "__main__":

@@ -236,6 +236,11 @@ class TorchWhisperBackend:
         The largest rung holds the most memory (16 windows' cross-KV, 80
         beam rows), so warming it alone grows the allocator's pool to what
         every smaller rung needs.
+
+        Warmup never blocks the load, as in the JAX package: a stage that
+        raises (the 16-window rung out of memory on a busy card, say) is
+        logged and the model stays loaded. The nvcc build is not a stage:
+        a kernel that does not build raises here.
         """
         entry = self._models[model_id]
         t0 = time.time()
@@ -245,21 +250,23 @@ class TorchWhisperBackend:
             build.build()
         window_samples = entry["cfg"].n_audio_ctx * 2 * 160  # hop=160
         wav = codec.write_wav(np.zeros(window_samples, np.float32), TARGET_RATE)
-        self._run_inference(
+        stages = [("beam-5 transcribe", lambda: self._run_inference(
             wav, model_id, language="en", beam_size=5, fallback=False,
             _budget_override=max(_warmed_budgets(), default=224),
-        )
+        ))]
         if settings.os_stt_batched_longform:
-            self._warmup_batched(entry, window_samples)
+            stages.append(("batched rung", lambda: self._warmup_batched(entry, window_samples)))
         if settings.os_stream_incremental:
-            from open_speech_tpu_torch.models.whisper.streaming import (
-                StreamingWhisperEncoder,
-            )
-
-            senc = StreamingWhisperEncoder(entry["model"], entry["cfg"])
-            senc.append_audio(np.zeros(TARGET_RATE, np.float32))
-            senc.interim_states()
-        logger.info("STT warmup for %s done in %.1fs", model_id, time.time() - t0)
+            stages.append(("streaming block encode", lambda: self._warmup_streaming(entry)))
+        failed = []
+        for name, stage in stages:
+            try:
+                stage()
+            except Exception:  # noqa: BLE001 — warmup must never block load
+                logger.exception("STT warmup stage %r failed (%s)", name, model_id)
+                failed.append(name)
+        logger.info("STT warmup for %s done in %.1fs (%d of %d stages failed)",
+                    model_id, time.time() - t0, len(failed), len(stages))
 
     def _warmup_batched(self, entry: dict[str, Any], window_samples: int) -> None:
         """One batched long-form rung: the largest bucket <= os_stt_batch_windows."""
@@ -279,6 +286,17 @@ class TorchWhisperBackend:
                 no_speech_threshold=None,
             ),
         )
+
+    @staticmethod
+    def _warmup_streaming(entry: dict[str, Any]) -> None:
+        """One streaming block encode and its interim states (K2's first launch)."""
+        from open_speech_tpu_torch.models.whisper.streaming import (
+            StreamingWhisperEncoder,
+        )
+
+        senc = StreamingWhisperEncoder(entry["model"], entry["cfg"])
+        senc.append_audio(np.zeros(TARGET_RATE, np.float32))
+        senc.interim_states()
 
     def unload_model(self, model_id: str) -> None:
         if self._models.pop(model_id, None) is not None:

@@ -3,8 +3,9 @@
 Counterpart of ``open_speech_tpu/config.py``: the same field names, the same
 upper-case environment variables, the same parsing and the same alias
 properties, for the fields the REST transcription path (batched long-form
-included), the streaming session and the continuous batcher read.
-``stt_device`` defaults to ``cuda``.
+included), the streaming session and the continuous batcher read, and the
+device Kokoro's weights are made on. ``stt_device`` defaults to ``cuda``;
+``tts_device`` defaults to ``stt_device``.
 """
 
 from __future__ import annotations
@@ -41,9 +42,11 @@ _DEFAULTS: dict[str, object] = {
     # batched long-form REST: chunks of one window, decoded as a batch
     "os_stt_batched_longform": False,
     "os_stt_batch_windows": 16,
+    # TTS (Kokoro) runs here; None means the STT device
+    "tts_device": None,
 }
 
-_OPTIONAL_STR = {"stt_model_dir"}
+_OPTIONAL_STR = {"stt_model_dir", "tts_device"}
 
 
 def _parse(raw: str, default):
@@ -83,6 +86,10 @@ class Settings:
     stt_stream_chunk_ms = property(lambda self: self.os_stream_chunk_ms)
     stt_stream_max_connections = property(lambda self: self.os_stream_max_connections)
     stt_default_model = property(lambda self: self.stt_model)
+
+    @property
+    def tts_effective_device(self) -> str:
+        return self.tts_device or self.stt_device
 
 
 settings = Settings()

@@ -15,6 +15,7 @@ batched branch under the JAX backend's condition.
 
 from __future__ import annotations
 
+import time
 from dataclasses import replace
 from pathlib import Path
 
@@ -245,3 +246,49 @@ def test_backend_routes_longform_to_batched(monkeypatch):
     assert calls == [6]
     backend.transcribe(long_wav, "test-tiny", prompt="style hint", **kw)
     assert calls == [6, 6]
+
+
+def test_failed_warmup_stage_keeps_the_model(monkeypatch, caplog):
+    """Warmup never blocks the load, as in the JAX package: a stage that
+    raises (here the batched rung, as an out-of-memory on a busy card would)
+    is logged; ``load_model`` returns, the model stays listed, its TTL clock
+    starts after the warmup, the other stages still run, and the next request
+    is served. The kernel build is not a stage: a failed build raises."""
+    import logging
+
+    from open_speech_tpu_torch.backends import torch_whisper as TW
+    from open_speech_tpu_torch.kernels import build
+
+    monkeypatch.setattr(torch_settings, "os_precompile_on_load", True)
+    monkeypatch.setattr(torch_settings, "os_stream_incremental", True)
+    monkeypatch.setattr(torch_settings, "os_stt_batched_longform", True)
+    monkeypatch.setattr(torch_settings, "os_stt_batch_windows", 2)
+    streamed = []
+    real_streaming = TW.TorchWhisperBackend._warmup_streaming
+
+    def oom(self, entry, window_samples):
+        time.sleep(0.05)
+        raise RuntimeError("CUDA out of memory (simulated)")
+
+    monkeypatch.setattr(TW.TorchWhisperBackend, "_warmup_batched", oom)
+    monkeypatch.setattr(TW.TorchWhisperBackend, "_warmup_streaming",
+                        staticmethod(lambda entry: streamed.append(1) or real_streaming(entry)))
+    backend = TW.TorchWhisperBackend(device="cpu", compute_type="float32")
+    with caplog.at_level(logging.ERROR, logger=TW.logger.name):
+        backend.load_model("test-tiny")
+    assert "'batched rung' failed" in caplog.text and "simulated" in caplog.text
+    assert streamed == [1]
+    assert [m.model for m in backend.loaded_models()] == ["test-tiny"]
+    assert backend._last_used["test-tiny"] - backend._loaded_at["test-tiny"] >= 0.05
+    wav = codec.write_wav(np.random.default_rng(1).uniform(-0.1, 0.1, WINDOW).astype(np.float32), SR)
+    out = backend.transcribe(wav, "test-tiny", language="en", beam_size=1, fallback=False,
+                             response_format="verbose_json")
+    assert "segments" in out
+
+    def broken_build(*args, **kwargs):
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(build, "build", broken_build)
+    monkeypatch.setattr(backend, "_device", torch.device("cuda"))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        backend._warmup("test-tiny")

@@ -1,5 +1,6 @@
 """The port's flash kernels (K1, K2) and the streaming block encode on a
-Hopper card against their plain versions.
+Hopper card against their plain versions; Kokoro (no hand kernel) on the
+card against the CPU.
 
 These tests need an NVIDIA Hopper card and skip without one. On the card's
 machine, which has no JAX, run them without the suite's conftest (it sets
@@ -357,3 +358,76 @@ def test_batched_longform_card_matches_cpu(card, monkeypatch):
     gpu, _ = transcribe_batched(model.to(card), cfg, tok, audio, opts, max_batch=4)
     key = lambda segs: [(s.seek, s.start, s.end, s.tokens) for s in segs]  # noqa: E731
     assert key(gpu) == key(cpu) and cpu
+
+
+# ── Kokoro (no hand kernel: cuDNN, cuBLAS, cuFFT in float32) ─────────────
+
+
+def _kokoro(card):
+    from open_speech_tpu_torch.models.kokoro import model as K
+
+    cfg = K.TINY_CONFIG
+    host = K.init_kokoro_params(torch.Generator().manual_seed(7), cfg, device="cpu")
+    dev = K.KModel.empty(cfg, card)
+    dev.load_state_dict(host.state_dict())
+    g = torch.Generator().manual_seed(5)
+    lengths = (40, 9)
+    ph = torch.zeros(len(lengths), cfg.max_phonemes, dtype=torch.long)
+    for i, n in enumerate(lengths):
+        ph[i, :n] = torch.randint(1, cfg.n_symbols, (n,), generator=g)
+    style = torch.randn(len(lengths), cfg.voice_dim, generator=g) * 0.1
+    args = (ph, torch.tensor(lengths), style, torch.ones(len(lengths)))
+    return K, cfg, host, dev, args
+
+
+def test_kokoro_card_matches_cpu(card):
+    """TINY_CONFIG on the card against the CPU, the same weights and
+    host-drawn noise: frame counts equal, the encoder's outputs and the
+    decoder's within the CPU parity tests' tolerances, the generator on the
+    CPU's harmonic features within 2e-3 of the audio's scale. The process's
+    cuDNN TF32 flag is left as it was found."""
+    K, cfg, host, dev, args = _kokoro(card)
+    flag = torch.backends.cudnn.allow_tf32
+    out = {}
+    for name, m in (("cpu", host), ("card", dev)):
+        a = tuple(t.to(m.device) for t in args)
+        (asr, f0, n, s_dec), frames = K.encode_utterance(m, cfg, *a)
+        noise = K._source_noise([torch.Generator().manual_seed(s) for s in (1, 2)], 2,
+                                cfg.harmonics + 1, cfg.max_frames * cfg.samples_per_frame,
+                                m.device)
+        with K._inference():
+            x, _ = K.decode_audio(m, cfg, asr, f0, n, s_dec, frames)
+            har = out["cpu"]["har"].to(m.device) if name == "card" else K.har_features(
+                m, cfg, f0, *noise)
+            audio = K.generate_waveform(m, cfg, x, s_dec, f0, frames, *noise, har_feat=har)
+        out[name] = {k: v.cpu() for k, v in dict(frames=frames, asr=asr, f0=f0, n=n, x=x,
+                                                 har=har, audio=audio).items()}
+    assert torch.backends.cudnn.allow_tf32 == flag
+    cpu, gpu = out["cpu"], out["card"]
+    assert torch.equal(gpu["frames"], cpu["frames"])
+    for key, tol in (("asr", 2e-5), ("f0", 3e-4), ("n", 3e-4), ("x", 3e-4), ("audio", 2e-3)):
+        scale = max(1.0, cpu[key].abs().max().item())
+        assert (gpu[key] - cpu[key]).abs().max().item() <= tol * scale, key
+
+
+def test_kokoro_blocks_cover_the_utterance_on_the_card(card):
+    """The streamed blocks on the card cover n_frames x samples_per_frame
+    of the longest row, and equal one-shot ``vocode`` where the utterance
+    fits one block."""
+    import numpy as np
+
+    K, cfg, _, dev, args = _kokoro(card)
+    spf = cfg.samples_per_frame
+    for rows, block_frames in ((slice(0, 2), 16), (slice(1, 2), 64)):
+        a = tuple(t[rows].to(card) for t in args)
+        g, frames = K.encode_utterance(dev, cfg, *a)
+        total = int(frames.max())
+        blocks = list(K.vocode_streaming(dev, cfg, g, frames, block_frames=block_frames,
+                                         rng=torch.Generator(device=card).manual_seed(3)))
+        joined = np.concatenate(blocks, axis=1)
+        assert joined.shape == (len(frames), total * spf) and np.isfinite(joined).all()
+        assert len(blocks) == -(-total // block_frames)
+    assert len(blocks) == 1
+    full = K.vocode(dev, cfg, g, frames, rng=torch.Generator(device=card).manual_seed(3))
+    full = full[:, : total * spf].cpu().numpy()
+    assert np.abs(joined - full).max() <= 2e-3 * max(1.0, np.abs(full).max())

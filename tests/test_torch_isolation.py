@@ -3,7 +3,8 @@ open_speech_tpu.
 
 ``open_speech_tpu_torch`` runs where JAX and aiohttp are not installed, so
 importing it (and every submodule, the streaming session, the continuous
-batcher, its pool and batched long-form included) must
+batcher, its pool, batched long-form, Kokoro's model and converter, the
+vocoder ops and Piper's weight-norm folding included) must
 pull in neither ``jax``, ``aiohttp`` nor any module of the JAX package. The check runs in a fresh interpreter, because this test
 process already imported both.
 """
@@ -31,7 +32,8 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "aiohttp" or m.startswith("aiohttp.")
              or m == "open_speech_tpu" or m.startswith("open_speech_tpu."))
-want = ("server.streaming", "runtime.batcher", "runtime.batcher_pool", "models.whisper.batched")
+want = ("server.streaming", "runtime.batcher", "runtime.batcher_pool", "models.whisper.batched",
+        "models.kokoro.model", "models.kokoro.convert", "ops.vocoder", "models.piper.convert")
 print(len(names), ",".join(bad), int(all("open_speech_tpu_torch." + w in names for w in want)))
 """
 
@@ -44,7 +46,8 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
     n_modules, named = int(out[0]), out[-1]
     bad = out[1] if len(out) == 3 else ""
     assert n_modules >= 30, "walk_packages should find every submodule"
-    assert named == "1", "the streaming session, both batchers and batched long-form must be among them"
+    assert named == "1", ("the streaming session, both batchers, batched long-form and "
+                          "Kokoro's modules must be among them")
     assert bad == "", f"port imported: {bad}"
 
 
