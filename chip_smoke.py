@@ -49,6 +49,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
      one batch against their solo runs; K-d holds the streamed blocks
      against one-shot ``vocode``; K-e profiles one utterance. Kokoro
      launches none of the port's hand kernels.
+  8. Kokoro serving: the same geometry behind ``TTSRouter`` and
+     ``speech_response`` (the body of ``POST /v1/audio/speech``), loaded
+     with the TTS batcher on (its warmup batch included). T-a: a
+     two-sentence request, one-shot WAV and streamed PCM (first chunk, wall,
+     RTFx, G2P ms per sentence). T-b: 1, 4 and 16 concurrent streamed
+     requests through the batcher and 16 without it (first chunk p50 and
+     max, wall, batches, peak memory). T-c: a row of a batch of four
+     against the same request alone, and the served WAV against
+     ``vocode_blocks`` called directly. T-d: phases 7 and 8 launch none of
+     the flash kernels. T-e: one batch of 16 sentences under torch.profiler.
 
 The last two lines of standard output are the kernels' JSON line and the
 result line ``{"ok": true, "device": {...}}``.
@@ -509,8 +519,10 @@ def main() -> int:
 
     before = dict(A.launches)
     phase_kokoro()
+    phase_kokoro_serving()
     if dict(A.launches) != before:  # Kokoro has no hand kernel on its path
         raise AssertionError(f"kokoro launched the flash kernels: {before} -> {dict(A.launches)}")
+    log(f"kokoro serving T-d: flash launch counts unchanged through phases 7 and 8: {before}")
     for entry in kernels:  # K1 from REST (both paths) and S3, K2 and its combine from S1/S2
         entry["launches"] = launches.get(entry["name"], 0)
         if entry["launches"] == 0:
@@ -1673,6 +1685,277 @@ def _kokoro_profile(K, cfg, model, args) -> None:
     launches = sum(e.count for e in kernels)
     log(f"kokoro K-e profiled utterance: wall_s {wall:.4f} device_busy_s {busy:.4f} "
         f"idle_share {1 - busy / wall:.4f} kernel launches {launches}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} x  {e.key[:90]}")
+
+
+# ── phase 8: Kokoro serving ──────────────────────────────────────────────
+
+# two sentences of 55 and 53 phoneme ids (the rule G2P, vendored vocab)
+SERVING_TEXT = ("Please call me back when you are ready to talk about the project. "
+                "The weather should stay clear and warm for the rest of the week.")
+SERVING_TEXTS = [  # one per concurrent request, in turn
+    SERVING_TEXT,
+    "Our train leaves at half past seven, so we should pack tonight. "
+    "She found the old map in a box under the stairs last winter.",
+]
+SERVING_CONCURRENCY = (1, 4, 16)
+
+
+def _pcm_seconds(n_bytes: int, rate: int) -> float:
+    return n_bytes / 2 / rate
+
+
+def phase_kokoro_serving() -> None:
+    import numpy as np
+    import torch
+
+    from open_speech_tpu_torch.config import settings
+    from open_speech_tpu_torch.runtime import tts_batcher as TB
+    from open_speech_tpu_torch.runtime.speech import speech_response
+    from open_speech_tpu_torch.text.g2p import split_sentences
+    from open_speech_tpu_torch.tts.router import TTSRouter
+
+    router = TTSRouter()  # the card: settings.tts_effective_device
+    backend = router.get_backend("kokoro")
+    saved = settings.os_tts_batcher_enabled
+    settings.os_tts_batcher_enabled = True
+    try:
+        t0 = time.perf_counter()
+        router.load_model("kokoro")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        cfg = backend._cfg
+        rows = max(int(b) for b in settings.os_tts_precompile_buckets.split(",") if b.strip())
+        log(f"kokoro serving: TTSRouter -> {type(backend).__name__} on {backend.device}, "
+            f"kokoro-82M geometry ({cfg.max_phonemes} phonemes, {cfg.max_frames} frames), random "
+            f"weights from seed 7, float32; load + warmup synthesis + batcher warmup batch of {rows} "
+            f"rows {load_s:.3f} s; G2P {type(backend._g2p).__name__}")
+        settings.os_tts_batcher_enabled = False
+        _serving_one_request(router, backend, speech_response, split_sentences)
+        _serving_concurrent(router, settings, TB, speech_response)
+        _serving_checks(router, backend, settings, TB, speech_response, split_sentences)
+        _serving_profile(backend, TB, split_sentences)
+    finally:
+        settings.os_tts_batcher_enabled = saved
+        threads = [b._thread for b in TB._batchers.values() if b._thread is not None]
+        TB.reset_tts_batchers()
+        for thread in threads:
+            thread.join(timeout=60)
+        router.unload_model("kokoro")
+        torch.cuda.empty_cache()
+
+
+def _serving_one_request(router, backend, speech_response, split_sentences) -> None:
+    """T-a: the two-sentence request, per-request path, one-shot WAV and
+    streamed PCM; the second of two runs of each counts."""
+    import numpy as np
+
+    from open_speech_tpu_torch.ops import audio as codec
+
+    sentences = split_sentences(SERVING_TEXT)
+    g2p_ms, lengths = [], []
+    for s in sentences:
+        t0 = time.perf_counter()
+        ids = backend._encode_text(s, "en-us")
+        g2p_ms.append(1e3 * (time.perf_counter() - t0))
+        lengths.append(len(ids) - 2)
+    body = {"input": SERVING_TEXT, "voice": "af_heart"}
+    for _ in range(2):
+        t0 = time.perf_counter()
+        ct, wav = speech_response(router, {**body, "response_format": "wav"})
+        wav_s = time.perf_counter() - t0
+    audio, rate = codec.read_wav(wav)
+    if ct != "audio/wav" or rate != 24000 or audio.size == 0 or not np.isfinite(audio).all():
+        raise AssertionError(f"kokoro serving T-a wav: {ct}, {rate} Hz, {audio.size} samples")
+    wav_audio_s = audio.size / rate
+    for _ in range(2):
+        t0 = time.perf_counter()
+        ct, chunks = speech_response(router, {**body, "response_format": "pcm"}, stream=True)
+        sizes = [len(next(chunks))]
+        ttfa_s = time.perf_counter() - t0
+        sizes += [len(c) for c in chunks]
+        wall_s = time.perf_counter() - t0
+    pcm_audio_s = _pcm_seconds(sum(sizes), 24000)
+    if ct != "audio/pcm" or abs(pcm_audio_s - wav_audio_s) > 0.05 * wav_audio_s:
+        raise AssertionError(f"kokoro serving T-a pcm: {ct}, {pcm_audio_s} s vs wav {wav_audio_s} s")
+    log(f"kokoro serving T-a ({len(sentences)} sentences, {lengths} phonemes; n_frames in "
+        f"T-c): wav one-shot "
+        f"wall_ms {1e3 * wav_s:.3f} (the first byte is the whole body) audio_s {wav_audio_s:.3f} "
+        f"RTFx {wav_audio_s / wav_s:.2f}; pcm streamed TTFA_ms {1e3 * ttfa_s:.3f} wall_ms "
+        f"{1e3 * wall_s:.3f} audio_s {pcm_audio_s:.3f} RTFx {pcm_audio_s / wall_s:.2f} in "
+        f"{len(sizes)} chunks; G2P host ms per sentence "
+        + " ".join(f"{m:.3f}" for m in g2p_ms) + f"; G2P {type(backend._g2p).__name__}")
+
+
+def _serving_concurrent(router, settings, TB, speech_response) -> None:
+    """T-b: N concurrent streamed PCM requests from threads, through the
+    batcher (N = 1, 4, 16; each twice) and without it (16), in this call."""
+    import statistics
+    import threading
+
+    import torch
+
+    def run(n: int, batcher: bool, label: str) -> None:
+        settings.os_tts_batcher_enabled = batcher
+        for b in TB._batchers.values():  # this run's batches only
+            b.stats.update(batches=0, jobs=0, peak_batch=0)
+        start = threading.Barrier(n + 1)
+        first, end, audio_s, errors = [0.0] * n, [0.0] * n, [0.0] * n, []
+
+        def client(i: int) -> None:
+            try:
+                start.wait()
+                _, chunks = speech_response(router, {
+                    "input": SERVING_TEXTS[i % len(SERVING_TEXTS)], "voice": "af_heart",
+                    "response_format": "pcm"}, stream=True)
+                total = len(next(chunks))
+                first[i] = time.perf_counter() - t0
+                total += sum(len(c) for c in chunks)
+                end[i] = time.perf_counter() - t0
+                audio_s[i] = _pcm_seconds(total, 24000)
+            except Exception as e:  # noqa: BLE001 — reported below, on the main thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        start.wait()
+        for t in threads:
+            t.join(timeout=600)
+        if errors or any(t.is_alive() for t in threads) or min(audio_s) <= 0:
+            raise AssertionError(f"kokoro serving T-b n={n}: {errors or 'a client did not finish'}")
+        stats = ""
+        if batcher:
+            (one,) = TB.tts_batcher_stats().values()
+            stats = f"batches {one['batches']} for {one['jobs']} jobs, peak batch {one['peak_batch']}; "
+        wall = max(end)
+        log(f"kokoro serving T-b {n} concurrent, batcher {'on' if batcher else 'off'}, {label}: "
+            f"TTFA_ms p50 "
+            f"{1e3 * statistics.median(first):.3f} max {1e3 * max(first):.3f}; wall_ms "
+            f"{1e3 * wall:.3f}; audio_s {sum(audio_s):.3f} (RTFx {sum(audio_s) / wall:.2f}); "
+            f"{stats}peak card memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+    for n in SERVING_CONCURRENCY:  # a batch size's first run pays cuDNN's plan builds
+        run(n, True, "first run")
+        run(n, True, "repeat")
+    run(SERVING_CONCURRENCY[-1], False, "after the runs above")
+    settings.os_tts_batcher_enabled = False
+
+
+def _serving_checks(router, backend, settings, TB, speech_response, split_sentences) -> None:
+    """T-c: a row of a batch of four against the same request alone (K-c's
+    bound on own features), and the served WAV against ``vocode_blocks``
+    called directly on the same ids, style and generators."""
+    import queue
+
+    import numpy as np
+    import torch
+
+    from open_speech_tpu_torch.audio.encode import encode_audio
+    from open_speech_tpu_torch.audio.postprocessing import process_tts_chunks
+    from open_speech_tpu_torch.models.kokoro import model as K
+    from open_speech_tpu_torch.ops import audio as codec
+
+    cfg, model, dev = backend._cfg, backend._model, backend.device
+    sentences = [s for text in SERVING_TEXTS for s in split_sentences(text)]
+    jobs = []
+    for s in sentences:
+        ids = backend._encode_text(s, "en-us")
+        jobs.append((ids, backend._style_for("af_heart", len(ids) - 2), 1.0))
+    batcher = TB.TTSBatcher(model, cfg)
+
+    def run(js):
+        sinks = [queue.Queue() for _ in js]
+        batcher._run_batch([(*j, q) for j, q in zip(js, sinks)])
+        out = []
+        for q in sinks:
+            parts = []
+            while (item := q.get_nowait()) is not None:
+                parts.append(item)
+            out.append(np.concatenate(parts))
+        return out
+
+    batch = run(jobs)
+    worst_rel, worst_abs = 0.0, 0.0
+    for i, job in enumerate(jobs):
+        (alone,) = run([job])
+        worst_rel = max(worst_rel, _rel_l2(f"kokoro serving T-c row {i} vs alone", batch[i], alone,
+                                           KOKORO_OWN_FEATURES_REL_L2))
+        worst_abs = max(worst_abs, float(np.abs(batch[i] - alone).max()))
+
+    # the served WAV against the direct calls, per-request path
+    settings.os_tts_batcher_enabled = False
+    _, wav = speech_response(router, {"input": SERVING_TEXT, "voice": "af_heart",
+                                      "response_format": "wav"})
+    served, _ = codec.read_wav(wav)
+    direct, frames = [], []
+    for s in split_sentences(SERVING_TEXT):
+        ids = backend._encode_text(s, "en-us")
+        style = torch.from_numpy(backend._style_for("af_heart", len(ids) - 2)[None]).to(dev)
+        ph = torch.zeros((1, cfg.max_phonemes), dtype=torch.int64)
+        ph[0, : len(ids)] = torch.tensor(ids)
+        g, n_frames = K.encode_utterance(model, cfg, ph.to(dev), torch.tensor([len(ids)], device=dev),
+                                         style, torch.ones(1, device=dev))
+        frames.append(int(n_frames[0]))
+        direct += [b[0] for b in K.vocode_blocks(model, cfg, g, n_frames, style)]
+    raw = np.concatenate(direct)
+    if raw.size != sum(frames) * cfg.samples_per_frame:
+        raise AssertionError(f"kokoro serving T-c: {raw.size} samples for frames {frames}")
+    (processed,) = process_tts_chunks(iter(direct), trim=settings.tts_trim_silence,
+                                      normalize=settings.tts_normalize_output)
+    want, _ = codec.read_wav(encode_audio(processed, 24000, "wav"))
+    if served.shape != want.shape:
+        raise AssertionError(f"kokoro serving T-c: served {served.shape} vs direct {want.shape}")
+    served_err = float(np.abs(served - want).max())
+    if served_err > KOKORO_TOL["audio"]:
+        raise AssertionError(f"kokoro serving T-c: served vs direct max |diff| {served_err:.3e}")
+    log(f"kokoro serving T-c: batch of {len(jobs)} through the batcher (16-frame first block, "
+        f"32-frame blocks, int16 wire) rows vs alone rel_L2 max {worst_rel:.3e} max|diff| "
+        f"{worst_abs:.3e} (bound rel_L2 {KOKORO_OWN_FEATURES_REL_L2}); served WAV {served.size} "
+        f"samples = n_frames {frames} x {cfg.samples_per_frame} less {raw.size - served.size} "
+        f"trimmed, vs vocode_blocks called directly max|diff| {served_err:.3e} "
+        f"(identical {bool(served_err == 0.0)})")
+
+
+def _serving_profile(backend, TB, split_sentences) -> None:
+    """T-e: one batch of 16 sentences through the batcher's ``_run_batch``
+    (the T-b shape) under torch.profiler: device busy, idle share."""
+    import queue
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sentences = [s for text in SERVING_TEXTS for s in split_sentences(text)]
+    jobs = []
+    for i in range(16):
+        ids = backend._encode_text(sentences[i % len(sentences)], "en-us")
+        jobs.append((ids, backend._style_for("af_heart", len(ids) - 2), 1.0))
+    batcher = TB.TTSBatcher(backend._model, backend._cfg)
+
+    def once():
+        sinks = [queue.Queue() for _ in jobs]
+        batcher._run_batch([(*j, q) for j, q in zip(jobs, sinks)])
+
+    once()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        once()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    if busy <= 0:
+        raise AssertionError("kokoro serving profile: no device time in the trace")
+    log(f"kokoro serving T-e profiled batch of 16 sentences (encode, 16-frame first block, 32-frame "
+        f"blocks, int16 wire): wall_s {wall:.4f} device_busy_s {busy:.4f} idle_share "
+        f"{1 - busy / wall:.4f} kernel launches {sum(e.count for e in kernels)}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} x  {e.key[:90]}")
 

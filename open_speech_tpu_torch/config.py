@@ -3,9 +3,10 @@
 Counterpart of ``open_speech_tpu/config.py``: the same field names, the same
 upper-case environment variables, the same parsing and the same alias
 properties, for the fields the REST transcription path (batched long-form
-included), the streaming session and the continuous batcher read, and the
-device Kokoro's weights are made on. ``stt_device`` defaults to ``cuda``;
-``tts_device`` defaults to ``stt_device``.
+included), the streaming session, the continuous batcher, and Kokoro
+serving (``POST /v1/audio/speech``'s body, the backend and the TTS batcher)
+read. ``stt_device`` defaults to ``cuda``; ``tts_device`` defaults to
+``stt_device``.
 """
 
 from __future__ import annotations
@@ -44,6 +45,20 @@ _DEFAULTS: dict[str, object] = {
     "os_stt_batch_windows": 16,
     # TTS (Kokoro) runs here; None means the STT device
     "tts_device": None,
+    # POST /v1/audio/speech
+    "tts_enabled": True,
+    "tts_model": "kokoro",
+    "tts_voice": "af_heart",
+    "tts_max_input_length": 4096,
+    "tts_default_format": "mp3",
+    "tts_speed": 1.0,
+    "tts_trim_silence": True,
+    "tts_normalize_output": True,
+    "tts_pronunciation_dict": "",
+    # concurrent Kokoro requests share one batched encode + blockwise vocode
+    "os_tts_batcher_enabled": False,
+    # rows of the TTS batcher's warmup batch at load: the largest entry
+    "os_tts_precompile_buckets": "1,4,16,64",
 }
 
 _OPTIONAL_STR = {"stt_model_dir", "tts_device"}
@@ -86,6 +101,9 @@ class Settings:
     stt_stream_chunk_ms = property(lambda self: self.os_stream_chunk_ms)
     stt_stream_max_connections = property(lambda self: self.os_stream_max_connections)
     stt_default_model = property(lambda self: self.stt_model)
+    tts_default_model = property(lambda self: self.tts_model)
+    tts_default_voice = property(lambda self: self.tts_voice)
+    tts_default_speed = property(lambda self: self.tts_speed)
 
     @property
     def tts_effective_device(self) -> str:

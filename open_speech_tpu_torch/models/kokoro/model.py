@@ -856,10 +856,25 @@ def _block_interior(model, cfg: KokoroConfig, x_pad, har_pad, style, frames, a: 
                       har_pad[..., a * hpx + 1 : (a + length) * hpx + 1], m, first=False)
 
 
-def vocode_streaming(model: KModel, cfg: KokoroConfig, g, n_frames, rng=None, block_frames: int = 64):
-    """Yield the audio as host arrays [B, n] in blocks of ``block_frames``
-    alignment frames (the last one shorter), covering n_frames * spf
-    samples of the longest row.
+def _to_host(audio: torch.Tensor, wire: str) -> np.ndarray:
+    """A block to a host float32 array. ``wire="i16"`` converts on the
+    device (clip to [-1, 1], * 32767, truncated to int16), moves int16 and
+    divides by 32767 on the host: half the bytes over the bus, and the audio
+    leaves the server as 16-bit PCM anyway."""
+    if wire == "i16":
+        pcm = (audio.clamp(-1.0, 1.0) * 32767.0).to(torch.int16).cpu().numpy()
+        return pcm.astype(np.float32) / 32767.0
+    return audio.cpu().numpy()
+
+
+def vocode_streaming(model: KModel, cfg: KokoroConfig, g, n_frames, rng=None, block_frames: int = 64,
+                     first_block_frames: int | None = None, wire: str = "f32"):
+    """Yield the audio as host float32 arrays [B, n] in blocks of
+    ``block_frames`` alignment frames (the last one shorter), covering
+    n_frames * spf samples of the longest row. The first block spans
+    ``first_block_frames`` (``block_frames`` when None): time to first
+    audio is paid on it, later blocks only need to keep ahead of playback.
+    ``wire`` is "f32" or "i16" (``_to_host``).
 
     The decoder and the harmonic features run once per utterance, over
     noise drawn once for the whole bucket (as ``vocode`` draws it); the
@@ -873,9 +888,10 @@ def vocode_streaming(model: KModel, cfg: KokoroConfig, g, n_frames, rng=None, bl
     spf2 = cfg.samples_per_frame // 2
     hop = cfg.gen_hop
     hpx = spf2 // hop
-    nb = 2 * block_frames  # x-frames per block
-    h = min(2 * HALO_FRAMES, nb)
-    if 2 * cfg.max_frames < nb + h:  # the bucket is smaller than one block
+    nb = 2 * block_frames  # x-frames per interior block
+    nb1 = 2 * (first_block_frames or block_frames)
+    h = min(2 * HALO_FRAMES, nb, nb1)
+    if 2 * cfg.max_frames < max(nb, nb1) + h:  # the bucket is smaller than one block
         audio = vocode(model, cfg, g, n_frames, rng)
         total_x = 2 * int(n_frames.max())
         yield audio[:, : total_x * spf2].cpu().numpy()
@@ -885,20 +901,24 @@ def vocode_streaming(model: KModel, cfg: KokoroConfig, g, n_frames, rng=None, bl
         noise = _source_noise(_default_rng(rng, asr.device), asr.shape[0], cfg.harmonics + 1,
                               cfg.max_frames * cfg.samples_per_frame, asr.device)
         har = har_features(model, cfg, f0, *noise)
-        first = _block_first(model, cfg, x, har, s_dec, n_frames, nb, h)
+        first = _block_first(model, cfg, x, har, s_dec, n_frames, nb1, h)
     total_x = 2 * int(n_frames.max())  # read after the first block is queued
-    yield first[:, : min(nb, total_x) * spf2].cpu().numpy()
-    if total_x <= nb:
+    yield _to_host(first[:, : min(nb1, total_x) * spf2], wire)
+    if total_x <= nb1:
         return
     with _inference():
         x_pad = F.pad(x, (h, nb + h))
         har_pad = F.pad(har, (h * hpx, (nb + h) * hpx + 1))
-    for a in range(nb, total_x, nb):
+    for a in range(nb1, total_x, nb):
         with _inference():
             blk = _block_interior(model, cfg, x_pad, har_pad, s_dec, n_frames, a, nb, h)
         start = h * spf2 - hop
-        yield blk[:, start : start + min(nb, total_x - a) * spf2].cpu().numpy()
+        yield _to_host(blk[:, start : start + min(nb, total_x - a) * spf2], wire)
 
 
-# the per-sentence name the JAX backend calls
-vocode_blocks = vocode_streaming
+def vocode_blocks(model: KModel, cfg: KokoroConfig, g, n_frames, style=None, rng=None,
+                  block_frames: int = 64):
+    """The per-sentence blocks, with the JAX package's call shape
+    ``vocode_blocks(params, cfg, g, n_frames, style)``. ``style`` is
+    accepted and unused: the decoder style travels inside ``g``."""
+    return vocode_streaming(model, cfg, g, n_frames, rng=rng, block_frames=block_frames)

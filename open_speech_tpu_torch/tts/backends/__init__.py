@@ -1,0 +1,11 @@
+"""TTS engines of the PyTorch/CUDA port: Kokoro today. Each module exposes
+one backend class that the router's duck-typing scan discovers.
+"""
+
+from open_speech_tpu_torch.tts.backends.base import (
+    TTSBackend,
+    TTSLoadedModelInfo,
+    VoiceInfo,
+)
+
+__all__ = ["TTSBackend", "TTSLoadedModelInfo", "VoiceInfo"]

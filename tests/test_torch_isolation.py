@@ -4,7 +4,8 @@ open_speech_tpu.
 ``open_speech_tpu_torch`` runs where JAX and aiohttp are not installed, so
 importing it (and every submodule, the streaming session, the continuous
 batcher, its pool, batched long-form, Kokoro's model and converter, the
-vocoder ops and Piper's weight-norm folding included) must
+vocoder ops, Piper's weight-norm folding, and Kokoro serving (the TTS router,
+backend and batcher, G2P, and the speech handler's body) included) must
 pull in neither ``jax``, ``aiohttp`` nor any module of the JAX package. The check runs in a fresh interpreter, because this test
 process already imported both.
 """
@@ -33,7 +34,9 @@ bad = sorted(m for m in sys.modules
              or m == "aiohttp" or m.startswith("aiohttp.")
              or m == "open_speech_tpu" or m.startswith("open_speech_tpu."))
 want = ("server.streaming", "runtime.batcher", "runtime.batcher_pool", "models.whisper.batched",
-        "models.kokoro.model", "models.kokoro.convert", "ops.vocoder", "models.piper.convert")
+        "models.kokoro.model", "models.kokoro.convert", "ops.vocoder", "models.piper.convert",
+        "tts.router", "tts.backends.kokoro_backend", "runtime.tts_batcher", "text.g2p",
+        "runtime.speech")
 print(len(names), ",".join(bad), int(all("open_speech_tpu_torch." + w in names for w in want)))
 """
 
@@ -46,8 +49,8 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
     n_modules, named = int(out[0]), out[-1]
     bad = out[1] if len(out) == 3 else ""
     assert n_modules >= 30, "walk_packages should find every submodule"
-    assert named == "1", ("the streaming session, both batchers, batched long-form and "
-                          "Kokoro's modules must be among them")
+    assert named == "1", ("the streaming session, the batchers, batched long-form and "
+                          "Kokoro's model and serving modules must be among them")
     assert bad == "", f"port imported: {bad}"
 
 
@@ -91,3 +94,20 @@ def test_int8_compute_names_its_later_slice():
 
     with pytest.raises(NotImplementedError, match="int8"):
         TorchWhisperBackend(device="cpu", compute_type="int8")
+
+
+# host modules the port keeps as copies of the JAX package's (jax-free) ones
+_COPIES = [
+    "text/g2p.py", "text/g2p_langs.py", "text/cjk_lexicon.py", "text/ja_lexicon.py",
+    "text/zh_lexicon.py", "text/pronunciation.py", "tts/voices.py",
+    "audio/postprocessing.py", "audio/encode.py", "models/kokoro/vocab.json",
+]
+
+
+@pytest.mark.parametrize("rel", _COPIES)
+def test_copies_equal_their_jax_originals(rel):
+    """A copied module equals its original once the package name is
+    normalised, so the copies cannot drift."""
+    original = (ROOT / "open_speech_tpu" / rel).read_text(encoding="utf-8")
+    copy = (PKG / rel).read_text(encoding="utf-8")
+    assert copy.replace("open_speech_tpu_torch", "open_speech_tpu") == original
