@@ -59,6 +59,23 @@ Phases, each of which raises on failure (exit code 1, no result line):
      against the same request alone, and the served WAV against
      ``vocode_blocks`` called directly. T-d: phases 7 and 8 launch none of
      the flash kernels. T-e: one batch of 16 sentences under torch.profiler.
+  9. int8 compute (``STT_COMPUTE_TYPE=int8``): Q-a loads
+     whisper-large-v3-turbo again at int8 (the same seed-0 weights, packed
+     at load, then warmed up) and runs request a of phase 4 on the bf16
+     and the int8 model in turns: wall, RTFx, encode ms per window,
+     ``decode_step`` ms per call, K1 launches (must be equal), resident and
+     peak card memory. Q-b: ``test-tiny-eot`` packed at a float32 base,
+     card against CPU (REST greedy and beam 5, a streaming session with K2,
+     three windows through the batcher: must be equal); then the backend
+     at int8 (bf16 base), card against CPU (printed).
+ 10. speculative decoding (``OS_SPEC_DRAFT_MODEL``): Sp-a ``test-tiny-eot``
+     at float32 with the draft ``test-tiny-draft``, gamma 4: card tokens
+     equal plain greedy's and the CPU's, through the speculative decode.
+     Sp-b: whisper-large-v3 with distil-large-v3 as its draft (random,
+     bf16), one 5 s upload with and without the draft: wall, tokens,
+     rounds, accepted, host syncs per round (must be 1), K1 launches, and
+     the first bf16 divergence from plain greedy with its top-2 margin.
+     Sp-c: the target as its own draft against ``greedy_decode``.
 
 The last two lines of standard output are the kernels' JSON line and the
 result line ``{"ok": true, "device": {...}}``.
@@ -523,6 +540,9 @@ def main() -> int:
     if dict(A.launches) != before:  # Kokoro has no hand kernel on its path
         raise AssertionError(f"kokoro launched the flash kernels: {before} -> {dict(A.launches)}")
     log(f"kokoro serving T-d: flash launch counts unchanged through phases 7 and 8: {before}")
+    phase_int8(router)
+    del router
+    phase_spec()
     for entry in kernels:  # K1 from REST (both paths) and S3, K2 and its combine from S1/S2
         entry["launches"] = launches.get(entry["name"], 0)
         if entry["launches"] == 0:
@@ -1213,12 +1233,7 @@ def _first_difference(a: list[int], b: list[int]) -> int:
 def phase_fixture() -> None:
     from pathlib import Path
 
-    import numpy as np
-    import torch
-
     from open_speech_tpu_torch.config import settings
-    from open_speech_tpu_torch.models.whisper.model import decoder_forward
-    from open_speech_tpu_torch.ops import audio as codec
     from open_speech_tpu_torch.runtime.router import BackendRouter
 
     settings.stt_model_dir = str(Path(__file__).resolve().parent / "tests" / "fixtures")
@@ -1227,6 +1242,24 @@ def phase_fixture() -> None:
                for dev in ("cuda", "cpu")}
     for router in routers.values():
         router.load_model(model_id)
+    _fixture_rest(routers, model_id, "fixture")
+    _fixture_streaming(routers, model_id)
+    _fixture_batcher(routers, model_id)
+    _fixture_batched_longform(routers, model_id)
+
+
+def _fixture_rest(routers: dict, model_id: str, label: str, strict: bool = True) -> None:
+    """The two beep clips of tests/test_eot_ckpt.py, greedy and beam 5, no
+    fallback, through each router's backend: card tokens against the
+    CPU's. On a difference, the first differing step and the CPU's top-2
+    logit margin there; it raises unless ``strict`` is off."""
+    import numpy as np
+    import torch
+
+    from open_speech_tpu_torch.models.whisper.model import decoder_forward, encode
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.ops.mel import log_mel_spectrogram, pad_or_trim
+
     card, host = (routers[dev].get_backend(model_id) for dev in ("cuda", "cpu"))
     rng = np.random.default_rng(11)  # the clips of tests/test_eot_ckpt.py
     clips = {k: _beeps(k, rng) for k in (1, 3)}
@@ -1238,16 +1271,13 @@ def phase_fixture() -> None:
             out_c, out_h = card.transcribe(wav, model_id, **kw), host.transcribe(wav, model_id, **kw)
             toks_c = [t for s in out_c["segments"] for t in s["tokens"]]
             toks_h = [t for s in out_h["segments"] for t in s["tokens"]]
-            log(f"fixture beeps k={k} beam={beam}: {len(toks_c)} tokens on cuda, "
+            log(f"{label} beeps k={k} beam={beam}: {len(toks_c)} tokens on cuda, "
                 f"{len(toks_h)} on cpu, equal={toks_c == toks_h}")
             if toks_c != toks_h:
                 i = _first_difference(toks_c, toks_h)
                 entry = host._models[model_id]
                 sp = entry["tok"].special
                 prefix = sp.sot_sequence("en", "transcribe") + toks_h[:i]
-                from open_speech_tpu_torch.models.whisper.model import encode
-                from open_speech_tpu_torch.ops.mel import log_mel_spectrogram, pad_or_trim
-
                 cfg = entry["cfg"]
                 fpw = cfg.n_audio_ctx * 2  # as the seek loop pads and slices
                 padded = pad_or_trim(torch.from_numpy(clip), 2 * fpw * 160)
@@ -1255,21 +1285,21 @@ def phase_fixture() -> None:
                 enc_out = encode(entry["model"], mel[None], cfg)
                 logits = decoder_forward(entry["model"], torch.tensor([prefix]), enc_out, cfg)[0, -1]
                 top2 = torch.topk(logits, 2).values
-                raise AssertionError(
-                    f"fixture k={k} beam={beam}: tokens differ at step {i} "
-                    f"(cuda {toks_c[i:i + 3]} vs cpu {toks_h[i:i + 3]}); "
-                    f"top-2 logit margin there {float(top2[0] - top2[1]):.3e}"
-                )
-
-    _fixture_streaming(routers, model_id)
-    _fixture_batcher(routers, model_id)
-    _fixture_batched_longform(routers, model_id)
+                msg = (f"{label} k={k} beam={beam}: tokens differ at step {i} "
+                       f"(cuda {toks_c[i:i + 3]} vs cpu {toks_h[i:i + 3]}); "
+                       f"top-2 logit margin there {float(top2[0] - top2[1]):.3e}")
+                if strict:
+                    raise AssertionError(msg)
+                log(msg)
 
 
-def _fixture_batcher(routers: dict, model_id: str) -> None:
+def _fixture_batcher(routers: dict, model_id: str, label: str = "fixture",
+                     against_greedy: bool = True) -> None:
     """Three concurrent windows through the continuous batcher on the card
-    and on the CPU (the same mel windows): equal tokens, and each equal to
-    the card's B=1 greedy decode of its window."""
+    and on the CPU (the same mel windows): equal tokens, and (with
+    ``against_greedy``) each equal to the card's B=1 greedy decode of its
+    window. An int8 model's pool stays dense bf16 while its greedy decode
+    reads int8 cross packs, so there the greedy tokens are only printed."""
     import numpy as np
     import torch
 
@@ -1303,11 +1333,12 @@ def _fixture_batcher(routers: dict, model_id: str) -> None:
         res = greedy_decode(card, cfg, tok.special, encode(card, m[None].cuda(), cfg), prompt,
                             DecodeOptions(max_new_tokens=24, suppress_tokens=suppress))
         greedy.append([int(t) for t in res.tokens[0][: int(res.lengths[0])]])
-    log(f"fixture batcher, 3 windows: tokens per window {[len(t) for t in got['cuda']]} on "
+    log(f"{label} batcher, 3 windows: tokens per window {[len(t) for t in got['cuda']]} on "
         f"cuda, equal to cpu={got['cuda'] == got['cpu']}, to cuda B=1 greedy="
         f"{got['cuda'] == greedy}")
-    if got["cuda"] != got["cpu"] or got["cuda"] != greedy or not any(got["cpu"]):
-        raise AssertionError(f"fixture batcher: cuda {got['cuda']} cpu {got['cpu']} "
+    if (got["cuda"] != got["cpu"] or (against_greedy and got["cuda"] != greedy)
+            or not any(got["cpu"])):
+        raise AssertionError(f"{label} batcher: cuda {got['cuda']} cpu {got['cpu']} "
                              f"greedy {greedy}")
 
 
@@ -1341,7 +1372,7 @@ def _fixture_batched_longform(routers: dict, model_id: str) -> None:
                              f"segments differ or none")
 
 
-def _fixture_streaming(routers: dict, model_id: str) -> None:
+def _fixture_streaming(routers: dict, model_id: str, label: str = "fixture") -> None:
     """The streaming session on the card (K2 in float32) against the CPU:
     VAD off, language en, interims driven one at a time, the same PCM; the
     event lists (minus the session id) must be equal. 1.0 s finalizes over
@@ -1365,20 +1396,20 @@ def _fixture_streaming(routers: dict, model_id: str) -> None:
             ws = _ClientWS(frames, pace=False, sync=True)
             asyncio.run(streaming_endpoint(ws, router, model=model_id, language="en",
                                            sample_rate=SR, interim_results=True, vad=False))
-            _check_session_bounds(f"fixture stream {dev}", ws)
+            _check_session_bounds(f"{label} stream {dev}", ws)
             events[dev] = [{k: v for k, v in e.items() if k != "session_id"} for _, e in ws.events]
             launched = A.launches["flash_attention_varlen"] - before
             if (launched > 0) != (dev == "cuda"):
-                raise AssertionError(f"fixture stream {dev}: {launched} K2 launches")
+                raise AssertionError(f"{label} stream {dev}: {launched} K2 launches")
         n = len([e for e in events["cpu"] if e["type"] == "transcript"])
-        log(f"fixture stream {seconds} s: {len(events['cuda'])} events on cuda, "
+        log(f"{label} stream {seconds} s: {len(events['cuda'])} events on cuda, "
             f"{len(events['cpu'])} on cpu ({n} transcripts), equal={events['cuda'] == events['cpu']}")
         if events["cuda"] != events["cpu"] or n == 0:
             diff = next((i for i, (a, b) in enumerate(zip(events["cuda"], events["cpu"]))
                          if a != b), None)
-            raise AssertionError(f"fixture stream {seconds} s: events differ at {diff}: "
+            raise AssertionError(f"{label} stream {seconds} s: events differ at {diff}: "
                                  f"{events['cuda'][diff:diff + 2]} vs {events['cpu'][diff:diff + 2]}"
-                                 if diff is not None else f"fixture stream {seconds} s: {n} transcripts")
+                                 if diff is not None else f"{label} stream {seconds} s: {n} transcripts")
 
 
 # ── phase 7: Kokoro synthesis at full width ──────────────────────────────
@@ -1959,6 +1990,309 @@ def _serving_profile(backend, TB, split_sentences) -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} x  {e.key[:90]}")
 
+
+
+# ── phase 9: int8 compute ────────────────────────────────────────────────
+
+
+class _Timed:
+    """Wraps ``module.name`` for a ``with`` block: counts its calls and
+    records CUDA events around each, read once the run is over. The queue
+    is empty when a decode step starts (the loops sync every step), so an
+    event span is the call's wall on the card, host launches included."""
+
+    def __init__(self, module, name: str) -> None:
+        self.module, self.name, self.events = module, name, []
+
+    def __enter__(self):
+        import torch
+
+        real = self.real = getattr(self.module, self.name)
+
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(*args, **kwargs)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+    def ms_per_call(self) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events) / max(1, len(self.events))
+
+
+def _free(*routers) -> None:
+    """Unload every model of ``routers`` and return the memory to the card."""
+    import gc
+
+    import torch
+
+    for router in routers:
+        for info in router.loaded_models():
+            router.unload_model(info.model)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_int8(router) -> None:
+    """Q-a: the phase-4 request a (5 s json, beam 5, fallback) on the loaded
+    bf16 model and on the same seed-0 weights loaded at
+    STT_COMPUTE_TYPE=int8 (packed at load, then warmed up): wall, RTFx,
+    encode ms per window, decode_step ms per call, K1 launches (must be
+    equal), resident and peak memory. Q-b: the fixture at int8, card
+    against CPU. Frees both turbo models."""
+    import torch
+
+    from open_speech_tpu_torch.config import settings
+    from open_speech_tpu_torch.models.whisper import decode as D
+    from open_speech_tpu_torch.models.whisper import transcribe as T
+    from open_speech_tpu_torch.models.whisper.quantize import model_nbytes
+    from open_speech_tpu_torch.ops import attention as A
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.runtime.router import BackendRouter, transcription_response
+
+    settings.os_stt_batched_longform = False  # the int8 load warms beam 5 alone
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    q_router = BackendRouter(compute_type="int8")
+    q_router.load_model(MAIN_MODEL)  # seed 0, packed, then the warmup: K1 on int8 activations
+    torch.cuda.synchronize()
+    log(f"int8 Q-a: loaded {MAIN_MODEL} at STT_COMPUTE_TYPE=int8 with warmup in "
+        f"{time.perf_counter() - t0:.2f} s; card memory held after the load "
+        f"{(torch.cuda.memory_allocated() - before) / 2**30:.3f} GiB")
+    models = {name: r.get_backend(MAIN_MODEL)._models[MAIN_MODEL]["model"]
+              for name, r in (("bf16", router), ("int8", q_router))}
+    resident = {name: model_nbytes(m) for name, m in models.items()}
+    wav = codec.write_wav(_speechlike(5.0, 1), SR)
+    k1 = {}
+    for name, r in (("bf16", router), ("int8", q_router), ("int8", q_router), ("bf16", router)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        A.launches["flash_attention"] = 0
+        with _Timed(T, "encode") as enc, _Timed(D, "decode_step") as step:
+            t1 = time.perf_counter()
+            body = transcription_response(r, wav, model=MAIN_MODEL, response_format="json")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            enc_ms, step_ms = enc.ms_per_call(), step.ms_per_call()
+        n = A.launches["flash_attention"]
+        k1.setdefault(name, set()).add(n)
+        _check_body(f"int8 Q-a {name}", body, "json", 5.0)
+        log(f"int8 Q-a {name} a transcribe 5 s json (beam 5, fallback): wall_s {wall:.3f} "
+            f"rtfx {5.0 / wall:.3f} windows {len(enc.events)} encode_ms/window {enc_ms:.3f} "
+            f"decode_step calls {len(step.events)} ms/call {step_ms:.3f} flash_launches {n} "
+            f"resident_GiB {resident[name] / 2**30:.3f} peak_over_resident_GiB "
+            f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f}")
+    if len(k1["bf16"] | k1["int8"]) != 1:
+        raise AssertionError(f"int8 Q-a: K1 launches differ for the same request: {k1}")
+    log(f"int8 Q-a: resident bytes int8 / bf16 = {resident['int8']} / {resident['bf16']} = "
+        f"{resident['int8'] / resident['bf16']:.4f}")
+    _free(router, q_router)
+    _int8_fixture()
+
+
+def _int8_fixture() -> None:
+    """Q-b: test-tiny-eot packed by quantize_whisper_params at a float32
+    base (TF32 off since phase 6): REST greedy and beam 5, a streaming
+    session (K2 in float32) and three windows through the batcher, card
+    against CPU, must be equal. Then the backend at STT_COMPUTE_TYPE=int8
+    (bf16 base), card against CPU: agreement printed, not held."""
+    from open_speech_tpu_torch.models.whisper.quantize import quantize_whisper_params
+    from open_speech_tpu_torch.runtime.router import BackendRouter
+
+    model_id = "test-tiny-eot"
+    routers = {dev: BackendRouter(device=dev, compute_type="float32") for dev in ("cuda", "cpu")}
+    for router in routers.values():
+        router.load_model(model_id)
+        quantize_whisper_params(router.get_backend(model_id)._models[model_id]["model"])
+    _fixture_rest(routers, model_id, "int8 Q-b (f32 base)")
+    _fixture_streaming(routers, model_id, "int8 Q-b (f32 base)")
+    _fixture_batcher(routers, model_id, "int8 Q-b (f32 base)", against_greedy=False)
+    _free(*routers.values())
+    routers = {dev: BackendRouter(device=dev, compute_type="int8") for dev in ("cuda", "cpu")}
+    for router in routers.values():
+        router.load_model(model_id)
+    _fixture_rest(routers, model_id, "int8 Q-b backend (bf16 base)", strict=False)
+    _free(*routers.values())
+
+
+# ── phase 10: speculative decoding ──────────────────────────────────────
+
+SPEC_TARGET, SPEC_DRAFT = "whisper-large-v3", "whisper-distil-large-v3"
+
+
+class _Captured:
+    """Wraps ``module.name`` for a ``with`` block and keeps each call's
+    arguments and result."""
+
+    def __init__(self, module, name: str) -> None:
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        real = self.real = getattr(self.module, self.name)
+
+        def captured(*args, **kwargs):
+            out = real(*args, **kwargs)
+            self.calls.append((args, kwargs, out))
+            return out
+
+        setattr(self.module, self.name, captured)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def phase_spec() -> None:
+    """Sp-a: test-tiny-eot at float32 through the backend with
+    OS_SPEC_DRAFT_MODEL=test-tiny-draft, gamma 4: card tokens == plain
+    greedy's == the CPU's, and the speculative decode ran. Sp-b:
+    whisper-large-v3 with distil-large-v3 as its draft (random, bf16), one
+    5 s upload with and without the draft: wall, tokens, rounds, accepted,
+    host syncs per round (must be 1), K1 launches. Sp-c: the target as its
+    own draft against greedy_decode on one encoder output."""
+    import numpy as np
+
+    from open_speech_tpu_torch.config import settings
+    from open_speech_tpu_torch.models.whisper import transcribe as T
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.runtime.router import BackendRouter
+
+    model_id = "test-tiny-eot"
+    settings.os_spec_gamma = 4
+    routers = {dev: BackendRouter(device=dev, compute_type="float32") for dev in ("cuda", "cpu")}
+    rng = np.random.default_rng(11)
+    kw = dict(language="en", beam_size=1, fallback=False, response_format="verbose_json")
+    for k in (1, 3):
+        wav = codec.write_wav(_beeps(k, rng), SR)
+        settings.os_spec_draft_model = ""
+        plain = routers["cuda"].transcribe(wav, model_id, **kw)
+        settings.os_spec_draft_model = "test-tiny-draft"
+        with _Captured(T, "speculative_greedy_decode") as spec:
+            got = {dev: r.transcribe(wav, model_id, **kw) for dev, r in routers.items()}
+        settings.os_spec_draft_model = ""
+        toks = {name: [t for s in body["segments"] for t in s["tokens"]]
+                for name, body in (("plain", plain), *got.items())}
+        rounds = [(c[2].spec_rounds, c[2].spec_accepted) for c in spec.calls]
+        log(f"spec Sp-a beeps k={k}: {len(toks['cuda'])} tokens, cuda spec == cuda plain "
+            f"{toks['cuda'] == toks['plain']}, == cpu spec {toks['cuda'] == toks['cpu']}; "
+            f"speculative_greedy_decode calls {len(spec.calls)} (rounds, accepted) {rounds}")
+        if toks["cuda"] != toks["plain"] or toks["cuda"] != toks["cpu"] or len(spec.calls) < 2:
+            raise AssertionError(f"spec Sp-a k={k}: {toks}, {len(spec.calls)} speculative calls")
+    _free(*routers.values())
+    _spec_full_width()
+
+
+def _spec_full_width() -> None:
+    import numpy as np
+    import torch
+
+    from open_speech_tpu_torch.config import settings
+    from open_speech_tpu_torch.models.whisper import decode as D
+    from open_speech_tpu_torch.models.whisper import speculative as SP
+    from open_speech_tpu_torch.models.whisper import transcribe as T
+    from open_speech_tpu_torch.models.whisper.model import decoder_forward
+    from open_speech_tpu_torch.ops import attention as A
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.runtime.router import BackendRouter
+
+    settings.os_precompile_on_load = False  # the kernels are built (phase 2)
+    # no warmed budget to round up to: a 5 s upload decodes its own 80
+    # tokens (random weights never emit EOT), not 224
+    settings.os_stt_precompile_budgets = ""
+    router = BackendRouter()  # cuda, bf16
+    t0 = time.perf_counter()
+    for mid in (SPEC_TARGET, SPEC_DRAFT):
+        router.load_model(mid)
+    torch.cuda.synchronize()
+    log(f"spec Sp-b: loaded {SPEC_TARGET} (target) and {SPEC_DRAFT} (draft), random, bf16, in "
+        f"{time.perf_counter() - t0:.2f} s")
+    wav = codec.write_wav(_speechlike(5.0, 9), SR)
+    kw = dict(language="en", beam_size=1, fallback=False, response_format="json")
+    runs = {}
+    for name in ("plain", "spec", "spec", "plain"):
+        settings.os_spec_draft_model = SPEC_DRAFT if name == "spec" else ""
+        A.launches["flash_attention"] = 0
+        with _Captured(T, "speculative_greedy_decode") as spec, \
+                _Captured(T, "greedy_decode") as greedy:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if name == "spec" and name in runs:  # the second spec run counts its syncs
+                syncs = _count_syncs(lambda: router.transcribe(wav, SPEC_TARGET, **kw))
+            else:
+                syncs = None
+                router.transcribe(wav, SPEC_TARGET, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        calls = spec.calls or greedy.calls  # one per window
+        results = [res for _args, _kw, res in calls]
+        rounds = sum(res.spec_rounds or 0 for res in results)
+        line = (f"spec Sp-b {name}: wall_s {wall:.3f} windows {len(calls)} tokens "
+                f"{sum(int(res.lengths[0]) for res in results)} "
+                f"flash_launches {A.launches['flash_attention']}")
+        if name == "spec":
+            line += f" rounds {rounds} accepted {sum(res.spec_accepted for res in results)}"
+        if syncs is not None:
+            per_round = [s for s in syncs if "speculative.py" in s and ".tolist()" in s]
+            line += (f" host syncs {len(syncs)} ({len(per_round)} in the rounds: "
+                     f"{len(per_round) / rounds:.3f} per round)")
+            # one read per round; the rest (uploads, the result's reads) is
+            # set-up that does not grow with the rounds
+            if len(per_round) != rounds or len(syncs) - len(per_round) >= rounds:
+                raise AssertionError(f"spec Sp-b: {len(per_round)} syncs in {rounds} rounds: "
+                                     f"{syncs}")
+        log(line + (" (random weights: the draft is almost never accepted, the worst case)"
+                    if name == "spec" else ""))
+        runs.setdefault(name, (calls[0][0], results[0]))
+    settings.os_spec_draft_model = ""
+    (model, cfg, sp, enc_out, prompt, opts), plain = runs["plain"][0][:6], runs["plain"][1]
+    spec = runs["spec"][1]
+    a, b = list(plain.tokens[0][: plain.lengths[0]]), list(spec.tokens[0][: spec.lengths[0]])
+    if a == b:
+        log(f"spec Sp-b: speculative tokens == plain greedy tokens ({len(a)}) in bf16")
+    else:
+        i = _first_difference(a, b)
+        prefix = torch.tensor([list(prompt[0]) + a[:i]], device=enc_out.device)
+        logits = decoder_forward(model, prefix, enc_out, cfg)[0, -1]
+        top2 = torch.topk(logits, 2).values
+        log(f"spec Sp-b: bf16 speculative tokens first differ from plain at step {i} "
+            f"(plain {a[i:i + 3]} vs spec {b[i:i + 3]}); top-2 logit margin there "
+            f"{float(top2[0] - top2[1]):.3e}")
+
+    # Sp-c: the target as its own draft, the best case
+    gamma = 4
+    walls = {}
+    for name in ("greedy", "self-draft", "self-draft", "greedy"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if name == "greedy":
+            res = D.greedy_decode(model, cfg, sp, enc_out, prompt, opts)
+        else:
+            res = SP.speculative_greedy_decode(model, cfg, model, cfg, sp, enc_out, enc_out,
+                                               prompt, opts, gamma=gamma)
+        torch.cuda.synchronize()
+        walls.setdefault(name, []).append(time.perf_counter() - t1)
+        runs[name] = res
+    n = int(runs["greedy"].lengths[0]) + int((runs["greedy"].tokens[0] == sp.eot).any())
+    selfd = runs["self-draft"]
+    log(f"spec Sp-c self-draft gamma {gamma}: {n} tokens emitted, rounds {selfd.spec_rounds} "
+        f"(ceil(n / (gamma + 1)) = {-(-n // (gamma + 1))}), accepted {selfd.spec_accepted}, "
+        f"tokens == greedy {np.array_equal(selfd.tokens, runs['greedy'].tokens)}; wall_s "
+        f"self-draft {' '.join(f'{w:.3f}' for w in walls['self-draft'])} greedy "
+        f"{' '.join(f'{w:.3f}' for w in walls['greedy'])}")
+    _free(router)
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -9,10 +9,13 @@ initialises random weights from a generator seeded 0, with a warning.
 ``device`` defaults to ``settings.stt_device`` (``cuda``). The backend never
 falls back to the CPU by itself: a CUDA device that is missing raises.
 Compute types: ``bfloat16`` (default), ``float16`` (runs as bf16, as in the
-JAX package) and ``float32``; ``int8`` is a later slice of the port. With
-``OS_STT_BATCHED_LONGFORM`` on, uploads longer than two windows decoded
+JAX package), ``float32``, and ``int8`` (a bf16 model whose linears and
+token embedding are packed to int8 at load, ``models/whisper/quantize.py``).
+With ``OS_STT_BATCHED_LONGFORM`` on, uploads longer than two windows decoded
 from temperature 0 take ``models/whisper/batched.py``'s batched path, as in
-the JAX package.
+the JAX package. With ``OS_SPEC_DRAFT_MODEL`` set, beam-1 requests whose
+first temperature is 0 decode speculatively against that draft, loaded on
+the same device at the same compute type.
 """
 
 from __future__ import annotations
@@ -39,6 +42,11 @@ from open_speech_tpu_torch.models.whisper.batched import (
 from open_speech_tpu_torch.models.whisper.convert import load_params
 from open_speech_tpu_torch.models.whisper.decode import detect_language
 from open_speech_tpu_torch.models.whisper.model import WhisperConfig, encode
+from open_speech_tpu_torch.models.whisper.quantize import (
+    dequant_size_ratio,
+    model_nbytes,
+    quantize_whisper_params,
+)
 from open_speech_tpu_torch.models.whisper.transcribe import (
     TranscribeOptions,
     build_response,
@@ -83,6 +91,7 @@ _DTYPES = {
     "bfloat16": torch.bfloat16,
     "float16": torch.bfloat16,  # bf16 stands in for fp16, as in the JAX package
     "float32": torch.float32,
+    "int8": torch.bfloat16,  # the base dtype; weights packed to int8 at load
 }
 
 
@@ -123,11 +132,6 @@ class TorchWhisperBackend:
             raise ValueError(f"unsupported STT device {str(dev)!r} (cuda or cpu)")
         self._device = dev
         self._compute_type = compute_type or settings.stt_compute_type
-        if self._compute_type == "int8":
-            raise NotImplementedError(
-                "STT_COMPUTE_TYPE=int8 (int8 linears, logits and cross-KV) is a "
-                "later slice of the PyTorch port (ROADMAP.md); use bfloat16 or float32"
-            )
         if self._compute_type == "float32" and dev.type == "cuda":
             # float32 means float32: cuBLAS matmuls and cuDNN convolutions
             # would otherwise be allowed to round inputs to TF32
@@ -209,6 +213,11 @@ class TorchWhisperBackend:
             gen = torch.Generator(device=self._device).manual_seed(0)
             model = init_params(gen, cfg, self._dtype(), self._device)
             tok = get_tokenizer(n_vocab=cfg.n_vocab, n_langs=cfg.n_langs)
+        if self._compute_type == "int8":
+            nbytes = model_nbytes(model)
+            quantize_whisper_params(model)  # the bf16 weights, as JAX packs them
+            logger.info("Quantized %s weights to int8 (per-channel): %.3f of the bf16 bytes",
+                        model_id, dequant_size_ratio(nbytes, model))
         self._models[model_id] = {"model": model, "cfg": cfg, "tok": tok}
         now = time.time()
         self._loaded_at[model_id] = now
@@ -406,16 +415,39 @@ class TorchWhisperBackend:
             settings.os_stt_batched_longform
             and duration_s > 2 * window_s
             and temps[0] == 0.0
-        ):
+        ):  # no draft here, as in the JAX package
             segments, info = transcribe_batched(
                 entry["model"], entry["cfg"], entry["tok"], pcm, opts,
                 max_batch=int(settings.os_stt_batch_windows),
             )
         else:
             segments, info = transcribe(
-                entry["model"], entry["cfg"], entry["tok"], pcm, opts
+                entry["model"], entry["cfg"], entry["tok"], pcm, opts,
+                draft=self._spec_draft(model_id, entry, beam_size, temps),
             )
         return build_response(segments, info, task, response_format)
+
+    def _spec_draft(
+        self, model_id: str, entry: dict[str, Any], beam_size: int, temps: tuple[float, ...]
+    ) -> dict[str, Any] | None:
+        """The speculative draft for a request, or None: OS_SPEC_DRAFT_MODEL
+        is set and is not the target, beam 1, the first temperature 0 (a
+        sampled-only request never verifies), and the draft shares the
+        target's vocabulary. A draft that fails to load is logged and the
+        request decodes without it, as in the JAX package."""
+        draft_id = str(settings.os_spec_draft_model or "").strip()
+        if not draft_id or draft_id == model_id or beam_size != 1 or temps[0] != 0.0:
+            return None
+        try:
+            d_entry = self._ensure_model(draft_id)
+        except Exception:  # noqa: BLE001 — the draft only speeds the decode up
+            logger.exception("spec draft %s failed to load; decoding without it", draft_id)
+            return None
+        if d_entry["cfg"].n_vocab != entry["cfg"].n_vocab:
+            logger.warning("spec draft %s vocab mismatch; disabled", draft_id)
+            return None
+        return {"model": d_entry["model"], "cfg": d_entry["cfg"],
+                "gamma": int(settings.os_spec_gamma)}
 
     def transcribe(
         self,

@@ -2,10 +2,10 @@
 
 Counterpart of ``open_speech_tpu/config.py``: the same field names, the same
 upper-case environment variables, the same parsing and the same alias
-properties, for the fields the REST transcription path (batched long-form
-included), the streaming session, the continuous batcher, and Kokoro
-serving (``POST /v1/audio/speech``'s body, the backend and the TTS batcher)
-read. ``stt_device`` defaults to ``cuda``; ``tts_device`` defaults to
+properties, for the fields the REST transcription path (batched long-form,
+int8 compute and speculative decoding included), the streaming session,
+the continuous batcher, and Kokoro serving (``POST /v1/audio/speech``'s
+body, the backend and the TTS batcher) read. ``stt_device`` defaults to ``cuda``; ``tts_device`` defaults to
 ``stt_device``.
 """
 
@@ -43,6 +43,10 @@ _DEFAULTS: dict[str, object] = {
     # batched long-form REST: chunks of one window, decoded as a batch
     "os_stt_batched_longform": False,
     "os_stt_batch_windows": 16,
+    # speculative decoding: the draft model's id ("" = off) and the tokens
+    # it proposes per verify pass (batch-1 temperature-0 greedy REST decodes)
+    "os_spec_draft_model": "",
+    "os_spec_gamma": 4,
     # TTS (Kokoro) runs here; None means the STT device
     "tts_device": None,
     # POST /v1/audio/speech

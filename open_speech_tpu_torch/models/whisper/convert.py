@@ -17,11 +17,14 @@ import struct
 
 import numpy as np
 import torch
+from torch import nn
 
 from open_speech_tpu_torch.models.whisper.model import (
     Attention,
     Block,
     LayerNorm,
+    QuantEmbedding,
+    QuantLinear,
     Whisper,
     WhisperConfig,
     sinusoids,
@@ -212,7 +215,11 @@ def params_from_jax_tree(
 ) -> Whisper:
     """The JAX package's param pytree (leaves as numpy arrays) -> ``Whisper``.
 
-    Layer norms stay float32; every other tensor takes ``dtype``.
+    Layer norms stay float32; every other tensor takes ``dtype``. A tree
+    quantized by the JAX package's ``quantize_whisper_params`` ({"q", "s"}
+    leaves) gives an int8 model with the same packs: a linear's q [in, out]
+    becomes ``QuantLinear.q`` [out, in] and its s [1, out] ``QuantLinear.s``
+    [out]; the token embedding's pack carries over as it is.
     """
     model = Whisper.empty(cfg, dtype, device)
 
@@ -223,10 +230,21 @@ def params_from_jax_tree(
         put(ln.weight, p["g"] if i is None else p["g"][i])
         put(ln.bias, p["b"] if i is None else p["b"][i])
 
-    def put_linear(lin, p: dict, i: int) -> None:
-        put(lin.weight, p["w"][i].T)  # [in, out] -> [out, in]
+    def pack(p: dict, transpose: bool) -> tuple[torch.Tensor, torch.Tensor]:
+        q = np.asarray(p["q"], np.int8)
+        q = torch.from_numpy(np.array(q.T if transpose else q, order="C")).to(device)
+        return q, torch.from_numpy(np.array(p["s"], dtype=np.float32)).to(device)
+
+    def put_linear(owner: nn.Module, name: str, p: dict, i: int) -> None:
+        lin = getattr(owner, name)
         if lin.bias is not None:
             put(lin.bias, p["b"][i])
+        w = p["w"]
+        if isinstance(w, dict):  # int8 pack: q [L, in, out], s [L, 1, out]
+            q, s = pack({"q": w["q"][i], "s": w["s"][i][0]}, transpose=True)
+            setattr(owner, name, QuantLinear(q, s, lin.bias))
+        else:
+            put(lin.weight, w[i].T)  # [in, out] -> [out, in]
 
     def put_block(blk: Block, p: dict, i: int) -> None:
         for name in ("ln1", "ln_mlp", "ln_cross"):
@@ -236,9 +254,9 @@ def params_from_jax_tree(
             if name in p:
                 attn: Attention = getattr(blk, name)
                 for proj in ("q", "k", "v", "o"):
-                    put_linear(getattr(attn, proj), p[name][proj], i)
-        put_linear(blk.mlp_in, p["mlp_in"], i)
-        put_linear(blk.mlp_out, p["mlp_out"], i)
+                    put_linear(attn, proj, p[name][proj], i)
+        put_linear(blk, "mlp_in", p["mlp_in"], i)
+        put_linear(blk, "mlp_out", p["mlp_out"], i)
 
     enc, dec = tree["encoder"], tree["decoder"]
     for name in ("conv1", "conv2"):
@@ -249,7 +267,11 @@ def params_from_jax_tree(
     for i, blk in enumerate(model.encoder.blocks):
         put_block(blk, enc["blocks"], i)
     put_ln(model.encoder.ln_post, enc["ln_post"])
-    put(model.decoder.tok_emb, dec["tok_emb"])
+    if isinstance(dec["tok_emb"], dict):
+        del model.decoder.tok_emb
+        model.decoder.tok_emb = QuantEmbedding(*pack(dec["tok_emb"], transpose=False))
+    else:
+        put(model.decoder.tok_emb, dec["tok_emb"])
     put(model.decoder.pos_emb, dec["pos_emb"])
     for i, blk in enumerate(model.decoder.blocks):
         put_block(blk, dec["blocks"], i)

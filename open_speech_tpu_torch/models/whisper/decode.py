@@ -27,6 +27,7 @@ from open_speech_tpu_torch.models.whisper.model import (
     _merge_heads,
     _split_heads,
     cross_attend,
+    cross_layer,
     decode_step,
     embed_tokens,
     init_self_kv,
@@ -63,6 +64,8 @@ class DecodeResult:
     avg_logprob: np.ndarray  # [B]
     no_speech_prob: np.ndarray  # [B]
     temperature: float = 0.0
+    spec_rounds: int | None = None  # speculative decode: verify passes
+    spec_accepted: int | None = None  # speculative decode: draft tokens accepted
 
 
 def compression_ratio(text: str) -> float:
@@ -179,11 +182,12 @@ def _apply_rules(
 
 @torch.no_grad()
 def _prefill(
-    model: Whisper, prompt: torch.Tensor, cross_kv: torch.Tensor,
+    model: Whisper, prompt: torch.Tensor, cross_kv,
     self_kv: torch.Tensor, cfg: WhisperConfig, enc_len=None,
 ):
     """Prefill prompt tokens [B, P] in one teacher-forced pass with causal
     flash attention, writing positions [0, P) of ``self_kv`` in place.
+    ``cross_kv`` is either form (dense, or the int8 packs).
 
     Returns (all_logits [P, B, V], self_kv).
     """
@@ -200,7 +204,8 @@ def _prefill(
         x = x + linear(_merge_heads(attn), blk.attn.o)
         hc = layer_norm(x, blk.ln_cross)
         qc = _split_heads(linear(hc, blk.cross.q), n_head)
-        x = x + linear(_merge_heads(cross_attend(qc, cross_kv[i], b, enc_len)), blk.cross.o)
+        ckv = cross_layer(cross_kv, i)
+        x = x + linear(_merge_heads(cross_attend(qc, ckv, b, enc_len)), blk.cross.o)
         x = x + mlp(layer_norm(x, blk.ln_mlp), blk)
         self_kv[i, 0, :, :, :p] = k
         self_kv[i, 1, :, :, :p] = v

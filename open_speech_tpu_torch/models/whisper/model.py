@@ -13,6 +13,12 @@ Weights live in ``nn.Module``s (``nn.Linear`` weights in [out, in] order,
 norms and logits. The functions below keep the JAX package's signatures
 and layouts: mel [B, n_mels, T] -> encoder states [B, T, d]; self-KV
 [L, 2, B, H, T_max, Dh]; cross-KV [L, 2, B, H, T_enc, Dh].
+
+int8 compute (``quantize.py``): ``QuantLinear`` and ``QuantEmbedding`` take
+the place of the linears and the token embedding, and the primitives below
+compute from the int8 packs as the JAX package's int8 branches do; the
+cross-KV of such a model is a dict of per-position int8 packs
+{"k", "k_s", "v", "v_s"}, each [L, B, H, T_enc, *].
 """
 
 from __future__ import annotations
@@ -105,6 +111,26 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(d, dtype=torch.float32))
 
 
+class QuantLinear(nn.Module):
+    """Weight-only int8 linear: ``q`` int8 [out, in], ``s`` float32 [out]
+    (one scale per output channel), and the bias of the linear it replaced."""
+
+    def __init__(self, q: torch.Tensor, s: torch.Tensor, bias: torch.Tensor | None) -> None:
+        super().__init__()
+        self.register_buffer("q", q)
+        self.register_buffer("s", s)
+        self.register_buffer("bias", None if bias is None else bias.detach())
+
+
+class QuantEmbedding(nn.Module):
+    """int8 token embedding: ``q`` int8 [V, d], ``s`` float32 [V, 1]."""
+
+    def __init__(self, q: torch.Tensor, s: torch.Tensor) -> None:
+        super().__init__()
+        self.register_buffer("q", q)
+        self.register_buffer("s", s)
+
+
 class Attention(nn.Module):
     def __init__(self, d: int, dtype: torch.dtype) -> None:
         super().__init__()
@@ -168,7 +194,7 @@ class Whisper(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.decoder.tok_emb.device
+        return self.decoder.ln.weight.device
 
 
 @torch.no_grad()
@@ -215,16 +241,27 @@ def layer_norm(x: torch.Tensor, ln: LayerNorm) -> torch.Tensor:
     return (out * ln.weight.float() + ln.bias.float()).to(x.dtype)
 
 
-def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+def linear(x: torch.Tensor, lin: nn.Linear | QuantLinear) -> torch.Tensor:
+    if isinstance(lin, QuantLinear):
+        # the scale applies to the product, then the bias: the JAX package's
+        # order (folding the scale into the weight rounds otherwise in bf16)
+        out = (x @ lin.q.T.to(x.dtype)) * lin.s.to(x.dtype)
+        return out if lin.bias is None else out + lin.bias
     return F.linear(x, lin.weight, lin.bias)
 
 
 def embed_tokens(dec: TextDecoder, tokens: torch.Tensor) -> torch.Tensor:
-    return dec.tok_emb[tokens]
+    emb = dec.tok_emb
+    if isinstance(emb, QuantEmbedding):  # bf16 whatever the base dtype, as in JAX
+        return emb.q[tokens].to(torch.bfloat16) * emb.s[tokens].to(torch.bfloat16)
+    return emb[tokens]
 
 
 def output_logits(x: torch.Tensor, dec: TextDecoder) -> torch.Tensor:
-    return (x @ dec.tok_emb.T.to(x.dtype)).float()
+    emb = dec.tok_emb
+    if isinstance(emb, QuantEmbedding):
+        return ((x @ emb.q.T.to(x.dtype)) * emb.s[:, 0].to(x.dtype)).float()
+    return (x @ emb.T.to(x.dtype)).float()
 
 
 def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
@@ -324,10 +361,11 @@ def init_self_kv(
 
 
 @torch.no_grad()
-def precompute_cross_kv(
+def precompute_cross_kv_dense(
     model: Whisper, enc_out: torch.Tensor, cfg: WhisperConfig
 ) -> torch.Tensor:
-    """Cross-attention K/V for all layers: [L, 2, B, H, T_enc, Dh]."""
+    """Cross-attention K/V for all layers, dense: [L, 2, B, H, T_enc, Dh]
+    (the JAX package's ``_precompute_cross_kv_impl``; int8 linears too)."""
     n_head = cfg.n_text_head
     return torch.stack([
         torch.stack([
@@ -338,8 +376,42 @@ def precompute_cross_kv(
     ])
 
 
+@torch.no_grad()
+def _precompute_cross_kv_int8(
+    model: Whisper, enc_out: torch.Tensor, cfg: WhisperConfig
+) -> dict[str, torch.Tensor]:
+    """Per-position int8 packs of the cross K/V: {"k", "v"} int8 and
+    {"k_s", "v_s"} float32 scales (one per position and head), [L, B, H,
+    T_enc, *]."""
+    from open_speech_tpu_torch.models.whisper.quantize import quantize_tensor
+
+    n_head = cfg.n_text_head
+    layers = []
+    for blk in model.decoder.blocks:
+        k = quantize_tensor(_split_heads(linear(enc_out, blk.cross.k), n_head), axis=-1)
+        v = quantize_tensor(_split_heads(linear(enc_out, blk.cross.v), n_head), axis=-1)
+        layers.append({"k": k["q"], "k_s": k["s"], "v": v["q"], "v_s": v["s"]})
+    return {key: torch.stack([layer[key] for layer in layers]) for key in layers[0]}
+
+
+def precompute_cross_kv(model: Whisper, enc_out: torch.Tensor, cfg: WhisperConfig):
+    """Cross-attention K/V for all layers: dense [L, 2, B, H, T_enc, Dh], or
+    the int8 packs when the model is int8 (its token embedding is packed)."""
+    if isinstance(model.decoder.tok_emb, QuantEmbedding):
+        return _precompute_cross_kv_int8(model, enc_out, cfg)
+    return precompute_cross_kv_dense(model, enc_out, cfg)
+
+
+def cross_layer(cross_kv, i: int):
+    """Layer ``i`` of either cross-KV form."""
+    if isinstance(cross_kv, dict):
+        return {key: val[i] for key, val in cross_kv.items()}
+    return cross_kv[i]
+
+
 def cross_attend(qc, ckv, batch: int, enc_len=None, beam: int = 1):
-    """Cross-attention against one layer's cross-KV [2, B, H, T_enc, Dh].
+    """Cross-attention against one layer's cross-KV: dense [2, B, H, T_enc,
+    Dh], or a dict of int8 packs [B, H, T_enc, *] (see ``cross_layer``).
 
     ``enc_len`` ([B]) masks encoder positions past the real audio; it is
     clamped to >= 1, because decode_attention over zero valid positions
@@ -359,7 +431,12 @@ def cross_attend(qc, ckv, batch: int, enc_len=None, beam: int = 1):
         return out.transpose(1, 2).reshape(bk, h, q_len, d)
     if enc_len is not None:
         enc_len = torch.clamp(enc_len, min=1)
-    else:
+    if isinstance(ckv, dict):
+        if enc_len is None:
+            enc_len = torch.full((batch,), ckv["k"].shape[2], dtype=torch.long, device=qc.device)
+        return decode_attention(qc, ckv["k"], ckv["v"], enc_len,
+                                k_scale=ckv["k_s"], v_scale=ckv["v_s"])
+    if enc_len is None:
         enc_len = torch.full((batch,), ckv.shape[3], dtype=torch.long, device=qc.device)
     return decode_attention(qc, ckv[0], ckv[1], enc_len)
 
@@ -378,12 +455,15 @@ def decode_step(
     ``beam > 1``: tokens/self_kv carry B*K rows while cross_kv and enc_len
     stay at B rows (see cross_attend). ``row_map`` [B*K, T]: beam-ancestry
     physical-row table; self-attention then reads lineage rows in place.
+    A position past the table reads its last row, as JAX's clamped
+    ``dynamic_slice`` does (the speculative draft proposes such tokens).
     Returns (logits [B, vocab] float32, self_kv).
     """
     dec = model.decoder
     n_head = cfg.n_text_head
     b = tokens.shape[0]
-    x = embed_tokens(dec, tokens) + dec.pos_emb[pos : pos + 1]  # [B, 1, d]
+    row = min(pos, dec.pos_emb.shape[0] - 1)
+    x = embed_tokens(dec, tokens) + dec.pos_emb[row : row + 1]  # [B, 1, d]
     length = torch.full((b,), pos + 1, dtype=torch.long, device=x.device)
     for i, blk in enumerate(dec.blocks):
         hn = layer_norm(x, blk.ln1)
@@ -398,7 +478,8 @@ def decode_step(
         x = x + linear(_merge_heads(attn), blk.attn.o)
         hc = layer_norm(x, blk.ln_cross)
         qc = _split_heads(linear(hc, blk.cross.q), n_head)
-        x = x + linear(_merge_heads(cross_attend(qc, cross_kv[i], b, enc_len, beam)), blk.cross.o)
+        ckv = cross_layer(cross_kv, i)
+        x = x + linear(_merge_heads(cross_attend(qc, ckv, b, enc_len, beam)), blk.cross.o)
         x = x + mlp(layer_norm(x, blk.ln_mlp), blk)
     logits = output_logits(layer_norm(x, dec.ln), dec)
     return logits[:, 0], self_kv

@@ -5,7 +5,8 @@ seek loop, beam search at temperature 0 with sampled fallbacks on
 quality-gate failure (compression_ratio > 2.4 or avg_logprob < -1.0),
 <|nospeech|> skipping, timestamp-token segmentation and
 condition-on-previous-text. The output ``Segment``s carry the fields of
-verbose_json.
+verbose_json. With a ``draft`` model, temperature-0 greedy attempts of one
+prompt row go through ``speculative.speculative_greedy_decode``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from open_speech_tpu_torch.models.whisper.decode import (
     greedy_decode,
 )
 from open_speech_tpu_torch.models.whisper.model import Whisper, WhisperConfig, encode
+from open_speech_tpu_torch.models.whisper.speculative import speculative_greedy_decode
 from open_speech_tpu_torch.ops.mel import HOP_LENGTH, SAMPLE_RATE, log_mel_spectrogram
 
 TIME_PER_FRAME = HOP_LENGTH / SAMPLE_RATE  # 0.01 s
@@ -89,8 +91,13 @@ def transcribe(
     tokenizer,
     audio: np.ndarray,
     opts: TranscribeOptions = TranscribeOptions(),
+    draft: dict | None = None,
 ) -> tuple[list[Segment], TranscriptionInfo]:
-    """Transcribe float32 16 kHz mono audio of any length on the model's device."""
+    """Transcribe float32 16 kHz mono audio of any length on the model's device.
+
+    ``draft`` ({"model", "cfg", "gamma"}): a speculative draft sharing the
+    vocabulary; each window is encoded by it too.
+    """
     sp = tokenizer.special
     audio = np.asarray(audio, dtype=np.float32).reshape(-1)
     duration = len(audio) / SAMPLE_RATE
@@ -129,6 +136,9 @@ def transcribe(
         time_offset = seek * TIME_PER_FRAME
 
         enc_out = encode(model, window[None], cfg)
+        d_enc_out = (
+            encode(draft["model"], window[None], draft["cfg"]) if draft is not None else None
+        )
 
         if language is None:
             codes, probs = detect_language(model, cfg, sp, enc_out)
@@ -147,7 +157,8 @@ def transcribe(
         )
 
         result = _decode_with_fallback(
-            model, cfg, tokenizer, enc_out, np.array([prompt], np.int32), opts
+            model, cfg, tokenizer, enc_out, np.array([prompt], np.int32), opts,
+            draft=draft, d_enc_out=d_enc_out,
         )
         tokens = [int(t) for t in result.tokens[0][: result_len(result)]]
         text = tokenizer.decode(tokens)
@@ -206,11 +217,12 @@ def result_len(result: DecodeResult) -> int:
 
 
 def _decode_with_fallback(
-    model, cfg, tokenizer, enc_out, prompt, opts: TranscribeOptions
+    model, cfg, tokenizer, enc_out, prompt, opts: TranscribeOptions,
+    draft: dict | None = None, d_enc_out=None,
 ) -> DecodeResult:
-    """Beam search at t=0 (greedy when beam_size is 1), then sampled decodes
-    at the fallback temperatures, each from a generator seeded
-    int(temperature * 1000)."""
+    """Beam search at t=0 (greedy when beam_size is 1: speculative with a
+    draft and one prompt row), then sampled decodes at the fallback
+    temperatures, each from a generator seeded int(temperature * 1000)."""
     sp = tokenizer.special
     suppress = tuple(tokenizer.non_speech_tokens)
     result = None
@@ -225,6 +237,16 @@ def _decode_with_fallback(
         )
         if temperature == 0.0 and opts.beam_size > 1:
             result = beam_decode(model, cfg, sp, enc_out, prompt, dopts)
+        elif (
+            temperature == 0.0
+            and draft is not None
+            and d_enc_out is not None
+            and prompt.shape[0] == 1
+        ):
+            result = speculative_greedy_decode(
+                model, cfg, draft["model"], draft["cfg"], sp, enc_out, d_enc_out,
+                prompt, dopts, gamma=int(draft.get("gamma", 4)),
+            )
         else:
             gen = torch.Generator(device=enc_out.device).manual_seed(
                 int(temperature * 1000)

@@ -364,23 +364,37 @@ def decode_attention(
     length: torch.Tensor,
     *,
     scale: float | None = None,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One-position attention over a padded KV cache.
 
     q: [B, H, Tq, D] (Tq is 1, or the folded beams); caches: [B, H, T_max, D];
     length: [B] valid prefix per batch row. A length of 0 softmaxes
     uniformly over the cache, as the reference does; callers clamp it.
+
+    int8 caches come with per-position ``k_scale``/``v_scale`` [B, H, T_max,
+    1]: the logits are multiplied by ``k_scale`` on the kv axis after the
+    softmax scale, the probabilities by ``v_scale`` after the softmax, and
+    the V product of float32 probabilities with the int8 cache is taken in
+    float32, as in the JAX package.
     """
     d = q.shape[-1]
     scale = (d**-0.5) if scale is None else scale
     logits = torch.matmul(q.float(), k_cache.float().transpose(-1, -2)) * scale
+    if k_scale is not None:
+        logits = logits * k_scale[..., 0][:, :, None, :].float()
     t_k = k_cache.shape[2]
     mask = (
         torch.arange(t_k, device=q.device)[None, None, None, :]
         < length[:, None, None, None]
     )
     probs = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1)
-    out = torch.matmul(probs.to(v_cache.dtype).float(), v_cache.float())
+    if v_scale is not None:
+        probs = probs * v_scale[..., 0][:, :, None, :].float()
+    if v_cache.dtype != torch.int8:
+        probs = probs.to(v_cache.dtype)
+    out = torch.matmul(probs.float(), v_cache.float())
     return out.to(q.dtype)
 
 

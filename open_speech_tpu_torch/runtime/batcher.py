@@ -55,7 +55,7 @@ from open_speech_tpu_torch.models.whisper.model import (
     linear,
     mlp,
     output_logits,
-    precompute_cross_kv,
+    precompute_cross_kv_dense,
 )
 from open_speech_tpu_torch.models.whisper.tokenizer import SpecialTokens
 
@@ -446,8 +446,10 @@ class ContinuousBatcher:
             mels = torch.stack([b[1].to(self.device, torch.float32) for b in batch])
             enc_out = encode(self.model, mels, self.cfg)
             # one batched scatter of the dense cross-KV into the claimed
-            # slots (a per-slot loop would rewrite the pool per request)
-            cross = precompute_cross_kv(self.model, enc_out, self.cfg).to(_CACHE_DTYPE)
+            # slots (a per-slot loop would rewrite the pool per request);
+            # dense for an int8 model too, as in the JAX batcher: the pool
+            # holds bf16 rows
+            cross = precompute_cross_kv_dense(self.model, enc_out, self.cfg).to(_CACHE_DTYPE)
             slot_ids = torch.tensor([b[0] for b in batch], device=self.device)
             self._cross_kv[:, :, slot_ids] = cross
             prompt = self._prompt

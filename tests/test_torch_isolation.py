@@ -3,7 +3,8 @@ open_speech_tpu.
 
 ``open_speech_tpu_torch`` runs where JAX and aiohttp are not installed, so
 importing it (and every submodule, the streaming session, the continuous
-batcher, its pool, batched long-form, Kokoro's model and converter, the
+batcher, its pool, batched long-form, int8 quantization, speculative
+decoding, Kokoro's model and converter, the
 vocoder ops, Piper's weight-norm folding, and Kokoro serving (the TTS router,
 backend and batcher, G2P, and the speech handler's body) included) must
 pull in neither ``jax``, ``aiohttp`` nor any module of the JAX package. The check runs in a fresh interpreter, because this test
@@ -36,7 +37,7 @@ bad = sorted(m for m in sys.modules
 want = ("server.streaming", "runtime.batcher", "runtime.batcher_pool", "models.whisper.batched",
         "models.kokoro.model", "models.kokoro.convert", "ops.vocoder", "models.piper.convert",
         "tts.router", "tts.backends.kokoro_backend", "runtime.tts_batcher", "text.g2p",
-        "runtime.speech")
+        "runtime.speech", "models.whisper.quantize", "models.whisper.speculative")
 print(len(names), ",".join(bad), int(all("open_speech_tpu_torch." + w in names for w in want)))
 """
 
@@ -89,11 +90,25 @@ def test_cuda_request_without_cuda_raises():
     assert TorchWhisperBackend(device="cpu").device.type == "cpu"
 
 
-def test_int8_compute_names_its_later_slice():
-    from open_speech_tpu_torch.backends.torch_whisper import TorchWhisperBackend
+def test_int8_compute_names_its_later_slice(monkeypatch):
+    """STT_COMPUTE_TYPE=int8 is served now: the backend loads test-tiny
+    with int8 packs and reports the compute type, as the JAX backend's
+    test_backend_int8_compute_type checks."""
+    import torch
 
-    with pytest.raises(NotImplementedError, match="int8"):
-        TorchWhisperBackend(device="cpu", compute_type="int8")
+    from open_speech_tpu_torch.backends.torch_whisper import TorchWhisperBackend
+    from open_speech_tpu_torch.config import settings
+    from open_speech_tpu_torch.models.whisper.model import QuantEmbedding, QuantLinear
+
+    monkeypatch.setattr(settings, "stt_model_dir", str(ROOT / "tests" / "fixtures"))
+    monkeypatch.setattr(settings, "os_precompile_on_load", False)
+    backend = TorchWhisperBackend(device="cpu", compute_type="int8")
+    backend.load_model("test-tiny")
+    model = backend._models["test-tiny"]["model"]
+    assert isinstance(model.decoder.tok_emb, QuantEmbedding)
+    assert model.decoder.tok_emb.q.dtype == torch.int8
+    assert isinstance(model.encoder.blocks[0].attn.q, QuantLinear)
+    assert backend.loaded_models()[0].compute_type == "int8"
 
 
 # host modules the port keeps as copies of the JAX package's (jax-free) ones
