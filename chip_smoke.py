@@ -76,6 +76,18 @@ Phases, each of which raises on failure (exit code 1, no result line):
      rounds, accepted, host syncs per round (must be 1), K1 launches, and
      the first bf16 divergence from plain greedy with its top-2 margin.
      Sp-c: the target as its own draft against ``greedy_decode``.
+ 11. the server (``server/app.py`` on the port's HTTP/WebSocket shell): 11a
+     serves phase 4's router and a kokoro-82M ``TTSRouter`` from this process
+     on 127.0.0.1 (TLS off) and drives it with a stdlib client: requests a
+     and c of phase 4 as multipart POSTs (the body and the K1 launches must
+     equal the direct call's; /health must answer while c runs), the
+     two-sentence streamed PCM speech request (chunked; TTFA beside the
+     direct first chunk), and a ~10 s paced ``/v1/audio/stream`` session
+     over a masked-frame client (K2 and combine launches = 32 x block
+     encodes; interim turnaround, final latency). 11b runs ``python -m
+     open_speech_tpu_torch.server`` with the fixture preloaded on the card:
+     the clips' text must equal the CPU's, and SIGTERM must end it with
+     exit 0.
 
 The last two lines of standard output are the kernels' JSON line and the
 result line ``{"ok": true, "device": {...}}``.
@@ -541,8 +553,10 @@ def main() -> int:
         raise AssertionError(f"kokoro launched the flash kernels: {before} -> {dict(A.launches)}")
     log(f"kokoro serving T-d: flash launch counts unchanged through phases 7 and 8: {before}")
     phase_int8(router)
-    del router
     phase_spec()
+    for key, n in phase_server(router).items():  # 11: the same kernels through the sockets
+        launches[key] = launches.get(key, 0) + n
+    del router
     for entry in kernels:  # K1 from REST (both paths) and S3, K2 and its combine from S1/S2
         entry["launches"] = launches.get(entry["name"], 0)
         if entry["launches"] == 0:
@@ -2293,6 +2307,515 @@ def _spec_full_width() -> None:
         f"self-draft {' '.join(f'{w:.3f}' for w in walls['self-draft'])} greedy "
         f"{' '.join(f'{w:.3f}' for w in walls['greedy'])}")
     _free(router)
+
+
+# ── phase 11: the HTTP and WebSocket server ─────────────────────────────
+
+WS_SECONDS = 10.0  # the 11a socket session: 16 kHz PCM16 paced in 100 ms frames
+SHELL_REPEATS = 5  # the shell-alone requests of each kind
+
+
+class _Served:
+    """``create_app(stt_router, tts_router)`` served on 127.0.0.1 (a free
+    port, TLS off) by an event loop on a thread of its own."""
+
+    def __init__(self, stt_router, tts_router) -> None:
+        from open_speech_tpu_torch.server.app import create_app
+
+        self.app = create_app(stt_router=stt_router, tts_router=tts_router)
+
+    def __enter__(self):
+        import threading
+
+        from open_speech_tpu_torch.server.http import serve_app
+
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
+        self.thread.start()
+        self.server = self._run(serve_app(self.app, "127.0.0.1", 0))
+        self.port = self.server.port
+        return self
+
+    def _run(self, coro, timeout: float = 120):
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
+
+    def __exit__(self, *exc):
+        try:
+            self._run(self.server.close())
+            self._run(self.app.cleanup())
+        finally:
+            self.loop.call_soon_threadsafe(self.loop.stop)
+            self.thread.join(60)
+            self.loop.close()
+
+
+def _http(port: int, method: str, path: str, body: bytes = b"", headers=None):
+    """(status, headers, body) of one request on a new connection."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def _multipart(fields: dict, audio: bytes) -> tuple[bytes, dict]:
+    """A multipart/form-data body with ``fields`` and ``audio`` as ``file``."""
+    import os
+
+    boundary = "chipsmoke" + os.urandom(8).hex()
+    parts = [f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'.encode()
+             for k, v in fields.items()]
+    parts.append(f'--{boundary}\r\nContent-Disposition: form-data; name="file"; filename="clip.wav"'
+                 f"\r\nContent-Type: audio/wav\r\n\r\n".encode() + audio + b"\r\n")
+    parts.append(f"--{boundary}--\r\n".encode())
+    return b"".join(parts), {"Content-Type": f"multipart/form-data; boundary={boundary}"}
+
+
+class _SocketClient:
+    """A minimal RFC 6455 client on a plain socket: the handshake, masked
+    frames out, and a reader thread that keeps every server text frame with
+    its arrival time and answers the server's close frame."""
+
+    def __init__(self, port: int, path: str) -> None:
+        import base64
+        import hashlib
+        import os
+        import socket
+        import threading
+
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=300)
+        key = base64.b64encode(os.urandom(16)).decode()
+        self.sock.sendall(f"GET {path} HTTP/1.1\r\nHost: 127.0.0.1:{port}\r\nUpgrade: websocket\r\n"
+                          f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\n"
+                          "Sec-WebSocket-Version: 13\r\n\r\n".encode())
+        head = b""
+        while not head.endswith(b"\r\n\r\n"):
+            head += self.sock.recv(1)
+        accept = base64.b64encode(hashlib.sha1(
+            key.encode() + b"258EAFA5-E914-47DA-95CA-C5AB0DC85B11").digest()).decode()
+        if not head.startswith(b"HTTP/1.1 101 ") or f"Sec-WebSocket-Accept: {accept}".encode() not in head:
+            raise AssertionError(f"websocket handshake refused: {head[:200]!r}")
+        self.events: list[tuple[float, dict]] = []
+        self.close_code = None
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def send(self, opcode: int, payload: bytes) -> None:
+        import os
+        import struct
+
+        import numpy as np
+
+        mask = os.urandom(4)
+        n = len(payload)
+        head = bytes([0x80 | opcode])
+        head += bytes([0x80 | n]) if n < 126 else (
+            bytes([0x80 | 126]) + struct.pack("!H", n) if n < 65536 else bytes([0x80 | 127]) + struct.pack("!Q", n))
+        body = (np.frombuffer(payload, np.uint8) ^ np.resize(np.frombuffer(mask, np.uint8), n)).tobytes()
+        self.sock.sendall(head + mask + body)
+
+    def _exactly(self, n: int) -> bytes:
+        out = b""
+        while len(out) < n:
+            chunk = self.sock.recv(n - len(out))
+            if not chunk:
+                raise ConnectionError("socket closed")
+            out += chunk
+        return out
+
+    def _read(self) -> None:
+        import struct
+
+        while True:
+            b0, b1 = self._exactly(2)
+            n = b1 & 0x7F
+            if n == 126:
+                (n,) = struct.unpack("!H", self._exactly(2))
+            elif n == 127:
+                (n,) = struct.unpack("!Q", self._exactly(8))
+            payload = self._exactly(n)
+            if b0 & 0x0F == 0x1:
+                self.events.append((time.perf_counter(), json.loads(payload)))
+            elif b0 & 0x0F == 0x8:
+                self.close_code = struct.unpack("!H", payload[:2])[0] if len(payload) >= 2 else 1005
+                self.send(0x8, payload[:2])
+                self.sock.close()
+                return
+
+    def of_type(self, kind: str) -> list[dict]:
+        return [e for _, e in self.events if e["type"] == kind]
+
+
+def phase_server(router) -> dict:
+    """11a: ``create_app`` over phase 4's router and a kokoro-82M TTSRouter,
+    served in this process; 11b: ``python -m open_speech_tpu_torch.server``
+    in a subprocess on the fixture. Returns the flash launches of both."""
+    import torch
+
+    from open_speech_tpu_torch.ops import attention as A
+    from open_speech_tpu_torch.tts.router import TTSRouter
+
+    for key in A.launches:
+        A.launches[key] = 0  # count this phase only
+    tts = TTSRouter()  # the card
+    t0 = time.perf_counter()
+    tts.load_model("kokoro")
+    torch.cuda.synchronize()
+    log(f"server 11a: kokoro-82M (random weights from seed 7, float32) loaded with its warmup "
+        f"synthesis in {time.perf_counter() - t0:.3f} s; whisper-large-v3-turbo is phase 4's router")
+    entry = router.get_backend(MAIN_MODEL)._ensure_model(MAIN_MODEL)
+    real_tok = entry["tok"]
+    entry["tok"] = _WordTokenizer(real_tok)  # bodies and events carry the decoded words
+    try:
+        with _Served(router, tts) as served:
+            log(f"server 11a: create_app serving on http://127.0.0.1:{served.port}")
+            _server_rest(router, served.port)
+            _server_speech(tts, served.port)
+            _server_stream(router, served.port)
+    finally:
+        entry["tok"] = real_tok
+        tts.unload_model("kokoro")
+        torch.cuda.empty_cache()
+    _server_subprocess()
+    return dict(A.launches)
+
+
+def _served_post(port: int, route: str, body: bytes, headers: dict, probe_health: bool):
+    """(status, headers, body, wall s, /health latencies s while it ran)."""
+    import threading
+
+    import torch
+
+    result, health = {}, []
+
+    def post():
+        t1 = time.perf_counter()
+        result["answer"] = _http(port, "POST", route, body, headers)
+        torch.cuda.synchronize()
+        result["wall"] = time.perf_counter() - t1
+
+    poster = threading.Thread(target=post)
+    poster.start()
+    if probe_health:
+        time.sleep(0.5)
+        while poster.is_alive():
+            t1 = time.perf_counter()
+            status, _, hbody = _http(port, "GET", "/health")
+            if status != 200 or json.loads(hbody)["status"] != "ok":
+                raise AssertionError(f"server 11a /health during a transcription: {status} {hbody!r}")
+            if poster.is_alive():
+                health.append(time.perf_counter() - t1)
+            time.sleep(0.25)  # a poll rate that takes little of the decode's interpreter lock
+    poster.join()
+    return (*result["answer"], result["wall"], health)
+
+
+def _server_rest(router, port: int) -> None:
+    """Requests a and c of phase 4, direct (D) then served (S); /health
+    polled while the served c runs in the server's executor."""
+    import statistics
+
+    import torch
+
+    from open_speech_tpu_torch.ops import attention as A
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.runtime.router import transcription_response, translation_response
+
+    # the shell alone: request a's upload refused after its parse (a bad
+    # temperature: 422 before any model work), and /health, on an idle server
+    body, headers = _multipart({"model": MAIN_MODEL, "temperature": "hot"},
+                               codec.write_wav(_speechlike(5.0, 1), SR))
+    shell = {"post": [], "health": []}
+    for _ in range(SHELL_REPEATS):
+        for key, args in (("post", ("POST", "/v1/audio/transcriptions", body, headers)),
+                          ("health", ("GET", "/health"))):
+            t0 = time.perf_counter()
+            status, _, _ = _http(port, *args)
+            shell[key].append(1e3 * (time.perf_counter() - t0))
+            if status != (422 if key == "post" else 200):
+                raise AssertionError(f"server 11a shell {key}: {status}")
+    log(f"server 11a shell alone, {SHELL_REPEATS} each, new connection per request: a's {len(body)}-byte "
+        f"multipart POST refused with 422 after its parse, ms p50 {statistics.median(shell['post']):.3f} "
+        f"max {max(shell['post']):.3f}; GET /health ms p50 {statistics.median(shell['health']):.3f} "
+        f"max {max(shell['health']):.3f}")
+
+    turns = "DS"  # one pair each: ~5-10 s per decode at random weights
+    for name, seconds, seed, route, fmt in (
+        ("a transcribe 5 s json", 5.0, 1, "/v1/audio/transcriptions", "json"),
+        ("c translate 10 s srt", 10.0, 3, "/v1/audio/translations", "srt"),
+    ):
+        wav = codec.write_wav(_speechlike(seconds, seed), SR)
+        direct_fn = translation_response if route.endswith("translations") else transcription_response
+        body, headers = _multipart({"model": MAIN_MODEL, "response_format": fmt}, wav)
+        walls, k1s, bodies, health = {t: [] for t in "DS"}, {t: [] for t in "DS"}, [], []
+        for turn in turns:
+            k1 = A.launches["flash_attention"]
+            if turn == "D":
+                t0 = time.perf_counter()
+                out = direct_fn(router, wav, model=MAIN_MODEL, response_format=fmt)
+                torch.cuda.synchronize()
+                walls[turn].append(time.perf_counter() - t0)
+            else:
+                status, rheaders, rbody, wall, probes = _served_post(
+                    port, route, body, headers, probe_health=name.startswith("c"))
+                want_type = f"{'application/json' if fmt == 'json' else 'text/plain'}; charset=utf-8"
+                if status != 200 or rheaders.get("Content-Type") != want_type:
+                    raise AssertionError(f"server 11a {name}: {status} {rheaders.get('Content-Type')} "
+                                         f"{rbody[:300]!r}")
+                out = json.loads(rbody) if fmt == "json" else rbody.decode()
+                walls["S"].append(wall)
+                health += probes
+            k1s[turn].append(A.launches["flash_attention"] - k1)
+            bodies.append(out)
+        if any(b != bodies[0] for b in bodies) or not (bodies[0]["text"] if fmt == "json" else bodies[0]):
+            raise AssertionError(f"server 11a {name}: bodies in turns {turns}: {bodies}")
+        if len({n for ns in k1s.values() for n in ns}) != 1 or k1s["S"][0] <= 0:
+            raise AssertionError(f"server 11a {name}: K1 launches {k1s}")
+        fmt_walls = lambda ws: " ".join(f"{w:.3f}" for w in ws)  # noqa: E731
+        log(f"server 11a {name}: wall_s in turns {turns}: direct {fmt_walls(walls['D'])} "
+            f"served {fmt_walls(walls['S'])} (served - direct, mean "
+            f"{statistics.mean(walls['S']) - statistics.mean(walls['D']):+.3f} s); K1 launches "
+            f"{k1s['S'][0]} per request, served = direct; bodies equal ({len(json.dumps(bodies[0]))} "
+            f"bytes of JSON)")
+        if name.startswith("c"):
+            if not health:
+                raise AssertionError("server 11a: no /health answer while the translation ran")
+            health_ms = sorted(1e3 * h for h in health)
+            log(f"server 11a /health during served c: {len(health)} answers while it ran, latency ms "
+                f"p50 {statistics.median(health_ms):.3f} max {health_ms[-1]:.3f}")
+
+
+def _server_speech(tts, port: int) -> None:
+    """The two-sentence streamed PCM request of phase 8, direct and over
+    HTTP (chunked) in turns after a warm run: first chunk time, the samples,
+    and the threads the synthesis ran on."""
+    import http.client
+    import threading
+
+    import numpy as np
+
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.runtime.speech import speech_response
+
+    body = {"input": SERVING_TEXT, "voice": "af_heart", "response_format": "pcm"}
+    b"".join(speech_response(tts, body, stream=True)[1])  # warm: the timed runs find the plans made
+    # an executor thread's first synthesis pays a one-time set-up: this
+    # served run takes it before the timed turns, and its TTFA is printed
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/v1/audio/speech?stream=true", body=json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        resp.read1(1 << 20)
+        cold_ttfa = time.perf_counter() - t0
+        resp.read()
+    finally:
+        conn.close()
+    # the threads each run's synthesis steps ran on (one per chunk produced)
+    synthesize, threads = tts.synthesize, []
+
+    def traced(*args, **kw):
+        for chunk in synthesize(*args, **kw):
+            threads[-1].append(threading.get_ident())
+            yield chunk
+
+    tts.synthesize = traced
+    ttfa, walls, outs = {"D": [], "S": []}, {"D": [], "S": []}, []
+    for turn in "DSSD":
+        threads.append([])
+        t0 = time.perf_counter()
+        if turn == "D":
+            _, chunks = speech_response(tts, body, stream=True)
+            parts = [next(chunks)]
+            ttfa["D"].append(time.perf_counter() - t0)
+            parts += list(chunks)
+            walls["D"].append(time.perf_counter() - t0)
+            outs.append(b"".join(parts))
+            continue
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            conn.request("POST", "/v1/audio/speech?stream=true", body=json.dumps(body).encode(),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            first = resp.read1(1 << 20)
+            ttfa["S"].append(time.perf_counter() - t0)
+            outs.append(first + resp.read())
+            walls["S"].append(time.perf_counter() - t0)
+            status, ctype = resp.status, resp.getheader("Content-Type")
+            coding = resp.getheader("Transfer-Encoding")
+        finally:
+            conn.close()
+        if status != 200 or ctype != "audio/pcm" or coding != "chunked" or not first:
+            raise AssertionError(f"server 11a speech: {status} {ctype} {coding}, first chunk {len(first)} bytes")
+    want = codec.pcm16_to_float(outs[0])
+    err = 0.0
+    for out in outs[1:]:
+        got = codec.pcm16_to_float(out)
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"server 11a speech: {got.shape} samples vs {want.shape}")
+        err = max(err, float(np.abs(got - want).max()) if got.size else 0.0)
+    if err > 2e-3 + 2 / 32768:
+        raise AssertionError(f"server 11a speech: runs differ by {err}")
+    del tts.synthesize
+    ms = lambda xs: " ".join(f"{1e3 * x:.3f}" for x in xs)  # noqa: E731
+    log(f"server 11a speech (streamed pcm, two sentences, {want.size / 24000:.3f} s of audio): first "
+        f"served request TTFA ms {1e3 * cold_ttfa:.3f}; then in turns "
+        f"DSSD: TTFA ms over HTTP {ms(ttfa['S'])}, direct first chunk {ms(ttfa['D'])}; wall ms served "
+        f"{ms(walls['S'])} direct {ms(walls['D'])}; served == direct bytes "
+        f"{all(o == outs[0] for o in outs)} (max err {err:.2e}); threads that ran the synthesis per "
+        f"turn {[len(set(t)) for t in threads]} over {[len(t) for t in threads]} steps, "
+        f"{len(set(threads[1] + threads[2]))} across the served turns")
+
+
+def _server_stream(router, port: int) -> None:
+    """A /v1/audio/stream session over the socket: ~10 s of 16 kHz PCM16
+    paced in 100 ms frames, then stop. K2 and its combine run in the
+    incremental block encoder. Phase 5's S1 is the in-process yardstick of
+    what the socket adds."""
+    from open_speech_tpu_torch.ops import attention as A
+    from open_speech_tpu_torch.server import streaming as S
+
+    cfg = router.get_backend(MAIN_MODEL)._ensure_model(MAIN_MODEL)["cfg"]
+    frames = _pcm16_frames(WS_SECONDS, 8)
+    k2, combine = A.launches["flash_attention_varlen"], A.launches["flash_combine"]
+    ws = _SocketClient(port, f"/v1/audio/stream?model={MAIN_MODEL}&sample_rate={SR}&vad=false")
+    deadline = time.perf_counter() + 60
+    while not ws.events or not S._active_sessions:
+        if time.perf_counter() > deadline:
+            raise AssertionError("server 11a stream: no session.begin")
+        time.sleep(0.005)
+    session = next(iter(S._active_sessions.values()))
+    passes, sent = [], [0]
+    schedule, transcribe, send_event = (session._schedule_interim, session._transcribe_utterance,
+                                        session._send_event)
+    newest = [0.0]
+
+    def timed_schedule():
+        newest[0] = time.perf_counter()
+        schedule()
+
+    async def timed_transcribe():
+        t_chunk, n0 = newest[0], sent[0]
+        await transcribe()
+        passes.append((t_chunk, n0, sent[0]))
+
+    async def counted_send(event):
+        await send_event(event)
+        sent[0] += 1
+
+    session._schedule_interim, session._transcribe_utterance = timed_schedule, timed_transcribe
+    session._send_event = counted_send
+    sent[0] = 1  # session.begin went out before the hooks
+    t0 = time.perf_counter()
+    for i, frame in enumerate(frames):
+        time.sleep(max(0.0, t0 + i * FRAME_S - time.perf_counter()))
+        ws.send(0x2, frame)
+    stop_at = time.perf_counter()
+    ws.send(0x1, json.dumps({"type": "stop"}).encode())
+    ws.reader.join(120)
+    enc = session._inc_encoder
+    n_k2, n_combine = A.launches["flash_attention_varlen"] - k2, A.launches["flash_combine"] - combine
+    kinds = [e["type"] for _, e in ws.events]
+    transcripts = ws.of_type("transcript")
+    interims = [e for e in transcripts if not e["is_final"]]
+    finals = [(t, e) for t, e in ws.events if e.get("speech_final")]
+    if ws.close_code != 1000 or kinds[0] != "session.begin" or kinds[-1] != "session.end":
+        raise AssertionError(f"server 11a stream: close {ws.close_code}, events {kinds[:3]} ... {kinds[-3:]}")
+    if ws.events[-1][1]["errors"] or not interims or len(finals) != 1 or session._inc_failures:
+        raise AssertionError(f"server 11a stream: {len(interims)} interims, {len(finals)} finals, "
+                             f"end {ws.events[-1][1]}, incremental failures {session._inc_failures}")
+    blocks = enc.block_encodes + enc.tail_encodes
+    if n_k2 <= 0 or n_k2 != cfg.n_audio_layer * blocks or n_combine != n_k2:
+        raise AssertionError(f"server 11a stream: K2 {n_k2}, combine {n_combine} for {blocks} block encodes")
+    turnaround = []
+    for t_chunk, n0, n1 in passes:
+        arrivals = [ws.events[i][0] for i in range(n0, min(n1, len(ws.events)))
+                    if ws.events[i][1]["type"] == "transcript"]
+        if arrivals:
+            turnaround.append(arrivals[0] - t_chunk)
+    log(f"server 11a stream ({WS_SECONDS} s 16 kHz pcm16 paced over the socket, auto-detect, VAD off): "
+        f"events {len(ws.events)} interims {len(interims)} interim passes {len(passes)} "
+        f"coalesced {session._interims_coalesced}; interim turnaround (newest chunk -> transcript "
+        f"event at the client, {len(turnaround)} passes with an event) s {_p50_max(turnaround)}; "
+        f"final latency after stop s {finals[0][0] - stop_at:.4f}")
+    log(f"server 11a stream: K2 launches {n_k2} = {cfg.n_audio_layer} x ({enc.block_encodes} committed + "
+        f"{enc.tail_encodes} tail block encodes), combine launches {n_combine}; close code 1000")
+
+
+def _server_subprocess() -> None:
+    """11b: ``python -m open_speech_tpu_torch.server`` (TLS off, a free
+    port, the fixture preloaded on the card at float32): /health reports
+    it loaded, the fixture clips transcribe to the CPU's text, SIGTERM ends
+    it cleanly."""
+    import os
+    import signal
+    import socket
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.runtime.router import BackendRouter, transcription_response
+
+    from open_speech_tpu_torch.config import settings
+
+    root = Path(__file__).resolve().parent
+    model_id = "test-tiny-eot"
+    settings.stt_model_dir = str(root / "tests" / "fixtures")  # the host's copy, as phase 6 reads it
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, OS_SSL_ENABLED="false", OS_HOST="127.0.0.1", OS_PORT=str(port),
+               STT_MODEL_DIR=str(root / "tests" / "fixtures"), STT_PRELOAD_MODELS=model_id,
+               STT_COMPUTE_TYPE="float32")
+    host = BackendRouter(device="cpu", compute_type="float32")
+    host.load_model(model_id)
+    rng = np.random.default_rng(11)  # the clips of tests/test_eot_ckpt.py
+    clips = {k: codec.write_wav(_beeps(k, rng), SR) for k in (1, 3)}
+    want = {k: transcription_response(host, wav, model=model_id) for k, wav in clips.items()}
+    with tempfile.TemporaryFile() as out:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "open_speech_tpu_torch.server"], cwd=root,
+                                env=env, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            while True:
+                if proc.poll() is not None or time.perf_counter() - t0 > 240:
+                    raise AssertionError(f"server 11b: not up (exit {proc.poll()})")
+                try:
+                    status, _, body = _http(port, "GET", "/health")
+                    if status == 200 and json.loads(body)["models_loaded"] >= 1:
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.25)
+            up_s = time.perf_counter() - t0
+            for k, wav in clips.items():
+                form, headers = _multipart({"model": model_id}, wav)
+                status, _, body = _http(port, "POST", "/v1/audio/transcriptions", form, headers)
+                if status != 200 or json.loads(body) != want[k]:
+                    raise AssertionError(f"server 11b beeps k={k}: {status} {body[:200]!r} vs cpu {want[k]}")
+            t1 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            code = proc.wait(timeout=120)
+            if code != 0:
+                raise AssertionError(f"server 11b: exit {code} after SIGTERM")
+            log(f"server 11b: python -m open_speech_tpu_torch.server up with {model_id} loaded on the "
+                f"card in {up_s:.3f} s; clips k=1,3 text equal to the CPU's "
+                f"{[want[k]['text'] for k in clips]}; SIGTERM -> exit 0 in {time.perf_counter() - t1:.3f} s")
+        except BaseException:
+            out.seek(0)
+            log("server 11b output:\n" + out.read().decode(errors="replace")[-4000:])
+            raise
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 if __name__ == "__main__":
     sys.exit(main())

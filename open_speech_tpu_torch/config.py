@@ -4,8 +4,9 @@ Counterpart of ``open_speech_tpu/config.py``: the same field names, the same
 upper-case environment variables, the same parsing and the same alias
 properties, for the fields the REST transcription path (batched long-form,
 int8 compute and speculative decoding included), the streaming session,
-the continuous batcher, and Kokoro serving (``POST /v1/audio/speech``'s
-body, the backend and the TTS batcher) read. ``stt_device`` defaults to ``cuda``; ``tts_device`` defaults to
+the continuous batcher, Kokoro serving (``POST /v1/audio/speech``'s
+body, the backend and the TTS batcher) and the HTTP server (``server/``:
+binding, TLS, auth, CORS, rate limits, upload size, preloads) read. ``stt_device`` defaults to ``cuda``; ``tts_device`` defaults to
 ``stt_device``.
 """
 
@@ -18,6 +19,20 @@ _FALSY = {"0", "false", "no", "off", "f", "n", ""}
 
 # field -> default; each is read from the upper-case env var of its name
 _DEFAULTS: dict[str, object] = {
+    # the server (python -m open_speech_tpu_torch.server)
+    "os_port": 8100,
+    "os_host": "0.0.0.0",
+    "os_api_key": "",
+    "os_auth_required": False,
+    "os_cors_origins": "*",
+    "os_ws_allowed_origins": "",
+    "os_trust_proxy": False,
+    "os_max_upload_mb": 100,
+    "os_rate_limit": 0,
+    "os_rate_limit_burst": 0,
+    "os_ssl_enabled": True,
+    "os_ssl_certfile": "",
+    "os_ssl_keyfile": "",
     "os_model_ttl": 300,
     "os_precompile_on_load": True,
     "os_stt_precompile_budgets": "224",
@@ -27,6 +42,9 @@ _DEFAULTS: dict[str, object] = {
     "stt_compute_type": "bfloat16",
     "stt_model_dir": None,
     "stt_normalize": True,
+    "stt_noise_reduce": False,
+    "stt_diarize_enabled": False,
+    "stt_preload_models": "",
     # streaming sessions (/v1/audio/stream)
     "os_stream_chunk_ms": 100,
     "os_stream_max_connections": 10,
@@ -59,6 +77,7 @@ _DEFAULTS: dict[str, object] = {
     "tts_trim_silence": True,
     "tts_normalize_output": True,
     "tts_pronunciation_dict": "",
+    "tts_preload_models": "",
     # concurrent Kokoro requests share one batched encode + blockwise vocode
     "os_tts_batcher_enabled": False,
     # rows of the TTS batcher's warmup batch at load: the largest entry
@@ -102,6 +121,18 @@ class Settings:
             setattr(self, name, value)
 
     # ── aliases of the JAX package's Settings ────────────────────────
+    stt_port = property(lambda self: self.os_port)
+    stt_host = property(lambda self: self.os_host)
+    stt_api_key = property(lambda self: self.os_api_key)
+    stt_cors_origins = property(lambda self: self.os_cors_origins)
+    stt_trust_proxy = property(lambda self: self.os_trust_proxy)
+    stt_ws_allowed_origins = property(lambda self: self.os_ws_allowed_origins)
+    stt_max_upload_mb = property(lambda self: self.os_max_upload_mb)
+    stt_rate_limit = property(lambda self: self.os_rate_limit)
+    stt_rate_limit_burst = property(lambda self: self.os_rate_limit_burst)
+    stt_ssl_enabled = property(lambda self: self.os_ssl_enabled)
+    stt_ssl_certfile = property(lambda self: self.os_ssl_certfile)
+    stt_ssl_keyfile = property(lambda self: self.os_ssl_keyfile)
     stt_stream_chunk_ms = property(lambda self: self.os_stream_chunk_ms)
     stt_stream_max_connections = property(lambda self: self.os_stream_max_connections)
     stt_default_model = property(lambda self: self.stt_model)

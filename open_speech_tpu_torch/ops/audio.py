@@ -115,8 +115,8 @@ def parse_wav_header(data: bytes) -> WavInfo:
 def read_wav(data: bytes) -> tuple[np.ndarray, int]:
     """WAV bytes -> (float32 mono [-1,1], sample_rate).
 
-    Supports PCM 8/16/24/32-bit and IEEE float32/64; multichannel is averaged
-    to mono.
+    Supports PCM 8/16/24/32-bit, IEEE float32/64 and G.711 A-law/mu-law
+    (format tags 6/7); multichannel is averaged to mono.
     """
     info = parse_wav_header(data)
     raw = data[info.data_offset : info.data_offset + info.data_size]
@@ -151,6 +151,10 @@ def read_wav(data: bytes) -> tuple[np.ndarray, int]:
     elif fmt == 3:  # IEEE float
         dtype = "<f4" if bits == 32 else "<f8"
         audio = np.frombuffer(raw, dtype=dtype).astype(np.float32)
+    elif fmt in (6, 7):  # a-law / mu-law payloads inside WAV
+        u8 = np.frombuffer(raw, dtype=np.uint8)
+        ints = alaw_decode(u8) if fmt == 6 else ulaw_decode(u8)
+        audio = ints.astype(np.float32) / 32768.0
     else:
         raise ValueError(f"unsupported WAV format tag: {fmt}")
     if info.channels > 1:

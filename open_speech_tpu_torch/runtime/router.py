@@ -8,8 +8,10 @@ the reference's ``faster-whisper`` provider name.
 ``transcription_response`` / ``translation_response`` do what the JAX
 server's ``POST /v1/audio/transcriptions`` and ``/translations`` routes do
 with one upload once the multipart form is parsed (``server/app.py``):
-ingest, preprocessing, the router call, and the response shaping. The HTTP
-shell itself is a later slice of the port.
+ingest and preprocessing (``prepare_upload``), the router call, and the
+response shaping (``transcription_body``, ``render_result``). The HTTP
+routes (``server/app.py``) call the same pieces, with the JAX routes'
+error mapping between them.
 """
 
 from __future__ import annotations
@@ -71,16 +73,43 @@ class BackendRouter:
         return self.get_backend(model).translate(audio, model, **kwargs)
 
 
-def _prepare(
+def prepare_upload(
     router: BackendRouter, model: str, audio_bytes: bytes, content_type: str | None
 ) -> bytes:
-    if not audio_bytes:
-        raise ValueError("Empty audio file")
-    # ingest resamples on the device the model runs on
+    """An upload's ingest and preprocessing, on the device the model runs on."""
     device = getattr(router.get_backend(model), "device", None)
     return preprocess_stt_audio(
-        convert_to_wav(audio_bytes, content_type, device), normalize=settings.stt_normalize
+        convert_to_wav(audio_bytes, content_type, device),
+        normalize=settings.stt_normalize,
+        noise_reduce=settings.stt_noise_reduce,
     )
+
+
+def backend_format(response_format: str) -> str:
+    """The format the backend is asked for: srt, vtt and json are rendered
+    from verbose_json, as the JAX route does."""
+    if response_format in ("srt", "vtt", "json", "verbose_json"):
+        return "verbose_json"
+    return response_format
+
+
+def transcription_body(result: dict[str, Any], response_format: str) -> tuple[str | dict[str, Any], str]:
+    """(body, content type) of a transcription result, as the JAX route
+    renders it: a dict is sent as JSON, a string as text."""
+    if response_format == "json" and "text" in result:
+        result = {"text": result["text"]}  # OpenAI json shape
+    if response_format in ("text", "srt", "vtt"):
+        content, content_type = format_transcription(result, response_format)
+        return content, content_type.split(";")[0]
+    return render_result(result)
+
+
+def render_result(result: dict[str, Any]) -> tuple[str | dict[str, Any], str]:
+    """(body, content type) of a backend result: its text when the backend
+    rendered it (text/srt/vtt), else the dict as JSON."""
+    if result.get("raw_text"):
+        return result["text"], "text/plain"
+    return result, "application/json"
 
 
 def transcription_response(
@@ -96,28 +125,19 @@ def transcription_response(
 ) -> str | dict[str, Any]:
     """The body of a transcription response: a dict for json/verbose_json,
     the text for text/srt/vtt."""
-    backend_format = (
-        "verbose_json"
-        if response_format in ("srt", "vtt", "json", "verbose_json")
-        else response_format
-    )
+    if not audio_bytes:
+        raise ValueError("Empty audio file")
     model = model or settings.stt_model
     result = router.transcribe(
-        audio=_prepare(router, model, audio_bytes, content_type),
+        audio=prepare_upload(router, model, audio_bytes, content_type),
         model=model,
         language=language,
-        response_format=backend_format,
+        response_format=backend_format(response_format),
         temperature=temperature,
         prompt=prompt,
         beam_size=settings.stt_rest_beam_size,
     )
-    if response_format == "json" and "text" in result:
-        result = {"text": result["text"]}  # OpenAI json shape
-    if response_format in ("text", "srt", "vtt"):
-        return format_transcription(result, response_format)[0]
-    if result.get("raw_text"):
-        return result["text"]
-    return result
+    return transcription_body(result, response_format)[0]
 
 
 def translation_response(
@@ -131,14 +151,14 @@ def translation_response(
     content_type: str | None = None,
 ) -> str | dict[str, Any]:
     """The body of a translation response (English text in any format)."""
+    if not audio_bytes:
+        raise ValueError("Empty audio file")
     model = model or settings.stt_model
     result = router.translate(
-        audio=_prepare(router, model, audio_bytes, content_type),
+        audio=prepare_upload(router, model, audio_bytes, content_type),
         model=model,
         response_format=response_format,
         temperature=temperature,
         prompt=prompt,
     )
-    if result.get("raw_text"):
-        return result["text"]
-    return result
+    return render_result(result)[0]

@@ -129,7 +129,7 @@ def _stream(synthesize, rate: int, fmt: str) -> Iterator[bytes]:
     try:
         first = next(encoded)
     except StopIteration:
-        return iter(())
+        return (chunk for chunk in ())  # a generator: the caller may close it
     except Exception as e:  # noqa: BLE001 — nothing sent yet: a real error response
         raise SpeechError(400 if isinstance(e, ValueError) else 500, f"TTS failed: {e}") from e
     return _rest(first, encoded)

@@ -7,7 +7,8 @@ dataclasses with the same fields and defaults.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import time
+from dataclasses import asdict, dataclass, field
 
 
 @dataclass
@@ -20,6 +21,39 @@ class LoadedModelInfo:
     last_used_at: float | None = None
     is_default: bool = False
     ttl_remaining: float | None = None
+
+
+# ── the server's records (GET /v1/models, /health) ──────────────────
+
+
+@dataclass
+class ModelObject:
+    id: str
+    object: str = "model"
+    created: int = field(default_factory=lambda: int(time.time()))
+    owned_by: str = "open-speech"
+
+    def model_dump(self) -> dict:
+        return asdict(self)
+
+
+@dataclass
+class ModelListResponse:
+    object: str = "list"
+    data: list[ModelObject] = field(default_factory=list)
+
+    def model_dump(self) -> dict:
+        return asdict(self)
+
+
+@dataclass
+class HealthResponse:
+    version: str
+    status: str = "ok"
+    models_loaded: int = 0
+
+    def model_dump(self) -> dict:
+        return {"status": self.status, "version": self.version, "models_loaded": self.models_loaded}
 
 
 # ── TTS ────────────────────────────────────────────────────────────────

@@ -19,8 +19,9 @@ JAX package.
 
 The JAX package runs this over an aiohttp WebSocket. Here the session takes
 any ``ws`` that yields ``Message``s (``MsgType`` BINARY / TEXT / CLOSE) and
-has ``send_str`` and ``close``, and the router is a constructor argument.
-Binding a socket is a later slice of the port (ROADMAP.md). With
+has ``send_str`` and ``close`` (``server/websocket.py``'s socket, which
+``server/app.py`` binds to ``/v1/audio/stream``), and the router is a
+constructor argument. With
 ``OS_BATCHER_ENABLED``, transcriptions that the incremental path does not
 serve go through the shared continuous batcher
 (``runtime/batcher_pool.py``) once the session's language is known.
@@ -30,11 +31,9 @@ from __future__ import annotations
 
 import asyncio
 import concurrent.futures
-import enum
 import json
 import logging
 import uuid
-from dataclasses import dataclass
 
 import numpy as np
 
@@ -57,6 +56,7 @@ from open_speech_tpu_torch.ops.audio import (
 )
 from open_speech_tpu_torch.ops.resample import resample_pcm16
 from open_speech_tpu_torch.runtime.batcher_pool import transcribe_pcm_batched
+from open_speech_tpu_torch.server.websocket import Message, MsgType  # noqa: F401 — Message: callers build messages from here
 
 logger = logging.getLogger(__name__)
 
@@ -83,20 +83,6 @@ _ENCODINGS = {
 
 def _canonical_encoding(name: str) -> str:
     return _ENCODINGS[str(name).lower()]
-
-
-class MsgType(enum.Enum):
-    BINARY = "binary"
-    TEXT = "text"
-    CLOSE = "close"
-
-
-@dataclass
-class Message:
-    """One client message: audio bytes (BINARY), JSON text (TEXT), or CLOSE."""
-
-    type: MsgType
-    data: bytes | str | None = None
 
 
 # Dedicated pool so streaming work can't starve REST requests

@@ -5,10 +5,12 @@ open_speech_tpu.
 importing it (and every submodule, the streaming session, the continuous
 batcher, its pool, batched long-form, int8 quantization, speculative
 decoding, Kokoro's model and converter, the
-vocoder ops, Piper's weight-norm folding, and Kokoro serving (the TTS router,
-backend and batcher, G2P, and the speech handler's body) included) must
-pull in neither ``jax``, ``aiohttp`` nor any module of the JAX package. The check runs in a fresh interpreter, because this test
-process already imported both.
+vocoder ops, Piper's weight-norm folding, Kokoro serving (the TTS router,
+backend and batcher, G2P, and the speech handler's body), and the server
+(the app, its HTTP/multipart/WebSocket shell, errors, middleware, TLS
+bootstrap and ``__main__``) included) must pull in neither ``jax``,
+``aiohttp``, ``pydantic`` nor any module of the JAX package. The check runs
+in a fresh interpreter, because this test process already imported them.
 """
 
 from __future__ import annotations
@@ -33,11 +35,14 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "aiohttp" or m.startswith("aiohttp.")
+             or m == "pydantic" or m.startswith("pydantic.")
              or m == "open_speech_tpu" or m.startswith("open_speech_tpu."))
 want = ("server.streaming", "runtime.batcher", "runtime.batcher_pool", "models.whisper.batched",
         "models.kokoro.model", "models.kokoro.convert", "ops.vocoder", "models.piper.convert",
         "tts.router", "tts.backends.kokoro_backend", "runtime.tts_batcher", "text.g2p",
-        "runtime.speech", "models.whisper.quantize", "models.whisper.speculative")
+        "runtime.speech", "models.whisper.quantize", "models.whisper.speculative",
+        "server.app", "server.http", "server.multipart", "server.websocket", "server.errors",
+        "server.middleware", "server.ssl_utils", "server.__main__")
 print(len(names), ",".join(bad), int(all("open_speech_tpu_torch." + w in names for w in want)))
 """
 
@@ -50,14 +55,14 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
     n_modules, named = int(out[0]), out[-1]
     bad = out[1] if len(out) == 3 else ""
     assert n_modules >= 30, "walk_packages should find every submodule"
-    assert named == "1", ("the streaming session, the batchers, batched long-form and "
-                          "Kokoro's model and serving modules must be among them")
+    assert named == "1", ("the streaming session, the batchers, batched long-form, "
+                          "Kokoro's model and serving modules and the server must be among them")
     assert bad == "", f"port imported: {bad}"
 
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+jaxlib\b|"
-    r"import\s+aiohttp\b|from\s+aiohttp\b|"
+    r"import\s+aiohttp\b|from\s+aiohttp\b|import\s+pydantic\b|from\s+pydantic\b|"
     r"import\s+open_speech_tpu(\.|\s|$)|from\s+open_speech_tpu(\.|\s))",
     re.MULTILINE,
 )
@@ -116,6 +121,7 @@ _COPIES = [
     "text/g2p.py", "text/g2p_langs.py", "text/cjk_lexicon.py", "text/ja_lexicon.py",
     "text/zh_lexicon.py", "text/pronunciation.py", "tts/voices.py",
     "audio/postprocessing.py", "audio/encode.py", "models/kokoro/vocab.json",
+    "server/ssl_utils.py",
 ]
 
 
@@ -126,3 +132,30 @@ def test_copies_equal_their_jax_originals(rel):
     original = (ROOT / "open_speech_tpu" / rel).read_text(encoding="utf-8")
     copy = (PKG / rel).read_text(encoding="utf-8")
     assert copy.replace("open_speech_tpu_torch", "open_speech_tpu") == original
+
+
+# the server's settings: the JAX package's names, env variables and defaults
+_SERVER_SETTINGS = [
+    "os_host", "os_port", "os_api_key", "os_auth_required", "os_cors_origins",
+    "os_ws_allowed_origins", "os_trust_proxy", "os_max_upload_mb", "os_rate_limit",
+    "os_rate_limit_burst", "os_ssl_enabled", "os_ssl_certfile", "os_ssl_keyfile",
+    "stt_preload_models", "tts_preload_models", "stt_diarize_enabled", "stt_noise_reduce",
+    "stt_port", "stt_host", "stt_api_key", "stt_cors_origins", "stt_trust_proxy",
+    "stt_ws_allowed_origins", "stt_max_upload_mb", "stt_rate_limit", "stt_rate_limit_burst",
+    "stt_ssl_enabled", "stt_ssl_certfile", "stt_ssl_keyfile",
+]
+
+
+@pytest.mark.parametrize("name", _SERVER_SETTINGS)
+def test_server_settings_match_the_jax_defaults(name):
+    """Defaults with an empty environment, and a value read from the env
+    variable of the field's name, equal the JAX package's."""
+    from open_speech_tpu.config import Settings as JaxSettings
+    from open_speech_tpu_torch.config import Settings
+
+    assert getattr(Settings({}), name) == getattr(JaxSettings({}), name)
+    field = name if name.startswith("os_") or name.endswith("_models") or name.startswith(
+        ("stt_diarize", "stt_noise")) else "os_" + name[4:]
+    raw = {bool: "true", int: "7", str: "x"}[type(getattr(JaxSettings({}), field))]
+    env = {field.upper(): raw}
+    assert getattr(Settings(env), name) == getattr(JaxSettings(env), name)
