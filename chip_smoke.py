@@ -88,6 +88,26 @@ Phases, each of which raises on failure (exit code 1, no result line):
      open_speech_tpu_torch.server`` with the fixture preloaded on the card:
      the clips' text must equal the CPU's, and SIGTERM must end it with
      exit 0.
+ 12. realtime and Wyoming (``server/realtime/``, ``server/wyoming/``) on
+     phase 4's router and phase 11's kokoro-82M ``TTSRouter`` through
+     ``create_app``: R-a two turns of 5 s 24 kHz PCM16 appends, a commit and
+     a two-sentence response over a ``realtime`` socket (transcript and K1
+     launches equal to ``_run_stt``'s, decoded deltas equal to the direct
+     synthesis' bytes; commit latency, first delta, wall); R-b a
+     ``response.cancel`` after the first delta (deltas after it, time to the
+     cancelled ``response.done``, chunks synthesized); R-c server VAD at
+     ``OS_VAD_DEVICE`` = the card and = the host (one call per append, ms
+     per append) and a language-pinned commit through the continuous
+     batcher (32 K1 per admission); W-a the Wyoming server: describe, a 5 s
+     transcribe (beam 5 with fallback, the VAD on the card) equal to the
+     router called with the handler's arguments, a synthesize equal to the
+     direct bytes; then ``test-tiny-eot`` on the card behind a second app:
+     a realtime commit and a Wyoming transcribe give the CPU's text. Fails
+     on any warning of the realtime or Wyoming modules (a disabled or
+     failed VAD).
+
+Each phase's seconds, and the whole script's, are printed on lines of
+their own.
 
 The last two lines of standard output are the kernels' JSON line and the
 result line ``{"ok": true, "device": {...}}``.
@@ -535,32 +555,46 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 1
-    device = phase_device()
-    phase_build()
-    kernels = phase_kernels()
-    launches, router, seq_rtfx = phase_main()
-    launches["flash_attention"] += phase_rest_batched(router, seq_rtfx)
-    streaming = phase_streaming(router)
+    t_script = time.perf_counter()
+
+    def timed(name: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"phase {name} seconds: {time.perf_counter() - t0:.1f}")
+        return out
+
+    device = timed("1 (device)", phase_device)
+    timed("2 (build)", phase_build)
+    kernels = timed("3 (kernels)", phase_kernels)
+    launches, router, seq_rtfx = timed("4 (REST)", phase_main)
+    launches["flash_attention"] += timed("4b (batched REST)", phase_rest_batched, router, seq_rtfx)
+    streaming = timed("5 (streaming)", phase_streaming, router)
     launches["flash_attention"] += streaming.pop("flash_attention")  # S3's admissions
     launches.update(streaming)
-    phase_fixture()
+    timed("6 (fixture)", phase_fixture)
     from open_speech_tpu_torch.ops import attention as A
 
     before = dict(A.launches)
-    phase_kokoro()
-    phase_kokoro_serving()
+    timed("7 (kokoro)", phase_kokoro)
+    timed("8 (kokoro serving)", phase_kokoro_serving)
     if dict(A.launches) != before:  # Kokoro has no hand kernel on its path
         raise AssertionError(f"kokoro launched the flash kernels: {before} -> {dict(A.launches)}")
     log(f"kokoro serving T-d: flash launch counts unchanged through phases 7 and 8: {before}")
-    phase_int8(router)
-    phase_spec()
-    for key, n in phase_server(router).items():  # 11: the same kernels through the sockets
-        launches[key] = launches.get(key, 0) + n
+    timed("9 (int8)", phase_int8, router)
+    timed("10 (speculative)", phase_spec)
+    tts = timed("11-12 (kokoro load)", load_kokoro)
+    # 11 and 12: the same kernels through the sockets, each counted from 0
+    for phase in (timed("11 (server)", phase_server, router, tts),
+                  timed("12 (realtime and Wyoming)", phase_realtime, router, tts)):
+        for key, n in phase.items():
+            launches[key] = launches.get(key, 0) + n
+    tts.unload_model("kokoro")
     del router
     for entry in kernels:  # K1 from REST (both paths) and S3, K2 and its combine from S1/S2
         entry["launches"] = launches.get(entry["name"], 0)
         if entry["launches"] == 0:
             raise AssertionError(f"{entry['name']} was not launched on its path")
+    log(f"whole script seconds: {time.perf_counter() - t_script:.1f}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"], "count": device["count"]}}))
@@ -2380,7 +2414,7 @@ class _SocketClient:
     frames out, and a reader thread that keeps every server text frame with
     its arrival time and answers the server's close frame."""
 
-    def __init__(self, port: int, path: str) -> None:
+    def __init__(self, port: int, path: str, protocol: str | None = None) -> None:
         import base64
         import hashlib
         import os
@@ -2389,8 +2423,9 @@ class _SocketClient:
 
         self.sock = socket.create_connection(("127.0.0.1", port), timeout=300)
         key = base64.b64encode(os.urandom(16)).decode()
+        offer = f"Sec-WebSocket-Protocol: {protocol}\r\n" if protocol else ""
         self.sock.sendall(f"GET {path} HTTP/1.1\r\nHost: 127.0.0.1:{port}\r\nUpgrade: websocket\r\n"
-                          f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\n"
+                          f"Connection: Upgrade\r\nSec-WebSocket-Key: {key}\r\n{offer}"
                           "Sec-WebSocket-Version: 13\r\n\r\n".encode())
         head = b""
         while not head.endswith(b"\r\n\r\n"):
@@ -2399,8 +2434,12 @@ class _SocketClient:
             key.encode() + b"258EAFA5-E914-47DA-95CA-C5AB0DC85B11").digest()).decode()
         if not head.startswith(b"HTTP/1.1 101 ") or f"Sec-WebSocket-Accept: {accept}".encode() not in head:
             raise AssertionError(f"websocket handshake refused: {head[:200]!r}")
+        if protocol and f"Sec-WebSocket-Protocol: {protocol}\r\n".encode() not in head:
+            raise AssertionError(f"websocket subprotocol {protocol!r} not answered: {head[:300]!r}")
         self.events: list[tuple[float, dict]] = []
+        self.arrived = threading.Condition()  # notified per event and at the close
         self.close_code = None
+        self.closing = False  # our close frame went out
         self.reader = threading.Thread(target=self._read, daemon=True)
         self.reader.start()
 
@@ -2439,34 +2478,62 @@ class _SocketClient:
                 (n,) = struct.unpack("!Q", self._exactly(8))
             payload = self._exactly(n)
             if b0 & 0x0F == 0x1:
-                self.events.append((time.perf_counter(), json.loads(payload)))
+                with self.arrived:
+                    self.events.append((time.perf_counter(), json.loads(payload)))
+                    self.arrived.notify_all()
             elif b0 & 0x0F == 0x8:
-                self.close_code = struct.unpack("!H", payload[:2])[0] if len(payload) >= 2 else 1005
-                self.send(0x8, payload[:2])
+                with self.arrived:
+                    self.close_code = struct.unpack("!H", payload[:2])[0] if len(payload) >= 2 else 1005
+                    self.arrived.notify_all()
+                if not self.closing:
+                    self.send(0x8, payload[:2])
                 self.sock.close()
                 return
+
+    def close(self, code: int = 1000) -> None:
+        """Close from the client's side and wait for the server's reply."""
+        import struct
+
+        self.closing = True
+        self.send(0x8, struct.pack("!H", code))
+        self.reader.join(60)
+        if self.close_code is None:
+            raise AssertionError("websocket: no close frame from the server")
 
     def of_type(self, kind: str) -> list[dict]:
         return [e for _, e in self.events if e["type"] == kind]
 
 
-def phase_server(router) -> dict:
-    """11a: ``create_app`` over phase 4's router and a kokoro-82M TTSRouter,
-    served in this process; 11b: ``python -m open_speech_tpu_torch.server``
-    in a subprocess on the fixture. Returns the flash launches of both."""
+def load_kokoro():
+    """A kokoro-82M ``TTSRouter`` on the card (random weights from seed 7,
+    float32), loaded with its warmup synthesis."""
     import torch
 
-    from open_speech_tpu_torch.ops import attention as A
     from open_speech_tpu_torch.tts.router import TTSRouter
 
-    for key in A.launches:
-        A.launches[key] = 0  # count this phase only
     tts = TTSRouter()  # the card
     t0 = time.perf_counter()
     tts.load_model("kokoro")
     torch.cuda.synchronize()
-    log(f"server 11a: kokoro-82M (random weights from seed 7, float32) loaded with its warmup "
-        f"synthesis in {time.perf_counter() - t0:.3f} s; whisper-large-v3-turbo is phase 4's router")
+    log(f"server: kokoro-82M (random weights from seed 7, float32) loaded with its warmup "
+        f"synthesis in {time.perf_counter() - t0:.3f} s")
+    return tts
+
+
+def phase_server(router, tts=None) -> dict:
+    """11a: ``create_app`` over phase 4's router and a kokoro-82M TTSRouter
+    (``tts``, or one loaded here and unloaded after), served in this
+    process; 11b: ``python -m open_speech_tpu_torch.server`` in a subprocess
+    on the fixture. Returns the flash launches of both."""
+    import torch
+
+    from open_speech_tpu_torch.ops import attention as A
+
+    for key in A.launches:
+        A.launches[key] = 0  # count this phase only
+    own = tts is None
+    if own:
+        tts = load_kokoro()
     entry = router.get_backend(MAIN_MODEL)._ensure_model(MAIN_MODEL)
     real_tok = entry["tok"]
     entry["tok"] = _WordTokenizer(real_tok)  # bodies and events carry the decoded words
@@ -2478,8 +2545,9 @@ def phase_server(router) -> dict:
             _server_stream(router, served.port)
     finally:
         entry["tok"] = real_tok
-        tts.unload_model("kokoro")
-        torch.cuda.empty_cache()
+        if own:
+            tts.unload_model("kokoro")
+            torch.cuda.empty_cache()
     _server_subprocess()
     return dict(A.launches)
 
@@ -2816,6 +2884,505 @@ def _server_subprocess() -> None:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+
+
+# ── phase 12: the realtime socket and Wyoming ────────────────────────────
+
+RT_SECONDS = 5.0  # R-a's and W-a's clips
+RT_VOICE = "af_heart"
+RT_APPEND = 4800  # bytes of 24 kHz PCM16 per append: 100 ms
+RT_CANCEL_TEXT = " ".join([SERVING_TEXT] * 3)  # six sentences: the cancel lands mid-stream
+RT_VAD_DEVICES = ("cuda", "cpu")  # R-c's OS_VAD_DEVICE values: the card, then the host
+COMMIT = {"type": "input_audio_buffer.commit"}
+
+
+class _Warnings:
+    """Records of WARNING and above from the named loggers."""
+
+    def __init__(self, *names: str) -> None:
+        import logging
+
+        class Keep(logging.Handler):
+            def emit(inner, record):
+                self.records.append(record)
+
+        self.records: list = []
+        self.handler, self.names = Keep(logging.WARNING), names
+        for name in names:
+            logging.getLogger(name).addHandler(self.handler)
+
+    def close(self) -> list[str]:
+        import logging
+
+        for name in self.names:
+            logging.getLogger(name).removeHandler(self.handler)
+        return [f"{r.name}: {r.getMessage()}" for r in self.records]
+
+
+def _rt_send(ws: _SocketClient, event: dict) -> float:
+    ws.send(0x1, json.dumps(event).encode())
+    return time.perf_counter()
+
+
+def _rt_wait(ws: _SocketClient, kind: str, start: int, timeout: float = 180.0):
+    """(index, arrival, event) of the first ``kind`` event at or after
+    ``start``; an error event or a close fails. Sleeps until the reader
+    thread notifies: a poll would take the interpreter lock from the decode
+    the wait is timing."""
+    deadline, i = time.perf_counter() + timeout, start
+    with ws.arrived:
+        while True:
+            for i in range(i, len(ws.events)):
+                t, e = ws.events[i]
+                if e["type"] == kind:
+                    return i, t, e
+                if e["type"] == "error":
+                    raise AssertionError(f"realtime: error event {e['error']}")
+            i = len(ws.events)
+            left = deadline - time.perf_counter()
+            if left <= 0 or ws.close_code is not None:
+                raise AssertionError(f"realtime: no {kind} (close {ws.close_code}); events "
+                                     f"{[e['type'] for _, e in ws.events[start:]]}")
+            ws.arrived.wait(left)
+
+
+def _rt_session(port: int, model: str, session: dict) -> _SocketClient:
+    """A ``/v1/realtime`` socket (the ``realtime`` subprotocol) after its
+    ``session.update``."""
+    ws = _SocketClient(port, f"/v1/realtime?model={model}", protocol="realtime")
+    _rt_wait(ws, "session.created", 0)
+    _rt_send(ws, {"type": "session.update", "session": session})
+    _rt_wait(ws, "session.updated", 1)
+    return ws
+
+
+def _rt_appends(ws: _SocketClient, pcm24: bytes) -> int:
+    import base64
+
+    for i in range(0, len(pcm24), RT_APPEND):
+        _rt_send(ws, {"type": "input_audio_buffer.append",
+                      "audio": base64.b64encode(pcm24[i:i + RT_APPEND]).decode()})
+    return -(-len(pcm24) // RT_APPEND)
+
+
+def _rt_buffered(pcm24: bytes) -> bytes:
+    """The 16 kHz PCM the session's buffer holds after ``_rt_appends``:
+    each append is resampled on its own."""
+    from open_speech_tpu_torch.server.realtime.audio_buffer import decode_audio_to_pcm16
+
+    return b"".join(decode_audio_to_pcm16(pcm24[i:i + RT_APPEND], "pcm16", 16000)
+                    for i in range(0, len(pcm24), RT_APPEND))
+
+
+def _rt_deltas(ws: _SocketClient, start: int, end: int) -> tuple[list[float], bytes]:
+    import base64
+
+    deltas = [(t, e) for t, e in ws.events[start:end] if e["type"] == "response.audio.delta"]
+    return [t for t, _ in deltas], b"".join(base64.b64decode(e["delta"]) for _, e in deltas)
+
+
+async def _closed(server) -> None:
+    """Close an asyncio server on its own loop."""
+    server.close()
+    await server.wait_closed()
+
+
+class _WyomingClient:
+    """A minimal Wyoming client on a plain socket: one JSON header line,
+    then the optional data and payload bytes."""
+
+    def __init__(self, port: int) -> None:
+        import socket
+
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=300)
+        self.file = self.sock.makefile("rb")
+
+    def send(self, kind: str, data: dict | None = None, payload: bytes = b"") -> None:
+        head = {"type": kind, "data": data or {}, "payload_length": len(payload) or None}
+        self.sock.sendall(json.dumps(head).encode() + b"\n" + payload)
+
+    def until(self, kind: str) -> list[tuple[str, dict, bytes]]:
+        out = []
+        while not out or out[-1][0] != kind:
+            line = self.file.readline()
+            if not line:
+                raise AssertionError(f"wyoming: connection closed before {kind}")
+            head = json.loads(line)
+            data = head.get("data") or {}
+            if head.get("data_length"):
+                data = {**data, **json.loads(self.file.read(head["data_length"]))}
+            payload = self.file.read(head["payload_length"]) if head.get("payload_length") else b""
+            out.append((head["type"], data, payload))
+        return out
+
+    def close(self) -> None:
+        self.file.close()
+        self.sock.close()
+
+
+def phase_realtime(router, tts) -> dict:
+    """12: ``/v1/realtime`` and the Wyoming server on phase 4's turbo router
+    and phase 11's kokoro-82M ``TTSRouter``, served by ``create_app`` in
+    this process; then the fixture card against the CPU. Returns the flash
+    launches."""
+    import torch
+
+    from open_speech_tpu_torch.ops import attention as A
+
+    for key in A.launches:
+        A.launches[key] = 0  # count this phase only
+    warned = _Warnings("open_speech_tpu_torch.server.realtime.server",
+                       "open_speech_tpu_torch.server.wyoming.server")
+    entry = router.get_backend(MAIN_MODEL)._ensure_model(MAIN_MODEL)
+    real_tok = entry["tok"]
+    entry["tok"] = _WordTokenizer(real_tok)  # transcripts carry the decoded words
+    try:
+        with _Served(router, tts) as served:
+            log(f"realtime 12: create_app serving /v1/realtime and Wyoming on 127.0.0.1:{served.port}")
+            per_chunk = _realtime_turns(router, tts, served.port)
+            _realtime_cancel(tts, served.port, per_chunk)
+            _realtime_vad(router, served.port)
+            _realtime_batcher(router, served)
+            _wyoming_turbo(router, tts, served)
+        _realtime_fixture(tts)
+    finally:
+        entry["tok"] = real_tok
+        torch.cuda.empty_cache()
+        warnings = warned.close()
+    if warnings:  # the VAD fell back or was disabled, or a session failed
+        raise AssertionError(f"realtime 12: warnings logged: {warnings}")
+    return dict(A.launches)
+
+
+def _realtime_turns(router, tts, port: int) -> int:
+    """R-a: two turns (5 s of 24 kHz PCM16 appended in 100 ms events, a
+    commit, a two-sentence response) after the realtime pool's four
+    threads are warmed; against ``_run_stt`` and the direct synthesis.
+    Returns the most deltas one synthesis chunk makes."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from open_speech_tpu_torch.ops import attention as A
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.server.realtime import server as RS
+    from open_speech_tpu_torch.server.realtime.audio_buffer import encode_pcm16_to_format
+
+    barrier = threading.Barrier(4)
+
+    def warm():  # one short synthesis on each of the pool's threads
+        barrier.wait(60)
+        list(tts.synthesize(text="Hello there.", model="kokoro", voice=RT_VOICE, speed=1.0))
+
+    t0 = time.perf_counter()
+    for f in [RS._executor.submit(warm) for _ in range(4)]:
+        f.result(120)
+    warm_s = time.perf_counter() - t0
+    pcm24 = codec.float_to_pcm16(_speechlike(RT_SECONDS * 24000 / SR, 21))
+    pcm16 = _rt_buffered(pcm24)
+    k1 = A.launches["flash_attention"]
+    t0 = time.perf_counter()
+    direct = RS._run_stt(router, pcm16, MAIN_MODEL)
+    torch.cuda.synchronize()
+    direct_s, direct_k1 = time.perf_counter() - t0, A.launches["flash_attention"] - k1
+    t0 = time.perf_counter()  # the same call on a realtime pool thread, as a commit runs it
+    pooled = RS._executor.submit(RS._run_stt, router, pcm16, MAIN_MODEL).result(300)
+    torch.cuda.synchronize()
+    pooled_s = time.perf_counter() - t0
+    if pooled["text"] != direct["text"]:
+        raise AssertionError(f"realtime R-a: pool thread {pooled['text'][:80]!r} vs {direct['text'][:80]!r}")
+    chunks, t0 = [], time.perf_counter()
+    for c in tts.synthesize(text=SERVING_TEXT, model="kokoro", voice=RT_VOICE, speed=1.0):
+        chunks.append(encode_pcm16_to_format(codec.float_to_pcm16(np.asarray(c, np.float32)), 24000, "pcm16"))
+        if len(chunks) == 1:
+            direct_first = time.perf_counter() - t0
+    direct_tts_s, want = time.perf_counter() - t0, b"".join(chunks)
+    per_chunk = max(-(-len(c) // RS._DELTA_BYTES) for c in chunks)
+
+    ws = _rt_session(port, MAIN_MODEL, {"turn_detection": None, "voice": RT_VOICE})
+    lines = []
+    for turn in (1, 2):
+        n = _rt_appends(ws, pcm24)
+        k1 = A.launches["flash_attention"]
+        t_commit = _rt_send(ws, COMMIT)
+        i, t_done, done = _rt_wait(ws, "conversation.item.input_audio_transcription.completed", len(ws.events))
+        served_k1 = A.launches["flash_attention"] - k1
+        if done["transcript"] != direct["text"] or not done["transcript"] or served_k1 != direct_k1:
+            raise AssertionError(f"realtime R-a turn {turn}: transcript {done['transcript'][:80]!r} vs direct "
+                                 f"{direct['text'][:80]!r}, K1 {served_k1} vs {direct_k1}")
+        start = len(ws.events)
+        t_create = _rt_send(ws, {"type": "response.create", "response": {"instructions": SERVING_TEXT}})
+        end, t_end, done = _rt_wait(ws, "response.done", start)
+        times, audio = _rt_deltas(ws, start, end)
+        if done["response"]["status"] != "completed" or audio != want:
+            raise AssertionError(f"realtime R-a turn {turn}: {done['response']['status']}, "
+                                 f"{len(audio)} delta bytes vs {len(want)} direct, equal {audio == want}")
+        lines.append(f"turn {turn}: {n} appends, commit -> transcription.completed "
+                     f"{t_done - t_commit:.4f} s, K1 {served_k1}; response.create -> first "
+                     f"delta {1e3 * (times[0] - t_create):.3f} ms, response wall {t_end - t_create:.4f} s, "
+                     f"{len(times)} deltas")
+    ws.close()
+    log(f"realtime 12 R-a ({RT_SECONDS} s 24 kHz pcm16 in 100 ms appends, turn_detection null, "
+        f"pool warmed in {warm_s:.3f} s): direct _run_stt {direct_s:.4f} s (on a pool thread "
+        f"{pooled_s:.4f} s), K1 {direct_k1}; direct "
+        f"synthesis first chunk {1e3 * direct_first:.3f} ms, wall {direct_tts_s:.4f} s; "
+        + "; ".join(lines) + f"; transcripts = direct, K1 served = direct, decoded deltas == direct "
+        f"bytes ({len(want)} bytes); close code {ws.close_code}")
+    return per_chunk
+
+
+def _realtime_cancel(tts, port: int, per_chunk: int) -> None:
+    """R-b: ``response.cancel`` once the first delta arrived: deltas that
+    arrive after it, the time to ``response.done`` (cancelled), and the
+    chunks the synthesis produced before it stopped."""
+    import threading
+
+    ws = _rt_session(port, MAIN_MODEL, {"turn_detection": None, "voice": RT_VOICE})
+    synthesize, produced, stopped = tts.synthesize, [], threading.Event()
+
+    def traced(*args, **kw):
+        try:
+            for chunk in synthesize(*args, **kw):
+                produced.append(time.perf_counter())
+                yield chunk
+        finally:
+            stopped.set()
+
+    total = sum(1 for _ in synthesize(text=RT_CANCEL_TEXT, model="kokoro", voice=RT_VOICE, speed=1.0))
+    tts.synthesize = traced
+    try:
+        start = len(ws.events)
+        t_create = _rt_send(ws, {"type": "response.create", "response": {"instructions": RT_CANCEL_TEXT}})
+        _, t_first, _ = _rt_wait(ws, "response.audio.delta", start)
+        t_cancel = _rt_send(ws, {"type": "response.cancel"})
+        end, t_done, done = _rt_wait(ws, "response.done", start)
+        if not stopped.wait(60):
+            raise AssertionError("realtime R-b: the synthesis did not stop")
+    finally:
+        del tts.synthesize
+    times, _ = _rt_deltas(ws, start, end)
+    after = sum(t > t_cancel for t in times)
+    if done["response"]["status"] != "cancelled" or after > per_chunk or len(produced) >= total:
+        raise AssertionError(f"realtime R-b: {done['response']['status']}, {after} deltas after the cancel "
+                             f"(one chunk makes up to {per_chunk}), {len(produced)} of {total} chunks produced")
+    ws.close()
+    log(f"realtime 12 R-b cancel: first delta {1e3 * (t_first - t_create):.3f} ms after response.create; "
+        f"cancel sent, then {after} deltas (one chunk makes up to {per_chunk}), response.done cancelled "
+        f"after {1e3 * (t_done - t_cancel):.3f} ms; synthesis produced {len(produced)} of {total} chunks, "
+        f"the last {1e3 * (produced[-1] - t_cancel):+.3f} ms from the cancel")
+
+
+def _realtime_vad(router, port: int) -> None:
+    """R-c: server VAD at ``OS_VAD_DEVICE`` = the card, then the host. The
+    weights are random, so the threshold sits above every probability:
+    the VAD runs once per append and opens no turn."""
+    import statistics
+
+    from open_speech_tpu_torch.config import settings
+    from open_speech_tpu_torch.models.vad import silero as V
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.server.realtime import server as RS
+
+    sessions, initialize, call = [], RS.RealtimeSession.initialize, V.SileroVAD.__call__
+    times: list[float] = []
+
+    async def recorded(self):
+        sessions.append(self)
+        await initialize(self)
+
+    def timed(self, audio):
+        t0 = time.perf_counter()
+        p = call(self, audio)  # ends in a host copy of the probabilities
+        times.append(time.perf_counter() - t0)
+        return p
+
+    pcm24 = codec.float_to_pcm16(_speechlike(RT_SECONDS * 24000 / SR, 22))
+    saved = settings.os_vad_device
+    RS.RealtimeSession.initialize, V.SileroVAD.__call__ = recorded, timed
+    out = []
+    try:
+        for device in RT_VAD_DEVICES:
+            settings.os_vad_device = device
+            ws = _rt_session(port, MAIN_MODEL, {"turn_detection": {
+                "type": "server_vad", "threshold": 0.999, "silence_duration_ms": 500}})
+            times.clear()
+            n = _rt_appends(ws, pcm24)
+            _rt_send(ws, {"type": "input_audio_buffer.clear"})  # answered after every append
+            _rt_wait(ws, "input_audio_buffer.cleared", 2)
+            vad = sessions[-1].audio_buffer._vad
+            if vad is None or vad.calls != n or vad.session.device.type != device or len(times) != n:
+                raise AssertionError(f"realtime R-c VAD at {device}: {vad and vad.calls} calls of {n} appends, "
+                                     f"on {vad and vad.session.device}")
+            if ws.of_type("input_audio_buffer.speech_started"):
+                raise AssertionError(f"realtime R-c VAD at {device}: a turn opened")
+            ws.close()
+            ms = sorted(1e3 * t for t in times)
+            out.append(f"OS_VAD_DEVICE={device}: {vad.calls} calls = appends, on {vad.session.device}, "
+                       f"ms per 100 ms append p50 {statistics.median(ms):.3f} max {ms[-1]:.3f}")
+    finally:
+        settings.os_vad_device = saved
+        RS.RealtimeSession.initialize, V.SileroVAD.__call__ = initialize, call
+    log("realtime 12 R-c server VAD (random weights, threshold 0.999, on the event loop): " + "; ".join(out)
+        + "; no 'disabling server VAD' warning")
+
+
+def _realtime_batcher(router, served) -> None:
+    """R-c: a language-pinned commit (2 s) with ``OS_BATCHER_ENABLED``: one
+    batcher admission, 32 K1 launches (the encoder)."""
+    from open_speech_tpu_torch.config import settings
+    from open_speech_tpu_torch.ops import attention as A
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.runtime import batcher_pool as P
+    from open_speech_tpu_torch.server.realtime import server as RS
+
+    cfg = router.get_backend(MAIN_MODEL)._ensure_model(MAIN_MODEL)["cfg"]
+    real, admissions = RS.transcribe_pcm_batched, []
+
+    async def counted(*args, **kw):
+        admissions.append(args[2])
+        return await real(*args, **kw)
+
+    saved = settings.os_batcher_enabled
+    settings.os_batcher_enabled, RS.transcribe_pcm_batched = True, counted
+    try:
+        ws = _rt_session(served.port, MAIN_MODEL, {
+            "turn_detection": None, "input_audio_transcription": {"model": "whisper-1", "language": "en"}})
+        _rt_appends(ws, codec.float_to_pcm16(_speechlike(2.0 * 24000 / SR, 23)))
+        k1 = A.launches["flash_attention"]
+        t_commit = _rt_send(ws, COMMIT)
+        _, t_done, done = _rt_wait(ws, "conversation.item.input_audio_transcription.completed", 2)
+        n_k1 = A.launches["flash_attention"] - k1
+        ws.close()
+    finally:
+        settings.os_batcher_enabled, RS.transcribe_pcm_batched = saved, real
+        served._run(P.shutdown_batchers())
+    if admissions != ["en"] or n_k1 != cfg.n_audio_layer or not done["transcript"]:
+        raise AssertionError(f"realtime R-c batcher: admissions {admissions}, K1 {n_k1}, "
+                             f"transcript {done['transcript'][:80]!r}")
+    log(f"realtime 12 R-c batcher (language en pinned, 2 s commit): 1 admission, K1 {n_k1} = "
+        f"{cfg.n_audio_layer} per admission; commit -> transcription.completed {t_done - t_commit:.4f} s")
+
+
+def _wyoming_turbo(router, tts, served) -> None:
+    """W-a: the Wyoming server on the same routers: describe, a 5 s 16 kHz
+    transcribe (beam 5 with fallback, the VAD on the card) against the
+    router called directly with the arguments the handler passed, and a
+    two-sentence synthesize against the direct bytes."""
+    import numpy as np
+    import torch
+
+    from open_speech_tpu_torch.audio.postprocessing import process_tts_chunks
+    from open_speech_tpu_torch.config import settings
+    from open_speech_tpu_torch.ops import attention as A
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.ops.resample import resample_pcm16
+    from open_speech_tpu_torch.server.wyoming.server import start_wyoming_server
+
+    server = served._run(start_wyoming_server(router, tts, host="127.0.0.1", port=0))
+    calls, transcribe = [], router.transcribe
+
+    def recorded(**kw):
+        calls.append(kw)
+        return transcribe(**kw)
+
+    router.transcribe = recorded
+    try:
+        client = _WyomingClient(server.sockets[0].getsockname()[1])
+        client.send("describe")
+        ((_, info, _),) = client.until("info")
+        meta = {"rate": SR, "width": 2, "channels": 1}
+        pcm = codec.float_to_pcm16(_speechlike(RT_SECONDS, 24))
+        k1, t0 = A.launches["flash_attention"], time.perf_counter()
+        client.send("transcribe", {"name": MAIN_MODEL})
+        client.send("audio-start", meta)
+        for i in range(0, len(pcm), SR // 10 * 2):
+            client.send("audio-chunk", meta, pcm[i:i + SR // 10 * 2])
+        client.send("audio-stop")
+        (*_, (_, said, _)) = client.until("transcript")
+        served_s, served_k1 = time.perf_counter() - t0, A.launches["flash_attention"] - k1
+        t0 = time.perf_counter()
+        client.send("synthesize", {"text": SERVING_TEXT, "voice": {"name": RT_VOICE}})
+        events = client.until("audio-stop")
+        synth_s = time.perf_counter() - t0
+        client.close()
+    finally:
+        del router.transcribe
+        served._run(_closed(server))
+    (kw,) = calls
+    gated = codec.read_wav(kw["audio"])[0].size
+    k1, t0 = A.launches["flash_attention"], time.perf_counter()
+    direct = transcribe(**kw)
+    torch.cuda.synchronize()
+    direct_s, direct_k1 = time.perf_counter() - t0, A.launches["flash_attention"] - k1
+    if said["text"] != direct["text"] or not said["text"] or served_k1 != direct_k1:
+        raise AssertionError(f"wyoming W-a: transcript {said['text'][:80]!r} vs direct {direct['text'][:80]!r}, "
+                             f"K1 {served_k1} vs {direct_k1}")
+    backend = tts.get_backend("kokoro")
+    audio = np.concatenate(list(process_tts_chunks(
+        tts.synthesize(text=SERVING_TEXT, model="kokoro", voice=RT_VOICE, speed=1.0),
+        trim=settings.tts_trim_silence, normalize=settings.tts_normalize_output)))
+    want = resample_pcm16(codec.float_to_pcm16(audio), 24000, 16000, backend.device)
+    got = b"".join(p for kind, _, p in events if kind == "audio-chunk")
+    if [e[0] for e in events[:1] + events[-1:]] != ["audio-start", "audio-stop"] or got != want:
+        raise AssertionError(f"wyoming W-a synthesize: {len(got)} bytes vs {len(want)} direct, equal {got == want}")
+    log(f"wyoming 12 W-a: info lists {len(info['asr'][0]['models'])} asr models and "
+        f"{len(info['tts'][0]['voices'])} voices; transcribe ({RT_SECONDS} s 16 kHz, beam 5 with fallback, "
+        f"VAD on the card kept {gated / SR:.3f} s) wall {served_s:.4f} s vs direct router call "
+        f"{direct_s:.4f} s, K1 {served_k1} = direct, text equal; synthesize (two sentences) wall "
+        f"{synth_s:.4f} s, {len(events) - 2} chunks, {len(got)} bytes == direct")
+
+
+def _realtime_fixture(tts) -> None:
+    """W-b / R-d: ``test-tiny-eot`` (float32) on the card behind a second
+    app: a realtime commit and a Wyoming transcribe of the fixture's beeps
+    give the CPU's text."""
+    import numpy as np
+
+    from open_speech_tpu_torch.config import settings
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.runtime.router import BackendRouter
+    from open_speech_tpu_torch.server.realtime import server as RS
+    from open_speech_tpu_torch.server.wyoming.server import start_wyoming_server
+    from pathlib import Path
+
+    model_id = "test-tiny-eot"
+    settings.stt_model_dir = str(Path(__file__).resolve().parent / "tests" / "fixtures")
+    card, host = BackendRouter(compute_type="float32"), BackendRouter(device="cpu", compute_type="float32")
+    for r in (card, host):
+        r.load_model(model_id)
+    clip = codec.float_to_pcm16(_beeps(3, np.random.default_rng(11)))
+    pcm24 = codec.linear_resample_pcm16(clip, SR, 24000)
+    want_rt = RS._run_stt(host, _rt_buffered(pcm24), model_id)["text"]
+    texts = {}
+    with _Served(card, tts) as served:
+        ws = _rt_session(served.port, model_id, {"turn_detection": None})
+        _rt_appends(ws, pcm24)
+        _rt_send(ws, COMMIT)
+        _, _, done = _rt_wait(ws, "conversation.item.input_audio_transcription.completed", 2)
+        ws.close()
+        meta = {"rate": SR, "width": 2, "channels": 1}
+        saved, settings.stt_vad_enabled = settings.stt_vad_enabled, False  # random VAD weights sit at 0.5
+        try:
+            for name, r in (("card", card), ("cpu", host)):
+                server = served._run(start_wyoming_server(r, tts, host="127.0.0.1", port=0))
+                try:
+                    client = _WyomingClient(server.sockets[0].getsockname()[1])
+                    client.send("transcribe", {"name": model_id})
+                    client.send("audio-chunk", meta, clip)
+                    client.send("audio-stop")
+                    texts[name] = client.until("transcript")[-1][1]["text"]
+                    client.close()
+                finally:
+                    served._run(_closed(server))
+        finally:
+            settings.stt_vad_enabled = saved
+    if done["transcript"] != want_rt or not want_rt or texts["card"] != texts["cpu"] or not texts["cpu"]:
+        raise AssertionError(f"realtime 12 fixture: realtime {done['transcript']!r} vs cpu {want_rt!r}; "
+                             f"wyoming card {texts['card']!r} vs cpu {texts['cpu']!r}")
+    log(f"realtime 12 fixture ({model_id}, float32): realtime commit text {want_rt!r} = CPU; Wyoming "
+        f"transcribe (VAD off) text {texts['cpu']!r} = CPU")
+
 
 if __name__ == "__main__":
     sys.exit(main())

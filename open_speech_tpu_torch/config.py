@@ -5,8 +5,11 @@ upper-case environment variables, the same parsing and the same alias
 properties, for the fields the REST transcription path (batched long-form,
 int8 compute and speculative decoding included), the streaming session,
 the continuous batcher, Kokoro serving (``POST /v1/audio/speech``'s
-body, the backend and the TTS batcher) and the HTTP server (``server/``:
-binding, TLS, auth, CORS, rate limits, upload size, preloads) read. ``stt_device`` defaults to ``cuda``; ``tts_device`` defaults to
+body, the backend and the TTS batcher), the HTTP server (``server/``:
+binding, TLS, auth, CORS, rate limits, upload size, preloads), the
+realtime socket and the Wyoming server read. ``os_vad_device``
+(``OS_VAD_DEVICE``, which the JAX package reads from the environment
+directly) names the VAD's device; its default is the STT device. ``stt_device`` defaults to ``cuda``; ``tts_device`` defaults to
 ``stt_device``.
 """
 
@@ -50,6 +53,11 @@ _DEFAULTS: dict[str, object] = {
     "os_stream_max_connections": 10,
     "stt_vad_enabled": True,
     "stt_vad_threshold": 0.5,
+    # Wyoming's speech-segment extraction
+    "stt_vad_min_speech_ms": 250,
+    "stt_vad_silence_ms": 800,
+    # the VAD's device: "default" is the STT device; "cpu" or any torch device
+    "os_vad_device": "default",
     # interims over the O(n) block-causal incremental encoder
     "os_stream_incremental": True,
     # the continuous slot-pool batcher behind streaming sessions
@@ -61,6 +69,14 @@ _DEFAULTS: dict[str, object] = {
     # batched long-form REST: chunks of one window, decoded as a batch
     "os_stt_batched_longform": False,
     "os_stt_batch_windows": 16,
+    # the Wyoming TCP server (Home Assistant), started with the app
+    "os_wyoming_enabled": False,
+    "os_wyoming_host": "127.0.0.1",
+    "os_wyoming_port": 10400,
+    # the OpenAI Realtime socket, /v1/realtime
+    "os_realtime_enabled": True,
+    "os_realtime_max_buffer_mb": 50,
+    "os_realtime_idle_timeout_s": 120,
     # speculative decoding: the draft model's id ("" = off) and the tokens
     # it proposes per verify pass (batch-1 temperature-0 greedy REST decodes)
     "os_spec_draft_model": "",

@@ -18,7 +18,11 @@ go through cuDNN in TF32). ``vad_scan`` runs the front-end of all of a
 chunk's windows as one batch (the windows are independent) and threads
 the recurrent state through them; it runs exactly the windows it is given.
 
-The model lives on the device its caller names: ``get_vad_model(device)``.
+The model lives on the device ``vad_device`` resolves: ``OS_VAD_DEVICE``
+when it names one (``cpu``, or any torch device), else the STT device the
+caller passes (the card by default). The JAX package's default is the host
+CPU, and it falls back to its default device when the one asked for is
+missing; here a device that is not there raises.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from open_speech_tpu_torch.config import settings
 
 logger = logging.getLogger(__name__)
 
@@ -373,15 +379,33 @@ def _find_vad_checkpoint() -> Path | None:
     return None
 
 
-def get_vad_model(device: torch.device | str) -> SileroVAD:
-    """The shared VAD on ``device`` (one per device).
+def vad_device(stt_device: torch.device | str | None = None) -> torch.device:
+    """The VAD's device: ``OS_VAD_DEVICE`` unless it is unset or
+    ``default``, else ``stt_device`` (the settings' STT device when not
+    given). Raises ``RuntimeError`` if that device is not there."""
+    want = (settings.os_vad_device or "").strip()
+    name = (stt_device or settings.stt_device) if want in ("", "default") else want
+    try:
+        device = torch.device(name)
+        if device.type == "cuda" and (device.index or 0) >= torch.cuda.device_count():
+            raise RuntimeError(f"{torch.cuda.device_count()} CUDA device(s) visible")
+        torch.empty(0, device=device)
+    except (RuntimeError, AssertionError) as e:  # torch without CUDA asserts
+        raise RuntimeError(
+            f"VAD device {str(name)!r} is not available (OS_VAD_DEVICE={want!r}): {e}") from e
+    return device
+
+
+def get_vad_model(stt_device: torch.device | str | None = None) -> SileroVAD:
+    """The shared VAD on ``vad_device(stt_device)`` (one per device).
 
     Loads converted silero weights when a checkpoint is on disk; otherwise
     random weights with a warning, so the serving stack stays functional
     for shape and flow testing. Runs one scan so the first chunk pays no
     start-up.
     """
-    key = str(torch.device(device))
+    device = vad_device(stt_device)
+    key = str(device)
     with _vad_lock:
         vad = _vad_models.get(key)
         if vad is not None:

@@ -1,8 +1,8 @@
 """Host-side PCM/WAV and G.711 codecs (numpy only).
 
-Copy of the WAV, PCM16 and G.711 parts of ``open_speech_tpu/ops/audio.py``,
-without the optional native-library path: the bytes in and out are the
-same.
+Copy of the WAV, PCM16, G.711 and linear-resampler parts of
+``open_speech_tpu/ops/audio.py``, without the optional native-library path:
+the bytes in and out are the same.
 """
 
 from __future__ import annotations
@@ -262,3 +262,18 @@ def alaw_decode(codes: bytes | np.ndarray) -> np.ndarray:
 def alaw_encode(pcm: np.ndarray) -> np.ndarray:
     ints = np.clip(pcm.astype(np.int32), -32768, 32767) + 32768
     return _ALAW_ENCODE[ints]
+
+
+def linear_resample_pcm16(pcm: bytes, src_rate: int, dst_rate: int) -> bytes:
+    """Linear-interpolation resample of int16 PCM bytes on the host: the
+    realtime socket's format conversion (the device path is
+    ``ops/resample.py:resample_pcm16``)."""
+    if src_rate == dst_rate:
+        return bytes(pcm)
+    x = np.frombuffer(pcm, dtype="<i2").astype(np.float32)
+    if x.size == 0:
+        return b""
+    n_out = max(1, int(round(x.size * dst_rate / src_rate)))
+    src_pos = np.linspace(0.0, x.size - 1, n_out)
+    out = np.interp(src_pos, np.arange(x.size), x)
+    return np.clip(np.round(out), -32768, 32767).astype("<i2").tobytes()

@@ -7,6 +7,7 @@ machine has no aiohttp and no pydantic):
 - ``POST /v1/audio/transcriptions`` and ``/v1/audio/translations``;
 - ``GET /v1/models``, ``GET /v1/models/{model}`` and ``GET /health``;
 - ``GET /v1/audio/stream``, the streaming session's WebSocket;
+- ``GET /v1/realtime``, the OpenAI Realtime socket (``server/realtime/``);
 - ``POST /v1/audio/speech``, whole or with ``?stream=true`` in chunked
   transfer whose headers wait for the first chunk.
 
@@ -15,7 +16,9 @@ messages and content types. Model calls, an upload's ingest, and each pull
 of a speech stream run in the loop's executor, so a transcription never
 blocks the loop that answers ``/health`` or a socket. The routers are the
 app's (``create_app(stt_router=, tts_router=)``; by default new ones on
-the settings' devices, the card unless the settings say ``cpu``).
+the settings' devices, the card unless the settings say ``cpu``). With
+``OS_WYOMING_ENABLED`` the startup also opens the Wyoming TCP server
+(``server/wyoming/``) on the same routers, and the cleanup closes it.
 
 Left out, each an item of ``ROADMAP.md``: every other route of the JAX app
 (an unknown path answers 404), history logging and metrics, and
@@ -57,6 +60,7 @@ from open_speech_tpu_torch.server.middleware import (
     verify_ws_api_key,
     verify_ws_origin,
 )
+from open_speech_tpu_torch.server.realtime.server import realtime_endpoint
 from open_speech_tpu_torch.server.streaming import streaming_endpoint
 from open_speech_tpu_torch.server.websocket import WebSocketResponse
 from open_speech_tpu_torch.tts.router import TTSRouter
@@ -273,6 +277,32 @@ async def ws_stream(request: Request):
     return ws
 
 
+# ── the realtime WebSocket ─────────────────────────────────────────────
+
+
+async def ws_realtime(request: Request):
+    if request.headers.get("upgrade", "").lower() != "websocket":
+        raise ApiError(426, "/v1/realtime is a WebSocket endpoint")
+    if not settings.os_realtime_enabled:
+        ws = WebSocketResponse()
+        await ws.prepare(request)
+        await ws.close(code=4004, message=b"Realtime API is disabled")
+        return ws
+    ws = WebSocketResponse(protocols=("realtime",))
+    await ws.prepare(request)
+    if not verify_ws_origin(request):
+        await ws.close(code=1008, message=b"Origin not allowed")
+        return ws
+    if not verify_ws_api_key(request):
+        await ws.close(code=4001, message=b"Invalid or missing API key")
+        return ws
+    await realtime_endpoint(
+        ws, request.app["stt_router"], request.app["tts_router"],
+        model=request.query.get("model") or "",
+    )
+    return ws
+
+
 # ── TTS ────────────────────────────────────────────────────────────────
 
 
@@ -328,6 +358,13 @@ def _model_ids(raw: str) -> list[str]:
 async def _on_startup(app: Application) -> None:
     if settings.os_api_key == "" and settings.os_auth_required:
         raise RuntimeError("OS_AUTH_REQUIRED=true but OS_API_KEY is not set")
+    if settings.os_wyoming_enabled:
+        from open_speech_tpu_torch.server.wyoming.server import start_wyoming_server
+
+        app["wyoming"] = await start_wyoming_server(
+            app["stt_router"], app["tts_router"],
+            host=settings.os_wyoming_host, port=settings.os_wyoming_port,
+        )
     for model_id in _model_ids(settings.stt_preload_models):
         try:
             await _in_executor(app["stt_router"].load_model, model_id)
@@ -342,6 +379,8 @@ async def _on_startup(app: Application) -> None:
 
 
 async def _on_cleanup(app: Application) -> None:
+    if app.get("wyoming") is not None:
+        app["wyoming"].close()
     # continuous batchers stop last: fails in-flight futures cleanly
     # instead of abandoning their tasks at loop teardown
     await shutdown_batchers()
@@ -364,6 +403,7 @@ def create_app(stt_router: BackendRouter | None = None,
     r.add_get("/v1/models/{model:.+}", get_model)
     r.add_get("/health", health)
     r.add_get("/v1/audio/stream", ws_stream)
+    r.add_get("/v1/realtime", ws_realtime)
     r.add_post("/v1/audio/speech", synthesize_speech)
     app.on_startup.append(_on_startup)
     app.on_cleanup.append(_on_cleanup)

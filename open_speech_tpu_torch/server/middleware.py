@@ -30,7 +30,7 @@ AUTH_EXEMPT_PATHS = frozenset(
 )
 
 
-WS_PATHS = frozenset({"/v1/audio/stream"})  # check their own key and origin
+WS_PATHS = frozenset({"/v1/audio/stream", "/v1/realtime"})  # check their own key and origin
 
 
 def _is_auth_exempt(path: str) -> bool:

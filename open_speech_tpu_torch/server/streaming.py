@@ -217,7 +217,8 @@ class StreamingSession:
         return self.language or self._detected_language
 
     def _device(self):
-        """The device the model runs on: resampling and VAD run there too."""
+        """The device the model runs on: resampling runs there, and the VAD
+        unless ``OS_VAD_DEVICE`` names another (``get_vad_model``)."""
         backend = self.router.get_backend(self.model)
         return getattr(backend, "device", None) or settings.stt_device
 

@@ -12,6 +12,13 @@ unmasked client frame or any other protocol fault with 1002, each with an
 empty reason as aiohttp sends them. A client's close is answered with
 1000, as aiohttp answers it. ``close`` waits up to ``timeout`` for the
 client's close frame, reading and dropping what arrives before it.
+
+``receive(timeout=)`` raises ``asyncio.TimeoutError`` when no whole message
+arrived in time, as aiohttp's does, and leaves the socket usable: the read
+in progress goes on, and the next ``receive`` (or ``close``) takes what it
+reads, so a frame half read at the timeout is not lost. ``protocols=``
+lists the subprotocols the server speaks: the handshake answers the first
+one the client offers that is listed, and names none otherwise.
 """
 
 from __future__ import annotations
@@ -109,9 +116,22 @@ def _check_handshake(request: Request) -> str:
     return key
 
 
+def _choose_protocol(request: Request, protocols: tuple[str, ...]) -> str | None:
+    """The first subprotocol the client offers that the server lists."""
+    offered = request.headers.get("sec-websocket-protocol", "")
+    for proto in (p.strip() for p in offered.split(",")):
+        if proto and proto in protocols:
+            return proto
+    return None
+
+
 class WebSocketResponse:
-    def __init__(self, *, max_msg_size: int = MAX_MSG_SIZE, timeout: float = 10.0) -> None:
+    def __init__(self, *, max_msg_size: int = MAX_MSG_SIZE, timeout: float = 10.0,
+                 protocols: tuple[str, ...] = ()) -> None:
         self.max_msg_size, self.timeout = max_msg_size, timeout
+        self.protocols = tuple(protocols)
+        self.ws_protocol: str | None = None
+        self._pending: asyncio.Task | None = None  # a receive cut by its timeout
         self._reader: asyncio.StreamReader | None = None
         self._writer: asyncio.StreamWriter | None = None
         self._closing = False  # our close frame went out
@@ -125,11 +145,14 @@ class WebSocketResponse:
 
     async def prepare(self, request: Request) -> None:
         key = _check_handshake(request)
+        self.ws_protocol = _choose_protocol(request, self.protocols)
         self._reader, self._writer = request._reader, request._writer
         request.started, request.upgraded = True, self
+        proto = b"" if self.ws_protocol is None else (
+            b"Sec-WebSocket-Protocol: " + self.ws_protocol.encode("ascii") + b"\r\n")
         self._writer.write(
             b"HTTP/1.1 101 Switching Protocols\r\nUpgrade: websocket\r\nConnection: upgrade\r\n"
-            b"Sec-WebSocket-Accept: " + accept_key(key).encode("ascii") + b"\r\n\r\n")
+            b"Sec-WebSocket-Accept: " + accept_key(key).encode("ascii") + b"\r\n" + proto + b"\r\n")
         await self._writer.drain()
 
     # ── sending ───────────────────────────────────────────────────────
@@ -171,7 +194,12 @@ class WebSocketResponse:
             self._writer.close()
 
     async def _drain(self, skip: int) -> None:
-        """Read and drop frames until the client's close frame."""
+        """Read and drop frames until the client's close frame; a receive
+        cut by its timeout finishes its message first."""
+        pending, self._pending = self._pending, None
+        if pending is not None and pending is not asyncio.current_task():
+            if (await pending).type == MsgType.CLOSE:
+                return
         while True:
             while skip:
                 skip -= len(await self._reader.readexactly(min(skip, 1 << 16)))
@@ -213,7 +241,21 @@ class WebSocketResponse:
         mask = await self._reader.readexactly(4)
         return fin, opcode, unmask(await self._reader.readexactly(n), mask)
 
-    async def receive(self) -> Message:
+    async def receive(self, timeout: float | None = None) -> Message:
+        """The next whole message; ``asyncio.TimeoutError`` if none arrived
+        within ``timeout`` seconds (the read goes on for the next call)."""
+        if self._pending is None:
+            if self.closed:
+                return Message(MsgType.CLOSE, self.close_code)
+            self._pending = asyncio.ensure_future(self._receive())
+        pending = self._pending
+        try:
+            return await asyncio.wait_for(asyncio.shield(pending), timeout)
+        finally:
+            if pending.done() and self._pending is pending:
+                self._pending = None
+
+    async def _receive(self) -> Message:
         if self.closed:
             return Message(MsgType.CLOSE, self.close_code)
         parts: list[bytes] = []
@@ -270,6 +312,10 @@ class WebSocketResponse:
             if code not in _VALID_CLOSE and not 3000 <= code <= 4999 and code != 1007:
                 code = 1002
         reply = code if code in (1002, 1007) else 1000
+        if self._closing:  # the reply to our own close frame
+            self._closed = True
+            self._writer.close()
+            return Message(MsgType.CLOSE, code)
         self.close_code = code
         self._closing = True
         try:

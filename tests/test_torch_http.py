@@ -20,7 +20,9 @@ transfer encodings), a gzip or deflate part that inflates past the limit
 WebSocket: frames fed to ``WebSocketResponse`` through an in-memory stream
 (masking, fragmentation with a ping inside, close codes, the size limit,
 UTF-8, protocol faults), hypothesis round trips of random messages cut
-into random fragments, and one handshake on a real socket.
+into random fragments, a ``receive(timeout=)`` that expires while a frame
+is half sent (the stream stays intact), one handshake on a real socket, and
+the subprotocol answered as aiohttp answers it.
 
 G.711: ``read_wav`` of A-law and mu-law WAVs equals the JAX package's, and
 ``convert_to_wav`` of them too; ingest passes non-WAV bytes through
@@ -622,6 +624,83 @@ def test_handshake_on_a_real_socket():
     assert b"Sec-WebSocket-Accept: s3pPLMBiTxaQ9kYGzzhZRbK+xOo=\r\n" in head
     assert frames == [(True, W.OP_TEXT, b"ABC"), (True, W.OP_CLOSE, struct.pack("!H", 1000))]
     assert status == 400 and json.loads(body)["error"]["message"] == "Bad Request"
+
+
+def test_receive_timeout_mid_frame_keeps_the_stream_intact():
+    """A timeout while a frame is half sent raises ``asyncio.TimeoutError``
+    (as aiohttp's ``receive(timeout=)``); the rest of that frame and the
+    next message are then read intact, and ``close`` takes over a read
+    still in progress."""
+    async def main():
+        reader = asyncio.StreamReader()
+        ws = W.WebSocketResponse(timeout=2)
+        ws._reader, ws._writer = reader, _Writer()
+        first = _client(W.OP_TEXT, b"x" * 300)
+        with pytest.raises(asyncio.TimeoutError):
+            await ws.receive(timeout=0.05)  # nothing sent yet
+        reader.feed_data(first[:5])
+        with pytest.raises(asyncio.TimeoutError):
+            await ws.receive(timeout=0.05)  # the header and one mask byte
+        reader.feed_data(first[5:150])
+        with pytest.raises(asyncio.TimeoutError):
+            await ws.receive(timeout=0.05)  # half the payload
+        reader.feed_data(first[150:] + _client(W.OP_BINARY, b"\x01\x02", fin=False))
+        got = [await ws.receive(timeout=1)]
+        with pytest.raises(asyncio.TimeoutError):
+            await ws.receive(timeout=0.05)  # a fragment of the next message
+        reader.feed_data(_client(W.OP_CONT, b"\x03"))
+        got.append(await ws.receive(timeout=1))
+        late = _client(W.OP_TEXT, b"late")
+        reader.feed_data(late[:4])
+        with pytest.raises(asyncio.TimeoutError):
+            await ws.receive(timeout=0.05)
+        closing = asyncio.ensure_future(ws.close(code=4008, message=b"Session idle timeout"))
+        await asyncio.sleep(0.05)
+        reader.feed_data(late[4:] + _client(W.OP_CLOSE, struct.pack("!H", 4008)))
+        assert await asyncio.wait_for(closing, 2)
+        return got, _frames(ws._writer.data), ws
+
+    got, frames, ws = asyncio.run(asyncio.wait_for(main(), 30))
+    assert [(m.type, m.data) for m in got] == [(W.MsgType.TEXT, "x" * 300), (W.MsgType.BINARY, b"\x01\x02\x03")]
+    assert frames == [(True, W.OP_CLOSE, struct.pack("!H", 4008) + b"Session idle timeout")]
+    assert ws.closed and ws._writer.closed and ws._pending is None
+
+
+@pytest.mark.parametrize("offered,answered", [
+    ("realtime", "realtime"),
+    ("chat, realtime", "realtime"),
+    ("realtime,other", "realtime"),
+    ("other", None),
+    (None, None),
+], ids=["offered", "second-offered", "first-of-two", "unoffered", "none-offered"])
+def test_subprotocol_is_answered_as_aiohttp_answers_it(offered, answered):
+    """The first offered subprotocol that the server lists is named in the
+    101; none is named when the client offers none the server lists."""
+    async def handler(request):
+        ws = W.WebSocketResponse(protocols=("realtime",))
+        await ws.prepare(request)
+        await ws.send_str(str(ws.ws_protocol))
+        async for _ in ws:
+            pass
+        return ws
+
+    async def main():
+        app = Application(middlewares=[error_middleware])
+        app.router.add_get("/ws", handler)
+        async with _connection(app) as (reader, writer):
+            proto = b"" if offered is None else b"Sec-WebSocket-Protocol: " + offered.encode() + b"\r\n"
+            writer.write(b"GET /ws HTTP/1.1\r\nUpgrade: websocket\r\nConnection: Upgrade\r\n"
+                         b"Sec-WebSocket-Key: dGhlIHNhbXBsZSBub25jZQ==\r\nSec-WebSocket-Version: 13\r\n"
+                         + proto + b"\r\n")
+            head = await reader.readuntil(b"\r\n\r\n")
+            writer.write(_client(W.OP_CLOSE, struct.pack("!H", 1000)))
+            return head, _frames(await asyncio.wait_for(reader.read(), 10))
+
+    head, frames = _run(main())
+    assert head.startswith(b"HTTP/1.1 101 Switching Protocols\r\n")
+    named = [line for line in head.split(b"\r\n") if line.lower().startswith(b"sec-websocket-protocol:")]
+    assert named == ([] if answered is None else [b"Sec-WebSocket-Protocol: " + answered.encode()])
+    assert frames[0] == (True, W.OP_TEXT, str(answered).encode())
 
 
 # ── G.711 inside WAV, ingest ───────────────────────────────────────────

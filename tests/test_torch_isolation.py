@@ -8,7 +8,8 @@ decoding, Kokoro's model and converter, the
 vocoder ops, Piper's weight-norm folding, Kokoro serving (the TTS router,
 backend and batcher, G2P, and the speech handler's body), and the server
 (the app, its HTTP/multipart/WebSocket shell, errors, middleware, TLS
-bootstrap and ``__main__``) included) must pull in neither ``jax``,
+bootstrap and ``__main__``), the realtime socket, the Wyoming server and
+the model catalog included) must pull in neither ``jax``,
 ``aiohttp``, ``pydantic`` nor any module of the JAX package. The check runs
 in a fresh interpreter, because this test process already imported them.
 """
@@ -42,7 +43,10 @@ want = ("server.streaming", "runtime.batcher", "runtime.batcher_pool", "models.w
         "tts.router", "tts.backends.kokoro_backend", "runtime.tts_batcher", "text.g2p",
         "runtime.speech", "models.whisper.quantize", "models.whisper.speculative",
         "server.app", "server.http", "server.multipart", "server.websocket", "server.errors",
-        "server.middleware", "server.ssl_utils", "server.__main__")
+        "server.middleware", "server.ssl_utils", "server.__main__", "server.realtime",
+        "server.realtime.server", "server.realtime.events", "server.realtime.session",
+        "server.realtime.audio_buffer", "server.wyoming", "server.wyoming.server",
+        "server.wyoming.protocol", "runtime.registry")
 print(len(names), ",".join(bad), int(all("open_speech_tpu_torch." + w in names for w in want)))
 """
 
@@ -56,7 +60,8 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
     bad = out[1] if len(out) == 3 else ""
     assert n_modules >= 30, "walk_packages should find every submodule"
     assert named == "1", ("the streaming session, the batchers, batched long-form, "
-                          "Kokoro's model and serving modules and the server must be among them")
+                          "Kokoro's model and serving modules, the server, the realtime socket "
+                          "and Wyoming must be among them")
     assert bad == "", f"port imported: {bad}"
 
 
@@ -121,7 +126,9 @@ _COPIES = [
     "text/g2p.py", "text/g2p_langs.py", "text/cjk_lexicon.py", "text/ja_lexicon.py",
     "text/zh_lexicon.py", "text/pronunciation.py", "tts/voices.py",
     "audio/postprocessing.py", "audio/encode.py", "models/kokoro/vocab.json",
-    "server/ssl_utils.py",
+    "server/ssl_utils.py", "server/realtime/__init__.py", "server/realtime/events.py",
+    "server/realtime/session.py", "server/realtime/audio_buffer.py", "server/wyoming/__init__.py",
+    "server/wyoming/protocol.py", "runtime/registry.py",
 ]
 
 
@@ -143,6 +150,9 @@ _SERVER_SETTINGS = [
     "stt_port", "stt_host", "stt_api_key", "stt_cors_origins", "stt_trust_proxy",
     "stt_ws_allowed_origins", "stt_max_upload_mb", "stt_rate_limit", "stt_rate_limit_burst",
     "stt_ssl_enabled", "stt_ssl_certfile", "stt_ssl_keyfile",
+    "os_realtime_enabled", "os_realtime_max_buffer_mb", "os_realtime_idle_timeout_s",
+    "os_wyoming_enabled", "os_wyoming_host", "os_wyoming_port",
+    "stt_vad_min_speech_ms", "stt_vad_silence_ms",
 ]
 
 
@@ -155,7 +165,7 @@ def test_server_settings_match_the_jax_defaults(name):
 
     assert getattr(Settings({}), name) == getattr(JaxSettings({}), name)
     field = name if name.startswith("os_") or name.endswith("_models") or name.startswith(
-        ("stt_diarize", "stt_noise")) else "os_" + name[4:]
+        ("stt_diarize", "stt_noise", "stt_vad")) else "os_" + name[4:]
     raw = {bool: "true", int: "7", str: "x"}[type(getattr(JaxSettings({}), field))]
     env = {field.upper(): raw}
     assert getattr(Settings(env), name) == getattr(JaxSettings(env), name)

@@ -158,3 +158,38 @@ def test_get_vad_model_takes_its_device_from_the_caller(monkeypatch, tmp_path):
     loaded = TS.get_vad_model("cpu")
     want = TS.convert_silero(tmp_path / "v.onnx")
     assert torch.equal(loaded.session.lstm_wi, want.lstm_wi)
+
+
+@pytest.mark.parametrize("setting,stt_device,want", [
+    ("default", "cpu", "cpu"),  # unset: the STT device
+    ("", "cpu", "cpu"),
+    ("cpu", "cuda", "cpu"),  # asked for the host: the host, whatever the STT device
+    ("cpu", None, "cpu"),
+])
+def test_vad_device_follows_os_vad_device(monkeypatch, setting, stt_device, want):
+    from open_speech_tpu_torch.config import Settings, settings
+
+    assert Settings({}).os_vad_device == "default"
+    assert Settings({"OS_VAD_DEVICE": "cpu"}).os_vad_device == "cpu"
+    monkeypatch.setattr(settings, "os_vad_device", setting)
+    monkeypatch.setattr(settings, "stt_device", "cpu")
+    assert TS.vad_device(stt_device) == torch.device(want)
+
+
+@pytest.mark.parametrize("setting,stt_device", [
+    ("cuda:7", "cpu"),  # a card that is not there
+    ("nope", "cpu"),  # no such device type
+    ("default", "cuda"),  # the STT device is the card, and there is none: no fallback to the host
+    ("cuda", "cpu"),
+])
+def test_an_absent_vad_device_raises(monkeypatch, tmp_path, setting, stt_device):
+    from open_speech_tpu_torch.config import settings
+
+    if torch.cuda.device_count() > 7 or (torch.cuda.is_available() and "nope" not in setting + stt_device):
+        pytest.skip("this host has the device; the check is for hosts without it")
+    monkeypatch.setattr(settings, "os_vad_device", setting)
+    monkeypatch.setattr(TS, "_vad_models", {})
+    monkeypatch.setenv("HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="is not available"):
+        TS.get_vad_model(stt_device)
+    assert TS._vad_models == {}
