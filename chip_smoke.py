@@ -105,6 +105,22 @@ Phases, each of which raises on failure (exit code 1, no result line):
      a realtime commit and a Wyoming transcribe give the CPU's text. Fails
      on any warning of the realtime or Wyoming modules (a disabled or
      failed VAD).
+ 13. model management (``runtime/model_manager.py``, ``runtime/lifecycle.py``,
+     ``server/metrics.py`` behind ``create_app``) over a fresh bf16 turbo
+     ``BackendRouter`` on the card and phase 11's ``TTSRouter``: 13a ``POST
+     /api/models/{turbo}/load`` (loaded on cuda:0 by torch-whisper; K1
+     launches equal to a direct ``load_model``'s; status, progress,
+     ``/api/ps``; walls and resident bytes); 13b request a through the
+     route: ``/metrics`` counts it, the recorded RTFx agrees with the
+     client's within the HTTP overhead, a speech request adds a TTFA;
+     ``/api/stats`` has the JAX app's keys; 13c ``/api/profiler/start``, one
+     transcription, ``stop``: the Chrome trace's ``flash_fwd_bf16`` kernel
+     events equal the K1 launches counted, and a second start answers 409;
+     13d turbo idle past ``OS_MODEL_TTL`` with a pinned batcher in the pool:
+     one lifecycle sweep evicts it and retires the batcher, and the card's
+     allocated memory returns to within 64 MiB of the phase's baseline;
+     then ``OS_MAX_LOADED_MODELS=1`` evicts the older of the fixture and
+     turbo; 13e ``DELETE /api/models/{turbo}`` (then 404), the memory back.
 
 Each phase's seconds, and the whole script's, are printed on lines of
 their own.
@@ -583,13 +599,15 @@ def main() -> int:
     timed("9 (int8)", phase_int8, router)
     timed("10 (speculative)", phase_spec)
     tts = timed("11-12 (kokoro load)", load_kokoro)
-    # 11 and 12: the same kernels through the sockets, each counted from 0
-    for phase in (timed("11 (server)", phase_server, router, tts),
-                  timed("12 (realtime and Wyoming)", phase_realtime, router, tts)):
+    # 11-13: the same kernels through the sockets, each counted from 0
+    phases = [timed("11 (server)", phase_server, router, tts),
+              timed("12 (realtime and Wyoming)", phase_realtime, router, tts)]
+    del router  # phase 13 loads turbo on a router of its own
+    phases.append(timed("13 (model management)", phase_management, tts))
+    for phase in phases:
         for key, n in phase.items():
             launches[key] = launches.get(key, 0) + n
     tts.unload_model("kokoro")
-    del router
     for entry in kernels:  # K1 from REST (both paths) and S3, K2 and its combine from S1/S2
         entry["launches"] = launches.get(entry["name"], 0)
         if entry["launches"] == 0:
@@ -3382,6 +3400,293 @@ def _realtime_fixture(tts) -> None:
                              f"wyoming card {texts['card']!r} vs cpu {texts['cpu']!r}")
     log(f"realtime 12 fixture ({model_id}, float32): realtime commit text {want_rt!r} = CPU; Wyoming "
         f"transcribe (VAD off) text {texts['cpu']!r} = CPU")
+
+
+
+# ── phase 13: model management, the lifecycle and serving metrics ───────
+
+MIB = 1 << 20
+FREED_SLACK = 64 * MIB  # what may stay allocated after an eviction or an unload
+FIXTURE_MODEL = "test-tiny-eot"
+OTHER_DEFAULT = "whisper-large-v3"  # stt_model while turbo must be evictable
+
+
+def _card_bytes() -> int:
+    """Bytes allocated on the card once Python's garbage, the allocator's
+    cache and cuBLAS's per-thread workspaces are let go (each executor
+    thread that ran a matmul holds a workspace of its own)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated()
+
+
+def _json_call(port: int, method: str, path: str, want: int, body=None) -> dict:
+    """The JSON body of one request, which must answer ``want``."""
+    payload = b"" if body is None else json.dumps(body).encode()
+    headers = {"Content-Type": "application/json"} if body is not None else {}
+    status, _, raw = _http(port, method, path, payload, headers)
+    if status != want:
+        raise AssertionError(f"management 13: {method} {path}: {status} {raw[:300]!r} (want {want})")
+    return json.loads(raw)
+
+
+def _metric(text: str, sample: str) -> float:
+    """The value of one sample line of Prometheus text."""
+    for line in text.splitlines():
+        name, _, value = line.rpartition(" ")
+        if name == sample:
+            return float(value)
+    raise AssertionError(f"management 13: no {sample!r} in /metrics")
+
+
+def phase_management(tts) -> dict:
+    """13: model management on the served app (``create_app`` on 127.0.0.1,
+    a stdlib client) over a fresh bf16 turbo ``BackendRouter`` on the card
+    and phase 11's kokoro-82M ``TTSRouter``: a) a load through the route
+    against a direct load; b) the serving counters; c) a profiler trace of
+    one transcription; d) TTL and LRU eviction by one lifecycle sweep, and
+    the stale batcher's retirement; e) an unload through the route. The
+    card's memory returns to its baseline after d and e. Returns the flash
+    launches."""
+    from open_speech_tpu_torch.config import Settings, settings
+    from open_speech_tpu_torch.ops import attention as A
+    from open_speech_tpu_torch.runtime.router import BackendRouter
+    from open_speech_tpu_torch.server import app as app_module
+    from open_speech_tpu_torch.server.metrics import Metrics
+
+    for key in A.launches:
+        A.launches[key] = 0  # count this phase only
+    loading = ("os_stt_batched_longform", "os_precompile_on_load", "os_stt_precompile_budgets")
+    keys = loading + ("stt_model", "os_model_ttl", "os_max_loaded_models", "os_batcher_enabled",
+                      "stt_model_dir")
+    saved = {key: getattr(settings, key) for key in keys}
+    saved_metrics, app_module.metrics = app_module.metrics, Metrics()  # this phase's counts only
+    defaults = Settings({})  # a deployment's load (earlier phases change these): one beam-5 warmup
+    for key in loading:
+        setattr(settings, key, getattr(defaults, key))
+    try:
+        baseline = _card_bytes()
+        direct = _management_direct_load(baseline)
+        router = BackendRouter(device="cuda:0")  # bf16, the settings' default
+        with _Served(router, tts) as served:
+            log(f"management 13: create_app serving on http://127.0.0.1:{served.port}")
+            _management_load(served.port, router, baseline, direct)
+            _management_counters(served.port)
+            _management_profiler(served.port)
+            _management_evict(served, router, baseline)
+            _management_unload(served.port, baseline)
+    finally:
+        for key, value in saved.items():
+            setattr(settings, key, value)
+        app_module.metrics = saved_metrics
+    return dict(A.launches)
+
+
+def _management_direct_load(baseline: int) -> dict:
+    """The yardstick of 13a: ``load_model`` on a router of its own."""
+    import torch
+
+    from open_speech_tpu_torch.ops import attention as A
+    from open_speech_tpu_torch.runtime.router import BackendRouter
+
+    router = BackendRouter(device="cuda:0")
+    k1 = A.launches["flash_attention"]
+    t0 = time.perf_counter()
+    router.load_model(MAIN_MODEL)
+    torch.cuda.synchronize()
+    out = {"wall": time.perf_counter() - t0, "k1": A.launches["flash_attention"] - k1,
+           "resident": _card_bytes() - baseline}
+    _free(router)
+    del router
+    if _card_bytes() - baseline > FREED_SLACK:
+        raise AssertionError("management 13a: the direct load's router did not give its memory back")
+    return out
+
+
+def _management_load(port: int, router, baseline: int, direct: dict) -> None:
+    """13a: POST /api/models/{turbo}/load, its K1 launches against the
+    direct load's; status, progress and /api/ps."""
+    import torch
+
+    from open_speech_tpu_torch.ops import attention as A
+
+    k1 = A.launches["flash_attention"]
+    t0 = time.perf_counter()
+    info = _json_call(port, "POST", f"/api/models/{MAIN_MODEL}/load", 200)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_k1 = A.launches["flash_attention"] - k1
+    if (info["state"], info["device"], info["provider"]) != ("loaded", str(router._default_backend.device),
+                                                             "torch-whisper"):
+        raise AssertionError(f"management 13a: load answered {info}")
+    if n_k1 != direct["k1"] or n_k1 <= 0:
+        raise AssertionError(f"management 13a: K1 launches route {n_k1} vs direct {direct['k1']}")
+    status = _json_call(port, "GET", f"/api/models/{MAIN_MODEL}/status", 200)
+    progress = _json_call(port, "GET", f"/api/models/{MAIN_MODEL}/progress", 200)
+    ps = _json_call(port, "GET", "/api/ps", 200)["models"]
+    if status["state"] != "loaded" or progress["status"] != "ready" or [m["model"] for m in ps] != [MAIN_MODEL]:
+        raise AssertionError(f"management 13a: status {status}, progress {progress}, /api/ps {ps}")
+    resident = _card_bytes() - baseline
+    log(f"management 13a: POST /api/models/{MAIN_MODEL}/load -> loaded on {info['device']} "
+        f"({info['provider']}) wall_s {wall:.3f} against a direct load_model {direct['wall']:.3f}; K1 "
+        f"launches {n_k1} = direct {direct['k1']}; resident bytes {resident} (direct {direct['resident']}); "
+        f"status loaded, progress ready, /api/ps lists it")
+
+
+def _management_counters(port: int) -> None:
+    """13b: request a of phase 4 through the route, then one speech
+    request; /metrics and /api/stats."""
+    from open_speech_tpu_torch.ops import audio as codec
+
+    wav = codec.write_wav(_speechlike(5.0, 1), SR)
+    body, headers = _multipart({"model": MAIN_MODEL, "response_format": "json"}, wav)
+    t0 = time.perf_counter()
+    status, _, raw = _http(port, "POST", "/v1/audio/transcriptions", body, headers)
+    client_wall = time.perf_counter() - t0
+    if status != 200 or not isinstance(json.loads(raw)["text"], str):  # random weights: often no words
+        raise AssertionError(f"management 13b: transcription {status} {raw[:300]!r}")
+    text = _http(port, "GET", "/metrics")[2].decode()
+    stats = _json_call(port, "GET", "/api/stats", 200)
+    recorded = stats["histograms"]["stt_rtfx"]["mean"]
+    server_wall = 5.0 / recorded
+    overhead = client_wall - server_wall
+    if (_metric(text, "open_speech_stt_requests_total") != 1 or _metric(text, "open_speech_stt_rtfx_count") != 1
+            or not 0 <= overhead < 0.5):
+        raise AssertionError(f"management 13b: /metrics {text!r}; client wall {client_wall} server {server_wall}")
+    speech = json.dumps({"input": SERVING_TEXT, "voice": RT_VOICE, "response_format": "wav"}).encode()
+    status, _, audio = _http(port, "POST", "/v1/audio/speech", speech, {"Content-Type": "application/json"})
+    text = _http(port, "GET", "/metrics")[2].decode()
+    ttfa_p50 = _metric(text, 'open_speech_tts_ttfa_seconds{quantile="0.50"}')
+    if status != 200 or _metric(text, "open_speech_tts_requests_total") != 1 or not ttfa_p50 > 0:
+        raise AssertionError(f"management 13b: speech {status} ({len(audio)} bytes); /metrics {text!r}")
+    stats = _json_call(port, "GET", "/api/stats", 200)
+    jax_keys = {"uptime_seconds", "counters", "gauges", "histograms", "streaming_sessions", "batchers",
+                "tts_batchers", "pocket_batchers", "replica"}
+    if set(stats) != jax_keys or set(stats["replica"]) != {"replica", "replica_count", "local_devices",
+                                                           "global_devices"}:
+        raise AssertionError(f"management 13b: /api/stats keys {sorted(stats)}")
+    log(f"management 13b: request a through the route: stt_requests_total 1, stt_rtfx count 1; recorded "
+        f"RTFx {recorded:.4f} (server wall {server_wall:.4f} s) against the client's {5.0 / client_wall:.4f} "
+        f"(wall {client_wall:.4f} s; HTTP, multipart and ingest {1e3 * overhead:.1f} ms); speech: "
+        f"tts_requests_total 1, tts_ttfa_seconds p50 {1e3 * ttfa_p50:.3f} ms; /api/stats has the JAX keys, "
+        f"replica {stats['replica']}")
+
+
+def _management_profiler(port: int) -> None:
+    """13c: a torch.profiler trace over one transcription (language en,
+    temperature 0.2: one decode attempt); its flash_fwd_bf16 kernel events
+    against the K1 counter; a second start answers 409."""
+    import os
+    import shutil
+    import tempfile
+
+    from open_speech_tpu_torch.ops import attention as A
+    from open_speech_tpu_torch.ops import audio as codec
+
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        _json_call(port, "POST", "/api/profiler/start", 200, {"dir": trace_dir})
+        _json_call(port, "POST", "/api/profiler/start", 409, {"dir": trace_dir})
+        wav = codec.write_wav(_speechlike(5.0, 1), SR)
+        body, headers = _multipart({"model": MAIN_MODEL, "language": "en", "temperature": "0.2"}, wav)
+        k1 = A.launches["flash_attention"]
+        t0 = time.perf_counter()
+        status, _, raw = _http(port, "POST", "/v1/audio/transcriptions", body, headers)
+        traced_wall = time.perf_counter() - t0
+        n_k1 = A.launches["flash_attention"] - k1
+        t0 = time.perf_counter()
+        stopped = _json_call(port, "POST", "/api/profiler/stop", 200)
+        stop_s = time.perf_counter() - t0
+        [name] = os.listdir(trace_dir)
+        size = os.path.getsize(os.path.join(trace_dir, name))
+        with open(os.path.join(trace_dir, name)) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    flash = [e for e in kernels if "flash_fwd_bf16" in e.get("name", "")]
+    if status != 200 or stopped["dir"] != trace_dir or len(flash) != n_k1 or n_k1 <= 0:
+        raise AssertionError(f"management 13c: transcription {status}; K1 counted {n_k1}, flash_fwd_bf16 "
+                             f"kernel events {len(flash)} of {len(kernels)}")
+    log(f"management 13c: profiler trace of one transcription (wall {traced_wall:.3f} s traced; stop and "
+        f"export {stop_s:.3f} s, {size} bytes): {len(kernels)} kernel events, flash_fwd_bf16 {len(flash)} "
+        f"= K1 counted {n_k1} ({sum(e['dur'] for e in flash) / 1e3:.3f} ms on the card); a second start "
+        f"answered 409")
+
+
+def _management_evict(served, router, baseline: int) -> None:
+    """13d: turbo idle past OS_MODEL_TTL with a pinned batcher in the pool:
+    one sweep evicts it and retires the batcher, and the card's memory
+    returns to the baseline; then OS_MAX_LOADED_MODELS=1 over the fixture
+    and turbo: one sweep evicts the older."""
+    import asyncio
+    from pathlib import Path
+
+    from open_speech_tpu_torch.config import settings
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.runtime import batcher_pool as P
+
+    settings.stt_model, settings.os_model_ttl = OTHER_DEFAULT, 1
+    settings.os_batcher_enabled = True
+    ws = _rt_session(served.port, MAIN_MODEL, {
+        "turn_detection": None, "input_audio_transcription": {"model": "whisper-1", "language": "en"}})
+    _rt_appends(ws, codec.float_to_pcm16(_speechlike(2.0 * 24000 / SR, 23)))
+    _rt_send(ws, COMMIT)
+    _rt_wait(ws, "conversation.item.input_audio_transcription.completed", 2)
+    ws.close()
+    settings.os_batcher_enabled = False
+    pool = list(P.pool_stats())
+    if pool != [f"{MAIN_MODEL}/en/transcribe"]:
+        raise AssertionError(f"management 13d: pool after the pinned commit {pool}")
+    before = _card_bytes() - baseline
+    time.sleep(1.5)  # idle past the TTL
+
+    async def sweep_and_drain():
+        await served.app["lifecycle"]._sweep()
+        await asyncio.gather(*list(P._retiring))  # the retired batcher's drain and stop
+
+    t0 = time.perf_counter()
+    served._run(sweep_and_drain())
+    sweep_s = time.perf_counter() - t0
+    ps = _json_call(served.port, "GET", "/api/ps", 200)["models"]
+    after = _card_bytes() - baseline
+    if ps or P.pool_stats() or after > FREED_SLACK:
+        raise AssertionError(f"management 13d: after the TTL sweep /api/ps {ps}, pool {P.pool_stats()}, "
+                             f"{after} bytes over the baseline")
+    log(f"management 13d TTL: {MAIN_MODEL} and its batcher (KV pools) resident {before} bytes over the "
+        f"baseline; one sweep ({sweep_s:.3f} s with the drain) evicted it and retired the batcher: /api/ps empty, "
+        f"pool empty, {before - after} bytes freed, {after} over the baseline")
+
+    settings.os_model_ttl, settings.os_max_loaded_models = 0, 1
+    settings.stt_model_dir = str(Path(__file__).resolve().parent / "tests" / "fixtures")
+    settings.os_precompile_on_load = False
+    router.load_model(FIXTURE_MODEL)
+    time.sleep(0.01)
+    router.load_model(MAIN_MODEL)  # the newer one
+    served._run(served.app["lifecycle"]._sweep())
+    ps = [m["model"] for m in _json_call(served.port, "GET", "/api/ps", 200)["models"]]
+    if ps != [MAIN_MODEL]:
+        raise AssertionError(f"management 13d LRU: /api/ps {ps}")
+    log(f"management 13d LRU: OS_MAX_LOADED_MODELS=1 over {FIXTURE_MODEL} (older) and {MAIN_MODEL}: one "
+        f"sweep left {ps}")
+
+
+def _management_unload(port: int, baseline: int) -> None:
+    """13e: DELETE /api/models/{turbo}, twice; the memory returns."""
+    done = _json_call(port, "DELETE", f"/api/models/{MAIN_MODEL}", 200)
+    again = _json_call(port, "DELETE", f"/api/models/{MAIN_MODEL}", 404)
+    want = {"error": {"message": f"Model {MAIN_MODEL} is not loaded", "code": "not_loaded"}}
+    after = _card_bytes() - baseline
+    if done != {"status": "unloaded", "model": MAIN_MODEL} or again != want or after > FREED_SLACK:
+        raise AssertionError(f"management 13e: {done}, {again}, {after} bytes over the baseline")
+    log(f"management 13e: DELETE /api/models/{MAIN_MODEL} -> unloaded, again -> 404 not_loaded; "
+        f"{after} bytes over the baseline")
 
 
 if __name__ == "__main__":

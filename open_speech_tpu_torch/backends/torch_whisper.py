@@ -23,6 +23,7 @@ from __future__ import annotations
 import logging
 import os
 import re
+import shutil
 import threading
 import time
 from pathlib import Path
@@ -153,15 +154,8 @@ class TorchWhisperBackend:
     # ── weights ───────────────────────────────────────────────────────
 
     def _weight_dirs(self, model_id: str) -> list[Path]:
-        roots: list[Path] = []
-        if settings.stt_model_dir:
-            roots.append(Path(settings.stt_model_dir).expanduser())
-        for env in ("HF_HUB_CACHE", "HUGGINGFACE_HUB_CACHE"):
-            if os.environ.get(env):
-                roots.append(Path(os.environ[env]).expanduser())
-        roots.append(Path.home() / ".cache" / "huggingface" / "hub")
         dirs = []
-        for root in roots:
+        for root in self._cache_roots():
             dirs.append(root / model_id)
             safe = f"models--{model_id.replace('/', '--')}"
             snap_root = root / safe / "snapshots"
@@ -337,6 +331,53 @@ class TorchWhisperBackend:
 
     def is_model_loaded(self, model_id: str) -> bool:
         return model_id in self._models
+
+    # ── cache management ──────────────────────────────────────────────
+
+    def _cache_roots(self) -> list[Path]:
+        roots = []
+        if settings.stt_model_dir:
+            roots.append(Path(settings.stt_model_dir).expanduser())
+        for env in ("HF_HUB_CACHE", "HUGGINGFACE_HUB_CACHE"):
+            if os.environ.get(env):
+                roots.append(Path(os.environ[env]).expanduser())
+        roots.append(Path.home() / ".cache" / "huggingface" / "hub")
+        return roots
+
+    def list_cached_models(self) -> list[dict[str, Any]]:
+        """Every ``models--<org>--<name>`` directory under the cache roots
+        whose id maps onto a whisper preset, with its size on disk."""
+        result = []
+        seen = set()
+        for root in self._cache_roots():
+            if not root.is_dir():
+                continue
+            for entry in root.iterdir():
+                name = entry.name
+                if not name.startswith("models--"):
+                    continue
+                mid = name.removeprefix("models--").replace("--", "/")
+                if mid in seen or resolve_preset(mid) is None:
+                    continue
+                seen.add(mid)
+                size = sum(f.stat().st_size for f in entry.rglob("*") if f.is_file())
+                result.append({"model": mid, "backend": self.name,
+                               "size_mb": round(size / 1e6), "path": str(entry)})
+        return result
+
+    def is_model_cached(self, model_id: str) -> bool:
+        return self._find_checkpoint(model_id) is not None
+
+    def delete_cached_model(self, model_id: str) -> bool:
+        """Remove the model's directories; only those inside a cache root."""
+        deleted = False
+        safe = f"models--{model_id.replace('/', '--')}"
+        for root in self._cache_roots():
+            for cand in (root / safe, root / model_id):
+                if cand.is_dir() and root.resolve() in cand.resolve().parents:
+                    shutil.rmtree(cand)
+                    deleted = True
+        return deleted
 
     # ── protocol: inference ───────────────────────────────────────────
 

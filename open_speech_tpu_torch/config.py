@@ -7,7 +7,8 @@ int8 compute and speculative decoding included), the streaming session,
 the continuous batcher, Kokoro serving (``POST /v1/audio/speech``'s
 body, the backend and the TTS batcher), the HTTP server (``server/``:
 binding, TLS, auth, CORS, rate limits, upload size, preloads), the
-realtime socket and the Wyoming server read. ``os_vad_device``
+realtime socket, the Wyoming server, model management and its TTL/LRU
+lifecycle, and the profiler routes read. ``os_vad_device``
 (``OS_VAD_DEVICE``, which the JAX package reads from the environment
 directly) names the VAD's device; its default is the STT device. ``stt_device`` defaults to ``cuda``; ``tts_device`` defaults to
 ``stt_device``.
@@ -36,8 +37,13 @@ _DEFAULTS: dict[str, object] = {
     "os_ssl_enabled": True,
     "os_ssl_certfile": "",
     "os_ssl_keyfile": "",
+    # model lifecycle: idle seconds before a non-default model is evicted,
+    # and the most STT models kept loaded (0 = no limit)
     "os_model_ttl": 300,
+    "os_max_loaded_models": 0,
     "os_precompile_on_load": True,
+    # torch.profiler trace output dir for /api/profiler/start|stop
+    "os_profile_dir": "/tmp/open-speech-profile",
     "os_stt_precompile_budgets": "224",
     "stt_model": "whisper-large-v3-turbo",
     "stt_rest_beam_size": 5,
@@ -94,6 +100,8 @@ _DEFAULTS: dict[str, object] = {
     "tts_normalize_output": True,
     "tts_pronunciation_dict": "",
     "tts_preload_models": "",
+    # speech effects (DSP) on a whole-body /v1/audio/speech request
+    "os_effects_enabled": True,
     # concurrent Kokoro requests share one batched encode + blockwise vocode
     "os_tts_batcher_enabled": False,
     # rows of the TTS batcher's warmup batch at load: the largest entry
@@ -149,6 +157,8 @@ class Settings:
     stt_ssl_enabled = property(lambda self: self.os_ssl_enabled)
     stt_ssl_certfile = property(lambda self: self.os_ssl_certfile)
     stt_ssl_keyfile = property(lambda self: self.os_ssl_keyfile)
+    stt_model_ttl = property(lambda self: self.os_model_ttl)
+    stt_max_loaded_models = property(lambda self: self.os_max_loaded_models)
     stt_stream_chunk_ms = property(lambda self: self.os_stream_chunk_ms)
     stt_stream_max_connections = property(lambda self: self.os_stream_max_connections)
     stt_default_model = property(lambda self: self.stt_model)

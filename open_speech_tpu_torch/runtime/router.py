@@ -1,9 +1,13 @@
 """STT backend router and the REST transcription handlers without HTTP.
 
 Counterpart of ``open_speech_tpu/runtime/router.py``: resolve a model id to
-a backend, fan listing calls across registered backends, pass inference
-through. The torch whisper backend is registered under its own name and
-the reference's ``faster-whisper`` provider name.
+a backend, fan listing calls and the HF-cache calls across registered
+backends, pass inference through. The torch whisper backend is registered
+under its own name, the reference's ``faster-whisper`` provider name, and
+``jax-whisper``: the provider that the model catalog (``registry.py``, a
+copy of the JAX package's) and ``ModelManager`` name for every STT id, so
+that a load through ``/api/models/{id}/load`` finds its provider.
+``_lock`` is the lock the lifecycle's evictions take.
 
 ``transcription_response`` / ``translation_response`` do what the JAX
 server's ``POST /v1/audio/transcriptions`` and ``/translations`` routes do
@@ -16,6 +20,7 @@ error mapping between them.
 
 from __future__ import annotations
 
+import asyncio
 from typing import Any
 
 from open_speech_tpu_torch.audio.ingest import convert_to_wav
@@ -29,11 +34,13 @@ from open_speech_tpu_torch.text.formatters import format_transcription
 
 class BackendRouter:
     def __init__(self, device: str | None = None, compute_type: str | None = None) -> None:
+        self._lock = asyncio.Lock()
         whisper = TorchWhisperBackend(device=device, compute_type=compute_type)
-        # both provider names resolve to the same backend instance
+        # every provider name resolves to the same backend instance
         self._backends: dict[str, STTBackend] = {
             "torch-whisper": whisper,
             "faster-whisper": whisper,
+            "jax-whisper": whisper,
         }
         self._default_backend: STTBackend = whisper
 
@@ -63,6 +70,24 @@ class BackendRouter:
         for backend in self._unique_backends():
             out.extend(backend.loaded_models())
         return out
+
+    # ── cache passthrough (duck-typed, like the reference) ────────────
+
+    def list_cached_models(self) -> list[dict[str, Any]]:
+        out: list[dict[str, Any]] = []
+        for backend in self._unique_backends():
+            lister = getattr(backend, "list_cached_models", None)
+            if callable(lister):
+                out.extend(lister())
+        return out
+
+    def delete_cached_model(self, model_id: str) -> bool:
+        deleter = getattr(self.get_backend(model_id), "delete_cached_model", None)
+        return bool(deleter(model_id)) if callable(deleter) else False
+
+    def is_model_cached(self, model_id: str) -> bool:
+        checker = getattr(self.get_backend(model_id), "is_model_cached", None)
+        return bool(checker(model_id)) if callable(checker) else False
 
     # ── inference passthrough ─────────────────────────────────────────
 

@@ -18,12 +18,22 @@ so an error before the first byte is a real error response: 400 for a
 ``ValueError`` (text the vocab cannot express, an unsupported language),
 500 otherwise. For WAV the first chunk is the header.
 
-Left out, each a later item of ``ROADMAP.md``: ``effects`` (DSP), the TTS
-cache (off by default in the JAX package), history and metrics.
+``effects`` (DSP) are not ported yet (``ROADMAP.md`` module item 3): a
+whole-body request with ``OS_EFFECTS_ENABLED=false`` goes on without them,
+as the JAX server's does; with the setting on, or streamed (where the JAX
+server always applies them), such a request raises a named error. Left
+out, each a later item of ``ROADMAP.md``: the TTS cache (off by default in
+the JAX package) and history.
+
+``timing``, a dict the caller passes, receives what the server's metrics
+need: the native ``rate`` and the ``format``, and for a whole body
+``first_chunk`` (``time.monotonic()`` at the first synthesized chunk, the
+JAX server's time to first audio) and ``audio_seconds``.
 """
 
 from __future__ import annotations
 
+import time
 from functools import lru_cache
 from typing import Iterator
 
@@ -69,7 +79,7 @@ def _feature_error(router: TTSRouter, req: TTSSpeechRequest) -> str | None:
 
 
 def speech_response(
-    router: TTSRouter, body, *, stream: bool = False
+    router: TTSRouter, body, *, stream: bool = False, timing: dict | None = None
 ) -> tuple[str, bytes] | tuple[str, Iterator[bytes]]:
     """(content type, audio bytes), or with ``stream`` (content type,
     iterator of encoded chunks)."""
@@ -90,9 +100,9 @@ def speech_response(
         raise SpeechError(400, feature_error)
     if req.response_format not in CONTENT_TYPES:  # the formats the server answers in
         raise SpeechError(400, "Invalid response_format. Must be one of: " + ", ".join(sorted(CONTENT_TYPES)))
-    if req.effects:
+    if req.effects and (stream or settings.os_effects_enabled):
         raise NotImplementedError(
-            "speech effects (DSP) are not ported yet: ROADMAP.md module item 10")
+            "speech effects (DSP) are not ported yet: ROADMAP.md module item 3")
     content_type = get_content_type(req.response_format)
 
     text = req.input
@@ -100,6 +110,8 @@ def speech_response(
         text = parse_ssml(text)
     text = _pronunciation_dict(settings.tts_pronunciation_dict or "").apply(text)
     rate = backend_sample_rate(router.get_backend(req.model), req.model)
+    timing = {} if timing is None else timing
+    timing.update(rate=rate, format=req.response_format)
 
     def synthesize() -> Iterator[np.ndarray]:
         return router.synthesize(text=text, model=req.model, voice=req.voice, speed=req.speed,
@@ -107,10 +119,17 @@ def speech_response(
 
     if stream:
         return content_type, _stream(synthesize, rate, req.response_format)
+
+    def timed() -> Iterator[np.ndarray]:
+        for chunk in synthesize():
+            timing.setdefault("first_chunk", time.monotonic())
+            yield chunk
+
     try:
-        chunks = list(process_tts_chunks(synthesize(), trim=settings.tts_trim_silence,
+        chunks = list(process_tts_chunks(timed(), trim=settings.tts_trim_silence,
                                          normalize=settings.tts_normalize_output))
         samples = np.concatenate(chunks).astype(np.float32, copy=False) if chunks else np.zeros(0, np.float32)
+        timing["audio_seconds"] = len(samples) / rate
         return content_type, encode_audio(samples, rate, req.response_format)
     except Exception as e:  # noqa: BLE001 — every synthesis failure is a 500, as in the JAX server
         raise SpeechError(500, str(e)) from e

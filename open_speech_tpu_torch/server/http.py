@@ -247,6 +247,11 @@ class Request:
         return peer[0] if isinstance(peer, tuple) else peer
 
     @property
+    def can_read_body(self) -> bool:
+        """Whether the request has a body left to read (aiohttp's name)."""
+        return not self._body.done
+
+    @property
     def content_type(self) -> str:
         return parse_header_value(self.headers.get("content-type", ""))[0]
 
@@ -398,6 +403,9 @@ class Router:
 
     def add_post(self, pattern: str, handler: Handler) -> None:
         self.add_route("POST", pattern, handler)
+
+    def add_delete(self, pattern: str, handler: Handler) -> None:
+        self.add_route("DELETE", pattern, handler)
 
     def resolve(self, method: str, path: str) -> tuple[Handler, dict[str, str]]:
         allowed: set[str] = set()

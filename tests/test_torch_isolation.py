@@ -8,8 +8,9 @@ decoding, Kokoro's model and converter, the
 vocoder ops, Piper's weight-norm folding, Kokoro serving (the TTS router,
 backend and batcher, G2P, and the speech handler's body), and the server
 (the app, its HTTP/multipart/WebSocket shell, errors, middleware, TLS
-bootstrap and ``__main__``), the realtime socket, the Wyoming server and
-the model catalog included) must pull in neither ``jax``,
+bootstrap and ``__main__``), the realtime socket, the Wyoming server, the
+model catalog, the model manager, its lifecycle and the serving metrics
+included) must pull in neither ``jax``,
 ``aiohttp``, ``pydantic`` nor any module of the JAX package. The check runs
 in a fresh interpreter, because this test process already imported them.
 """
@@ -46,7 +47,8 @@ want = ("server.streaming", "runtime.batcher", "runtime.batcher_pool", "models.w
         "server.middleware", "server.ssl_utils", "server.__main__", "server.realtime",
         "server.realtime.server", "server.realtime.events", "server.realtime.session",
         "server.realtime.audio_buffer", "server.wyoming", "server.wyoming.server",
-        "server.wyoming.protocol", "runtime.registry")
+        "server.wyoming.protocol", "runtime.registry", "server.metrics", "runtime.model_manager",
+        "runtime.lifecycle")
 print(len(names), ",".join(bad), int(all("open_speech_tpu_torch." + w in names for w in want)))
 """
 
@@ -60,8 +62,8 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
     bad = out[1] if len(out) == 3 else ""
     assert n_modules >= 30, "walk_packages should find every submodule"
     assert named == "1", ("the streaming session, the batchers, batched long-form, "
-                          "Kokoro's model and serving modules, the server, the realtime socket "
-                          "and Wyoming must be among them")
+                          "Kokoro's model and serving modules, the server, the realtime socket, "
+                          "Wyoming and model management must be among them")
     assert bad == "", f"port imported: {bad}"
 
 
@@ -128,7 +130,8 @@ _COPIES = [
     "audio/postprocessing.py", "audio/encode.py", "models/kokoro/vocab.json",
     "server/ssl_utils.py", "server/realtime/__init__.py", "server/realtime/events.py",
     "server/realtime/session.py", "server/realtime/audio_buffer.py", "server/wyoming/__init__.py",
-    "server/wyoming/protocol.py", "runtime/registry.py",
+    "server/wyoming/protocol.py", "runtime/registry.py", "server/metrics.py",
+    "runtime/model_manager.py", "runtime/lifecycle.py",
 ]
 
 
@@ -153,6 +156,8 @@ _SERVER_SETTINGS = [
     "os_realtime_enabled", "os_realtime_max_buffer_mb", "os_realtime_idle_timeout_s",
     "os_wyoming_enabled", "os_wyoming_host", "os_wyoming_port",
     "stt_vad_min_speech_ms", "stt_vad_silence_ms",
+    "os_model_ttl", "os_max_loaded_models", "os_profile_dir", "os_effects_enabled",
+    "stt_model_ttl", "stt_max_loaded_models",
 ]
 
 
@@ -160,12 +165,12 @@ _SERVER_SETTINGS = [
 def test_server_settings_match_the_jax_defaults(name):
     """Defaults with an empty environment, and a value read from the env
     variable of the field's name, equal the JAX package's."""
+    from open_speech_tpu.config import _DEFAULTS as JAX_FIELDS
     from open_speech_tpu.config import Settings as JaxSettings
     from open_speech_tpu_torch.config import Settings
 
     assert getattr(Settings({}), name) == getattr(JaxSettings({}), name)
-    field = name if name.startswith("os_") or name.endswith("_models") or name.startswith(
-        ("stt_diarize", "stt_noise", "stt_vad")) else "os_" + name[4:]
+    field = name if name in JAX_FIELDS else "os_" + name[4:]  # an alias reads its os_ field
     raw = {bool: "true", int: "7", str: "x"}[type(getattr(JaxSettings({}), field))]
     env = {field.upper(): raw}
     assert getattr(Settings(env), name) == getattr(JaxSettings(env), name)

@@ -413,8 +413,10 @@ def test_rejected_requests_match_the_jax_server(monkeypatch, jax_answers, name, 
 
 
 def test_effects_name_their_later_item():
+    """With OS_EFFECTS_ENABLED on (the default), a request with effects
+    names the item that ports the DSP."""
     router = TTSRouter(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md module item 3$"):
         S.speech_response(router, {"input": "hi", "effects": [{"type": "reverb"}]})
 
 
