@@ -121,6 +121,20 @@ Phases, each of which raises on failure (exit code 1, no result line):
      allocated memory returns to within 64 MiB of the phase's baseline;
      then ``OS_MAX_LOADED_MODELS=1`` evicts the older of the fixture and
      turbo; 13e ``DELETE /api/models/{turbo}`` (then 404), the memory back.
+ 14. Piper (VITS) and the speech effects (``models/piper``,
+     ``tts/backends/piper_torch.py``, ``PiperBatcher``, ``audio/effects.py``):
+     14a piper "medium" at full width (``PiperConfig()``, random weights
+     from seed 11, float32) card against CPU stage by stage (text encoder,
+     log durations, durations and n_frames exact, flow, audio), one
+     128-phoneme row's wall and RTFx, 4 and 16 concurrent rows through the
+     batcher (each row = its solo run), a profiled synthesis; 14b the
+     registry voice behind ``create_app``: speech WAV (22.05 kHz) and
+     streamed PCM equal to the direct backend call, Wyoming describe (its
+     30 Piper voices) and synthesize at 16 kHz, the unload and load routes
+     giving the voice's bytes back, ``pocket-tts`` answering its named
+     error; 14c the five effects and a chain on 12 s at 24 kHz against the
+     CPU with ms per effect, and a speech request with the chain, whole
+     and streamed. Fails if a flash kernel is launched in phase 14.
 
 Each phase's seconds, and the whole script's, are printed on lines of
 their own.
@@ -604,6 +618,7 @@ def main() -> int:
               timed("12 (realtime and Wyoming)", phase_realtime, router, tts)]
     del router  # phase 13 loads turbo on a router of its own
     phases.append(timed("13 (model management)", phase_management, tts))
+    timed("14 (piper and effects)", phase_piper)
     for phase in phases:
         for key, n in phase.items():
             launches[key] = launches.get(key, 0) + n
@@ -629,14 +644,14 @@ SEGMENT_KEYS = {"id", "seek", "start", "end", "text", "tokens", "temperature",
                 "avg_logprob", "compression_ratio", "no_speech_prob"}
 
 
-def _speechlike(seconds: float, seed: int):
+def _speechlike(seconds: float, seed: int, sr: int = SR):
     """Deterministic test signal: gated harmonic tones over noise."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    t = np.arange(int(seconds * SR)) / SR
+    t = np.arange(int(seconds * sr)) / sr
     f0 = 120 + 60 * np.sin(2 * np.pi * 0.3 * t)
-    voice = sum(np.sin(2 * np.pi * h * np.cumsum(f0) / SR) / h for h in (1, 2, 3, 4))
+    voice = sum(np.sin(2 * np.pi * h * np.cumsum(f0) / sr) / h for h in (1, 2, 3, 4))
     gate = (np.sin(2 * np.pi * 1.7 * t) > -0.2).astype(np.float64)
     return (0.2 * voice * gate + 0.01 * rng.standard_normal(t.size)).astype(np.float32)
 
@@ -1659,12 +1674,14 @@ def _kokoro_card_vs_cpu(K, cfg, model, args) -> None:
     errs = _compare_stages("kokoro K-b card vs CPU", card, host)
     if not card_rel <= KOKORO_OWN_FEATURES_REL_L2:
         raise AssertionError(f"kokoro K-b whole synthesis: relative L2 {card_rel:.3e}")
-    real = K._CUDNN
+    from open_speech_tpu_torch.ops import vocoder as V
+
+    real = V.CUDNN_F32  # the scope every TTS model's inference() enters
     try:
-        K._CUDNN = K._CudnnScope(allow_tf32=True)
+        V.CUDNN_F32 = V._CudnnScope(allow_tf32=True)
         tf32, tf32_wall, tf32_rel = card_run()
     finally:
-        K._CUDNN = real
+        V.CUDNN_F32 = real
     tf32_errs = {key: (tf32[key].float().cpu() - host[key]).abs().max().item()
                  for key in ("asr", "f0", "n", "x", "har_c", "audio")}
 
@@ -3688,6 +3705,475 @@ def _management_unload(port: int, baseline: int) -> None:
     log(f"management 13e: DELETE /api/models/{MAIN_MODEL} -> unloaded, again -> 404 not_loaded; "
         f"{after} bytes over the baseline")
 
+
+
+# ── phase 14: Piper (VITS) and the effects chain ────────────────────────
+
+PIPER_VOICE = "piper/en_US-lessac-medium"
+PIPER_SEED = 11  # the weights of 14a
+PIPER_ROWS = (4, 16)  # 14a's concurrent jobs through the PiperBatcher
+# 14a card against CPU, float32 with cuDNN's TF32 off on both: max |diff|
+# relative to max(1, max|CPU|) per stage, the audio in relative L2, batched
+# rows against their solo runs in max |diff| (tanh audio, |x| < 1)
+PIPER_TOL = {"x": 1e-4, "m": 1e-4, "logs": 1e-4, "logw": 1e-4, "z": 1e-4, "audio_rel_l2": 1e-3, "row": 1e-4}
+EFFECTS_SECONDS = 12.0
+EFFECTS_SR = 24000
+EFFECT_CASES = {
+    "normalize": [{"type": "normalize"}],
+    "pitch": [{"type": "pitch", "semitones": 3}],
+    "reverb": [{"type": "reverb", "room": "large"}],
+    "podcast_eq": [{"type": "podcast_eq"}],
+    "robot": [{"type": "robot"}],
+    "chain": [{"type": "podcast_eq"}, {"type": "pitch", "semitones": -2}, {"type": "reverb", "room": "medium"},
+              {"type": "robot"}, {"type": "normalize", "target_lufs": -18}],
+}
+# card against CPU, max |diff| on a signal of peak ~0.5: float32 rounding
+# (the phase vocoder's and the chain's through it: 1.7e-5 and 4.8e-5 on an
+# H100, bound 10x; tests/test_torch_effects.py holds the CPU against JAX)
+EFFECTS_TOL = {"normalize": 1e-5, "pitch": 5e-4, "reverb": 1e-5, "podcast_eq": 1e-5, "robot": 1e-5,
+               "chain": 5e-4}
+
+
+def phase_piper() -> None:
+    """14: Piper and the effects on the card. 14a the model at piper
+    "medium" width (``PiperConfig()``: hidden 192, 6 encoder layers,
+    upsample 8.8.2.2 from 512 channels, resblocks 3/7/11, 22.05 kHz, buckets
+    of 128 phonemes and 512 frames; random weights from a seed, float32):
+    card against CPU stage by stage, one 128-phoneme row's wall and RTFx,
+    4 and 16 concurrent rows through the ``PiperBatcher`` against their solo
+    runs, one profiled synthesis. 14b served: the Piper voice through
+    ``create_app`` (speech WAV and streamed PCM against the direct backend
+    call, Wyoming describe and synthesize at 16 kHz, the load and unload
+    routes and the card's bytes, Pocket's named error). 14c the five
+    effects and a chain on 12 s at 24 kHz against the CPU, ms per effect,
+    and a speech request with effects, whole and streamed. Fails if a flash
+    kernel is launched."""
+    from open_speech_tpu_torch.ops import attention as A
+
+    before = dict(A.launches)
+    _piper_model()
+    _piper_effects()
+    _piper_served()
+    if dict(A.launches) != before:
+        raise AssertionError(f"piper 14: flash launches moved: {before} -> {dict(A.launches)}")
+    log(f"piper 14: flash launch counts unchanged through phase 14: {before}")
+
+
+def _piper_models():
+    """The same ``PiperConfig()`` weights on the card and on the CPU (the
+    coupling layers' zero-initialised ``post`` convolutions filled, so the
+    flow is live)."""
+    import torch
+
+    from open_speech_tpu_torch.models.piper import PiperConfig, PiperModel, init_piper_params
+
+    cfg = PiperConfig()
+    host = init_piper_params(torch.Generator().manual_seed(PIPER_SEED), cfg, device="cpu")
+    with torch.no_grad():
+        gen = torch.Generator().manual_seed(PIPER_SEED + 1)
+        for name, p in host.named_parameters():
+            if name.startswith("flow.") and ".post." in name:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    card = PiperModel.empty(cfg, "cuda")
+    card.load_state_dict(host.state_dict())
+    return cfg, host, card
+
+
+def _piper_row(cfg, n: int, seed: int):
+    """One row of ``n`` phoneme ids drawn from ``seed``: (ids, length, speaker, speed)."""
+    import torch
+
+    ids = torch.zeros((1, cfg.max_phonemes), dtype=torch.int64)
+    ids[0, :n] = torch.randint(1, cfg.n_phonemes, (n,), generator=torch.Generator().manual_seed(seed))
+    return ids, torch.tensor([n]), torch.tensor([0]), torch.tensor([1.0])
+
+
+def _piper_model() -> None:
+    import numpy as np
+    import torch
+
+    from open_speech_tpu_torch.models.piper import model as PM
+    from open_speech_tpu_torch.runtime.tts_batcher import _piper_rows, _row_noise
+
+    cfg, host, card = _piper_models()
+    n_params = sum(p.numel() for p in card.parameters())
+    log(f"piper 14a: piper medium geometry (hidden {cfg.hidden}, {cfg.n_layers} encoder layers, upsample "
+        f"{cfg.upsample_rates} from {cfg.upsample_initial} channels, resblocks {cfg.resblock_kernels}, "
+        f"{cfg.sample_rate} Hz, buckets {cfg.max_phonemes} phonemes / {cfg.max_frames} frames = "
+        f"{cfg.max_frames * cfg.samples_per_frame / cfg.sample_rate:.2f} s), random weights from seed "
+        f"{PIPER_SEED}, float32: {n_params} parameters ({4 * n_params / 1e9:.3f} GB)")
+    row = _piper_row(cfg, cfg.max_phonemes, 21)
+    dp, z = _row_noise(7, cfg, "cpu")
+    noise = dict(dp_noise=dp[None], z_noise=z[None])
+
+    # stage by stage: each card stage on the CPU stage's inputs
+    ids, n, spk, speed = row
+    mask = (torch.arange(cfg.max_phonemes) < n[:, None]).float()[:, None]
+    with PM.inference():
+        stages = {}
+        for name, m in (("cpu", host), ("card", card)):
+            dev = m.device
+            x, mm, logs = PM.text_encoder(m, cfg, ids.to(dev), mask.to(dev))
+            x_in = stages["cpu"]["x"].to(dev) if name == "card" else x
+            logw = PM.sdp_log_durations(m, cfg, x_in, mask.to(dev), None, dp[None].to(dev))
+            w_ceil, _, n_frames = PM.durations(logw, mask.to(dev), speed.to(dev), cfg.max_frames)
+            n_in = stages["cpu"]["n_frames"].to(dev) if name == "card" else n_frames
+            fmask = (torch.arange(cfg.max_frames, device=dev) < n_in[:, None]).float()[:, None]
+            zp = (stages["cpu"]["zp"].to(dev) if name == "card"
+                  else (z[None] * fmask.cpu()).to(dev))
+            zz = PM.flow_inverse(m, cfg, zp, fmask, None)
+            stages[name] = {k: v.cpu() for k, v in dict(
+                x=x, m=mm, logs=logs, logw=logw, w_ceil=w_ceil, n_frames=n_frames, zp=zp, z=zz).items()}
+    cpu, gpu = stages["cpu"], stages["card"]
+    errs = {k: _piper_within(f"piper 14a {k}", gpu[k], cpu[k], PIPER_TOL[k]) for k in ("x", "m", "logs", "logw", "z")}
+    w = (torch.exp(cpu["logw"]) * mask)[mask > 0]
+    margin = (w - w.round()).abs().min().item()
+    if not (torch.equal(gpu["w_ceil"], cpu["w_ceil"]) and torch.equal(gpu["n_frames"], cpu["n_frames"])):
+        raise AssertionError(f"piper 14a: card durations differ from the CPU's (least distance of a "
+                             f"duration from an integer {margin:.3e})")
+    audio = {}
+    for name, m in (("cpu", host), ("card", card)):
+        a, nf = PM.synthesize_vits(m, cfg, *row, **noise)
+        audio[name] = (a.cpu(), nf.cpu())
+    if not torch.equal(audio["card"][1], audio["cpu"][1]):
+        raise AssertionError(f"piper 14a: n_frames {audio['card'][1]} vs CPU {audio['cpu'][1]}")
+    frames = int(audio["cpu"][1][0])
+    valid = frames * cfg.samples_per_frame
+    rel = _rel_l2("piper 14a audio", audio["card"][0][:, :valid], audio["cpu"][0][:, :valid],
+                  PIPER_TOL["audio_rel_l2"])
+    log(f"piper 14a card vs CPU (same weights and noise, {cfg.max_phonemes} phonemes): max|diff| "
+        + " ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; durations and n_frames ({frames}) equal (least distance of a duration from an integer "
+        f"{margin:.3e}); audio relative L2 {rel:.3e} (max|audio| {audio['cpu'][0].abs().max().item():.4g})")
+
+    # wall and RTFx of one 128-phoneme row, as the backend runs a piece
+    walls = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        a, nf = _piper_rows(card, cfg, *row, [7])
+        pcm = a[0, : int(nf[0]) * cfg.samples_per_frame].cpu().numpy()
+        walls.append(time.perf_counter() - t0)
+    seconds = pcm.size / cfg.sample_rate
+    if not np.isfinite(pcm).all() or pcm.size != valid:
+        raise AssertionError(f"piper 14a: {pcm.size} samples vs {valid}, or not finite")
+    log(f"piper 14a one row: {cfg.max_phonemes} phonemes -> {frames} frames, {seconds:.3f} s of audio; "
+        f"wall_ms first {1e3 * walls[0]:.3f} then " + " ".join(f"{1e3 * w:.3f}" for w in walls[1:])
+        + f"; RTFx {seconds / min(walls[1:]):.2f} (best of 3 after the first)")
+    _piper_batches(cfg, card)
+    _piper_profile(cfg, card, row)
+
+
+def _piper_within(name: str, got, want, tol: float) -> float:
+    """Max |got - want|, raising past tol * max(1, max|want|)."""
+    import torch
+
+    got, want = torch.as_tensor(got).float(), torch.as_tensor(want).float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)} or not finite")
+    err = (got - want).abs().max().item()
+    if err > tol * max(1.0, want.abs().max().item()):
+        raise AssertionError(f"{name}: max |diff| {err:.3e} over {tol:.1e}")
+    return err
+
+
+def _piper_batches(cfg, card) -> None:
+    """4 and 16 concurrent jobs of different lengths, speeds and seeds
+    through one ``PiperBatcher``; each row against its solo run."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from open_speech_tpu_torch.runtime.tts_batcher import PiperBatcher, _piper_rows
+
+    rng = np.random.default_rng(31)
+    for rows in PIPER_ROWS:
+        jobs = [(rng.integers(1, cfg.n_phonemes, int(rng.integers(24, cfg.max_phonemes + 1))).tolist(), 0,
+                 float(rng.uniform(0.8, 1.25)), int(s)) for s in rng.integers(0, 1 << 20, rows)]
+        solo = []
+        for ids, spk, speed, seed in jobs:
+            ph = torch.zeros((1, cfg.max_phonemes), dtype=torch.int64)
+            ph[0, : len(ids)] = torch.tensor(ids)
+            a, nf = _piper_rows(card, cfg, ph, torch.tensor([len(ids)]), torch.tensor([spk]),
+                                torch.tensor([speed]), [seed])
+            solo.append(a[0, : int(nf[0]) * cfg.samples_per_frame].cpu().numpy())
+        batcher = PiperBatcher(card, cfg)
+        batcher.precompile(rows)  # the card's libraries set up for this batch shape
+        walls = []
+        for _ in range(2):  # the first round also pays the batcher thread's first calls
+            batcher.stats.update(batches=0, jobs=0, peak_batch=0)
+            got: list = [None] * rows
+            start = threading.Barrier(rows + 1)
+
+            def run(i):
+                start.wait()
+                got[i] = np.concatenate(list(batcher.synthesize(*jobs[i])))
+
+            threads = [threading.Thread(target=run, args=(i,)) for i in range(rows)]
+            for th in threads:
+                th.start()
+            start.wait()
+            t0 = time.perf_counter()
+            for th in threads:
+                th.join(300)
+            walls.append(time.perf_counter() - t0)
+            if any(th.is_alive() for th in threads) or any(g is None for g in got):
+                raise AssertionError(f"piper 14a batch of {rows}: a job did not finish")
+        batcher.stop()
+        err = 0.0
+        for g, want in zip(got, solo):
+            if g.shape != want.shape:
+                raise AssertionError(f"piper 14a batch of {rows}: row {g.shape} vs solo {want.shape}")
+            err = max(err, float(np.abs(g - want).max()))
+        if err > PIPER_TOL["row"]:
+            raise AssertionError(f"piper 14a batch of {rows}: max |row - solo| {err:.3e}")
+        audio_s = sum(g.size for g in got) / cfg.sample_rate
+        stats = batcher.stats
+        log(f"piper 14a batcher {rows} concurrent jobs: wall_s {walls[0]:.4f} then {walls[1]:.4f} for "
+            f"{audio_s:.2f} s of audio (RTFx {audio_s / walls[1]:.1f}); batches {stats['batches']} in the "
+            f"second round, peak batch {stats['peak_batch']}; max |row - solo| {err:.3e}")
+
+
+def _piper_profile(cfg, card, row) -> None:
+    """One 128-phoneme synthesis under torch.profiler: idle share, top ops."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from open_speech_tpu_torch.runtime.tts_batcher import _piper_rows
+
+    def once():
+        a, nf = _piper_rows(card, cfg, *row, [7])
+        a[0, : int(nf[0]) * cfg.samples_per_frame].cpu()
+
+    once()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        once()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    if busy <= 0:
+        raise AssertionError("piper profile: no device time in the trace")
+    log(f"piper 14a profiled synthesis: wall_s {wall:.4f} device_busy_s {busy:.4f} "
+        f"idle_share {1 - busy / wall:.4f} kernel launches {sum(e.count for e in kernels)}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} x  {e.key[:90]}")
+
+
+def _piper_served() -> None:
+    """14b: a full-width Piper voice behind ``create_app`` and Wyoming."""
+    import numpy as np
+    import torch
+
+    from open_speech_tpu_torch.audio.postprocessing import StreamingPostProcessor, process_tts_chunks
+    from open_speech_tpu_torch.config import settings
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.runtime.router import BackendRouter
+    from open_speech_tpu_torch.tts.router import TTSRouter
+
+    saved = {k: getattr(settings, k) for k in ("tts_model", "os_tts_batcher_enabled")}
+    baseline = _card_bytes()
+    tts = TTSRouter()  # the card
+    t0 = time.perf_counter()
+    tts.load_model(PIPER_VOICE)
+    torch.cuda.synchronize()
+    load_s, loaded = time.perf_counter() - t0, _card_bytes() - baseline
+    backend = tts.get_backend(PIPER_VOICE)
+    if backend.device.type != "cuda" or backend._models[PIPER_VOICE][0].device.type != "cuda":
+        raise AssertionError(f"piper 14b: the voice landed on {backend.device}, not the card")
+    log(f"piper 14b: {PIPER_VOICE} (registry voice, random weights from its sha256 seed, float32) loaded in "
+        f"{load_s:.3f} s, {loaded} bytes on the card")
+
+    def direct(streamed: bool = False) -> np.ndarray:
+        """The direct backend call, post-processed as the route does: whole,
+        or chunk by chunk (the streamed gain follows the running peak)."""
+        chunks = tts.synthesize(text=SERVING_TEXT, model=PIPER_VOICE, voice="ignored", speed=1.0)
+        kw = dict(trim=settings.tts_trim_silence, normalize=settings.tts_normalize_output)
+        if not streamed:
+            return np.concatenate(list(process_tts_chunks(chunks, **kw)))
+        pp = StreamingPostProcessor(**kw)
+        return np.concatenate([p for c in chunks for p in pp.feed(c)] + list(pp.finish()))
+
+    try:
+        with _Served(BackendRouter(device="cuda:0"), tts) as served:
+            want = direct()
+            body = json.dumps({"model": PIPER_VOICE, "input": SERVING_TEXT, "response_format": "wav"}).encode()
+            headers = {"Content-Type": "application/json"}
+            t0 = time.perf_counter()
+            status, _, wav = _http(served.port, "POST", "/v1/audio/speech", body, headers)
+            wav_s = time.perf_counter() - t0
+            if status != 200:
+                raise AssertionError(f"piper 14b speech: {status} {wav[:300]!r}")
+            got, rate = codec.read_wav(wav)
+            direct_pcm = codec.float_to_pcm16(want)
+            if rate != 22050 or not np.array_equal(got, codec.pcm16_to_float(direct_pcm)):
+                raise AssertionError(f"piper 14b speech: {rate} Hz, {got.shape} vs direct {want.shape}")
+            want_streamed = direct(streamed=True)
+            ttfa, pcm = _piper_streamed_ttfa(served.port, PIPER_VOICE)
+            if pcm != codec.float_to_pcm16(want_streamed):
+                raise AssertionError(f"piper 14b streamed PCM: {len(pcm)} bytes vs {2 * want_streamed.size} direct")
+            log(f"piper 14b POST /v1/audio/speech model={PIPER_VOICE}: 200, {rate} Hz WAV of "
+                f"{got.size / rate:.3f} s, samples = the direct backend call's, wall {wav_s:.4f} s; "
+                f"streamed PCM TTFA {1e3 * ttfa:.3f} ms, bytes = the direct call's through the streaming "
+                f"post-processor")
+            _piper_wyoming(served, tts, want)
+            _piper_pocket(served.port)
+            _piper_routes(served.port)
+            _piper_effects_served(served.port, want, want_streamed)
+    finally:
+        for k, v in saved.items():
+            setattr(settings, k, v)
+        for m in [m.model for m in tts.loaded_models()]:
+            tts.unload_model(m)
+
+
+def _piper_streamed_ttfa(port: int, model: str, effects=None) -> tuple[float, bytes]:
+    """A streamed PCM speech request on a raw connection: (seconds to the
+    first body chunk, the whole body)."""
+    import http.client
+
+    body = {"model": model, "input": SERVING_TEXT, "response_format": "pcm"}
+    if effects:
+        body["effects"] = effects
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/v1/audio/speech?stream=true", body=json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise AssertionError(f"piper 14b streamed speech: {resp.status} {resp.read()[:300]!r}")
+        first = resp.read1(65536)
+        ttfa = time.perf_counter() - t0
+        return ttfa, first + resp.read()
+    finally:
+        conn.close()
+
+
+def _piper_wyoming(served, tts, want) -> None:
+    """Wyoming describe lists Piper's voices; a synthesize with the Piper
+    voice as ``tts_model`` answers its audio resampled to 16 kHz."""
+    from open_speech_tpu_torch.config import settings
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.ops.resample import resample_pcm16
+    from open_speech_tpu_torch.server.wyoming.server import start_wyoming_server
+
+    settings.tts_model = PIPER_VOICE
+    server = served._run(start_wyoming_server(served.app["stt_router"], tts, host="127.0.0.1", port=0))
+    try:
+        client = _WyomingClient(server.sockets[0].getsockname()[1])
+        client.send("describe")
+        ((_, info, _),) = client.until("info")
+        t0 = time.perf_counter()
+        client.send("synthesize", {"text": SERVING_TEXT, "voice": {"name": PIPER_VOICE}})
+        events = client.until("audio-stop")
+        synth_s = time.perf_counter() - t0
+        client.close()
+    finally:
+        served._run(_closed(server))
+    voices = [v["name"] for v in info["tts"][0]["voices"]]
+    piper = [v for v in voices if v.startswith("piper/")]
+    direct = resample_pcm16(codec.float_to_pcm16(want), 22050, 16000, tts.get_backend(PIPER_VOICE).device)
+    got = b"".join(p for kind, _, p in events if kind == "audio-chunk")
+    rates = {d.get("rate") for kind, d, _ in events if kind == "audio-start"}
+    if len(piper) != 30 or PIPER_VOICE not in piper or rates != {16000} or got != direct:
+        raise AssertionError(f"piper 14b wyoming: {len(piper)} piper voices, rates {rates}, "
+                             f"{len(got)} bytes vs {len(direct)} direct, equal {got == direct}")
+    log(f"piper 14b wyoming: describe lists {len(voices)} voices ({len(piper)} piper); synthesize with "
+        f"{PIPER_VOICE}: 16000 Hz, {len(got)} bytes == the direct audio resampled 22050 -> 16000, "
+        f"wall {synth_s:.4f} s")
+
+
+def _piper_pocket(port: int) -> None:
+    """``pocket-tts`` answers the named error, not the default backend's audio."""
+    body = json.dumps({"model": "pocket-tts", "input": "Hello there."}).encode()
+    status, _, raw = _http(port, "POST", "/v1/audio/speech", body, {"Content-Type": "application/json"})
+    caps_status, _, caps = _http(port, "GET", "/api/tts/capabilities?model=pocket-tts")
+    msg = "Pocket TTS is not ported yet: ROADMAP.md module item 1"
+    for st, raw_body in ((status, raw), (caps_status, caps)):
+        if st != 500 or json.loads(raw_body)["error"]["message"] != msg:
+            raise AssertionError(f"piper 14b pocket-tts: {st} {raw_body[:200]!r}")
+    log(f"piper 14b pocket-tts: speech and capabilities answer 500 {msg!r}")
+
+
+def _piper_routes(port: int) -> None:
+    """The model manager's unload and load routes on the loaded voice: the
+    unload gives its bytes back, the load takes as many again."""
+    with_voice = _card_bytes()
+    done = _json_call(port, "DELETE", f"/api/models/{PIPER_VOICE}", 200)
+    freed = with_voice - _card_bytes()
+    t0 = time.perf_counter()
+    loaded = _json_call(port, "POST", f"/api/models/{PIPER_VOICE}/load", 200)
+    load_s, held = time.perf_counter() - t0, _card_bytes() - (with_voice - freed)
+    status = _json_call(port, "GET", f"/api/models/{PIPER_VOICE}/status", 200)
+    if done.get("status") != "unloaded" or loaded.get("state") != "loaded" or status.get("state") != "loaded" \
+            or not str(loaded.get("device")).startswith("cuda") or freed < 100 * MIB or abs(held - freed) > FREED_SLACK:
+        raise AssertionError(f"piper 14b routes: {done}, {loaded}, {status}; freed {freed}, held {held}")
+    log(f"piper 14b DELETE /api/models/{PIPER_VOICE}: unloaded, {freed} bytes freed on the card; POST .../load: "
+        f"{loaded['state']} on {loaded.get('device')} in {load_s:.3f} s, {held} bytes held again")
+
+
+def _piper_effects() -> None:
+    """14c: the effects on the card against the CPU, ms per effect."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from open_speech_tpu_torch.audio.effects import apply_chain
+
+    x = _speechlike(EFFECTS_SECONDS, 41, EFFECTS_SR)
+    for name, chain in EFFECT_CASES.items():
+        want = apply_chain(x, EFFECTS_SR, chain, device="cpu")
+        got = apply_chain(x, EFFECTS_SR, chain, device="cuda")
+        err = float(np.abs(got - want).max())
+        if got.shape != want.shape or not np.isfinite(got).all() or err > EFFECTS_TOL[name]:
+            raise AssertionError(f"piper 14c {name}: card vs CPU max |diff| {err:.3e} over {EFFECTS_TOL[name]}")
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            apply_chain(x, EFFECTS_SR, chain, device="cuda")  # host copies in and out included
+            times.append(time.perf_counter() - t0)
+        log(f"piper 14c {name}: {EFFECTS_SECONDS} s at {EFFECTS_SR} Hz, card vs CPU max |diff| {err:.3e} "
+            f"(bound {EFFECTS_TOL[name]}); ms on the card p50 {1e3 * statistics.median(times):.3f} "
+            f"min {1e3 * min(times):.3f} (5 calls, host copies included)")
+
+
+def _piper_effects_served(port: int, plain, plain_streamed) -> None:
+    """14c: a speech request with the five-effect chain, whole and
+    streamed: 200, and the samples within the chain's bound of the CPU's
+    chain on the direct synthesis, post-processed whole (``plain``) or
+    chunk by chunk (``plain_streamed``), as each branch does."""
+    import numpy as np
+
+    from open_speech_tpu_torch.audio.effects import apply_chain
+    from open_speech_tpu_torch.ops import audio as codec
+
+    chain = EFFECT_CASES["chain"]
+    body = json.dumps({"model": PIPER_VOICE, "input": SERVING_TEXT, "response_format": "pcm",
+                       "effects": chain}).encode()
+    t0 = time.perf_counter()
+    status, _, whole = _http(port, "POST", "/v1/audio/speech", body, {"Content-Type": "application/json"})
+    whole_s = time.perf_counter() - t0
+    if status != 200:
+        raise AssertionError(f"piper 14c served effects: {status} {whole[:300]!r}")
+    ttfa, streamed = _piper_streamed_ttfa(port, PIPER_VOICE, chain)
+    errs = []
+    for name, pcm, before in (("whole", whole, plain), ("streamed", streamed, plain_streamed)):
+        want = apply_chain(before, 22050, chain, device="cpu")
+        got = codec.pcm16_to_float(pcm)
+        errs.append(float(np.abs(got - want).max()) if got.shape == want.shape else float("inf"))
+        if errs[-1] > EFFECTS_TOL["chain"] + 2 / 32767:
+            raise AssertionError(f"piper 14c served effects {name}: {got.shape} vs {want.shape}, "
+                                 f"max |diff| {errs[-1]:.3e}")
+    log(f"piper 14c POST /v1/audio/speech with the five-effect chain: whole 200 in {whole_s:.4f} s, "
+        f"streamed 200, the processed utterance as its first chunk at {1e3 * ttfa:.3f} ms; max |diff| "
+        f"against the CPU chain on the direct synthesis {errs[0]:.3e} (whole) {errs[1]:.3e} (streamed)")
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -26,11 +26,7 @@ import numpy as np
 import torch
 
 from open_speech_tpu_torch.models.kokoro.model import KModel, KokoroConfig, _tts_device
-from open_speech_tpu_torch.models.piper.convert import fold_weight_norms
-
-
-def _numpy(v) -> np.ndarray:
-    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+from open_speech_tpu_torch.models.piper.convert import _numpy, fold_weight_norms
 
 
 def _flatten(state: dict) -> dict:

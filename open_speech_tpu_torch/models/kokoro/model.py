@@ -39,8 +39,6 @@ from __future__ import annotations
 import hashlib
 import math
 import os
-import threading
-from contextlib import contextmanager
 from dataclasses import dataclass
 from functools import lru_cache
 
@@ -50,12 +48,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from open_speech_tpu_torch.ops.vocoder import (
+    CUDNN_F32 as _CUDNN,
     _synthesis_basis,
     compress_durations,
     conv1d,
     conv_transpose1d,
     layer_norm,
 )
+from open_speech_tpu_torch.ops.vocoder import inference as _inference
+from open_speech_tpu_torch.ops.vocoder import tts_device as _tts_device
 
 SAMPLE_RATE = 24_000
 # streamed blocks overlap their neighbours by this many alignment frames
@@ -336,13 +337,6 @@ class KModel(nn.Module):
         return self.bert_encoder.weight.device
 
 
-def _tts_device(device) -> torch.device:
-    if device is not None:
-        return torch.device(device)
-    from open_speech_tpu_torch.config import settings
-
-    return torch.device(settings.tts_effective_device)
-
 
 @torch.no_grad()
 def init_kokoro_params(generator: torch.Generator, cfg: KokoroConfig, device=None) -> KModel:
@@ -375,49 +369,6 @@ def init_kokoro_params(generator: torch.Generator, cfg: KokoroConfig, device=Non
             else:  # nn.Linear [out, in], LSTM [4H, in]
                 normal(p, p.shape[1] ** -0.5)
     return model
-
-
-# ──────────────────────────────────────────────────────────────────────
-# precision scope
-# ──────────────────────────────────────────────────────────────────────
-
-
-class _CudnnScope:
-    """Holds ``torch.backends.cudnn.allow_tf32`` at one value while any
-    Kokoro call runs, and gives the process its own value back when the last
-    one ends (reentrant and thread-safe). The flag is process-wide; with
-    TF32 off this can only make a concurrent float32 STT call exact, which
-    that path asks for anyway."""
-
-    def __init__(self, allow_tf32: bool) -> None:
-        self.allow_tf32 = allow_tf32
-        self._lock = threading.Lock()
-        self._depth = 0
-        self._saved = True
-
-    def __enter__(self) -> None:
-        with self._lock:
-            if self._depth == 0:
-                self._saved = torch.backends.cudnn.allow_tf32
-                torch.backends.cudnn.allow_tf32 = self.allow_tf32
-            self._depth += 1
-
-    def __exit__(self, *exc) -> None:
-        with self._lock:
-            self._depth -= 1
-            if self._depth == 0:
-                torch.backends.cudnn.allow_tf32 = self._saved
-
-
-# float32 convolutions and LSTMs on the card, as on the CPU and in the JAX
-# model (PERF.md records TF32's error and time beside it)
-_CUDNN = _CudnnScope(allow_tf32=False)
-
-
-@contextmanager
-def _inference():
-    with torch.inference_mode(), _CUDNN:
-        yield
 
 
 # ──────────────────────────────────────────────────────────────────────

@@ -256,7 +256,7 @@ class ModelManager:
     @staticmethod
     def _piper_voice_roots() -> list[Path]:
         """Where the piper backend actually caches voices
-        (tts/backends/piper_jax.py:_find_voice_file — keep in sync)."""
+        (tts/backends/piper_torch.py:_find_voice_file — keep in sync)."""
         roots = []
         env = os.environ.get("OS_PIPER_VOICES_DIR", "")
         if env:

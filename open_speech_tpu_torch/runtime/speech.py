@@ -18,12 +18,14 @@ so an error before the first byte is a real error response: 400 for a
 ``ValueError`` (text the vocab cannot express, an unsupported language),
 500 otherwise. For WAV the first chunk is the header.
 
-``effects`` (DSP) are not ported yet (``ROADMAP.md`` module item 3): a
-whole-body request with ``OS_EFFECTS_ENABLED=false`` goes on without them,
-as the JAX server's does; with the setting on, or streamed (where the JAX
-server always applies them), such a request raises a named error. Left
-out, each a later item of ``ROADMAP.md``: the TTS cache (off by default in
-the JAX package) and history.
+``effects`` (DSP, ``audio/effects.py``) run on the backend's device, as
+the JAX server applies them: a whole body gets them under
+``OS_EFFECTS_ENABLED`` (on by default); a streamed response always gets
+them, and then synthesizes and post-processes the whole utterance first
+(the effects are whole-signal DSP: a global level, a phase-vocoder pitch,
+reverb tails) and sends the processed audio as one chunk. Left out, each a
+later item of ``ROADMAP.md``: the TTS cache (off by default in the JAX
+package) and history.
 
 ``timing``, a dict the caller passes, receives what the server's metrics
 need: the native ``rate`` and the ``format``, and for a whole body
@@ -39,6 +41,7 @@ from typing import Iterator
 
 import numpy as np
 
+from open_speech_tpu_torch.audio.effects import apply_chain
 from open_speech_tpu_torch.audio.encode import CONTENT_TYPES, encode_audio, encode_audio_streaming
 from open_speech_tpu_torch.audio.postprocessing import StreamingPostProcessor, process_tts_chunks
 from open_speech_tpu_torch.config import settings
@@ -100,16 +103,14 @@ def speech_response(
         raise SpeechError(400, feature_error)
     if req.response_format not in CONTENT_TYPES:  # the formats the server answers in
         raise SpeechError(400, "Invalid response_format. Must be one of: " + ", ".join(sorted(CONTENT_TYPES)))
-    if req.effects and (stream or settings.os_effects_enabled):
-        raise NotImplementedError(
-            "speech effects (DSP) are not ported yet: ROADMAP.md module item 3")
     content_type = get_content_type(req.response_format)
 
     text = req.input
     if req.input_type == "ssml":
         text = parse_ssml(text)
     text = _pronunciation_dict(settings.tts_pronunciation_dict or "").apply(text)
-    rate = backend_sample_rate(router.get_backend(req.model), req.model)
+    backend = router.get_backend(req.model)
+    rate = backend_sample_rate(backend, req.model)
     timing = {} if timing is None else timing
     timing.update(rate=rate, format=req.response_format)
 
@@ -117,8 +118,12 @@ def speech_response(
         return router.synthesize(text=text, model=req.model, voice=req.voice, speed=req.speed,
                                  lang_code=req.language)
 
+    def effects(samples: np.ndarray) -> np.ndarray:
+        return apply_chain(samples, rate, req.effects, device=getattr(backend, "device", None))
+
     if stream:
-        return content_type, _stream(synthesize, rate, req.response_format)
+        return content_type, _stream(synthesize, rate, req.response_format,
+                                     effects if req.effects else None)
 
     def timed() -> Iterator[np.ndarray]:
         for chunk in synthesize():
@@ -129,17 +134,26 @@ def speech_response(
         chunks = list(process_tts_chunks(timed(), trim=settings.tts_trim_silence,
                                          normalize=settings.tts_normalize_output))
         samples = np.concatenate(chunks).astype(np.float32, copy=False) if chunks else np.zeros(0, np.float32)
+        if settings.os_effects_enabled and req.effects:
+            samples = effects(samples)
         timing["audio_seconds"] = len(samples) / rate
         return content_type, encode_audio(samples, rate, req.response_format)
     except Exception as e:  # noqa: BLE001 — every synthesis failure is a 500, as in the JAX server
         raise SpeechError(500, str(e)) from e
 
 
-def _stream(synthesize, rate: int, fmt: str) -> Iterator[bytes]:
-    """Produce the first encoded chunk now; the rest as the consumer pulls."""
+def _stream(synthesize, rate: int, fmt: str, effects=None) -> Iterator[bytes]:
+    """Produce the first encoded chunk now; the rest as the consumer pulls.
+    With ``effects``, the whole post-processed utterance goes through them
+    and out as one chunk."""
     pp = StreamingPostProcessor(trim=settings.tts_trim_silence, normalize=settings.tts_normalize_output)
 
     def processed() -> Iterator[np.ndarray]:
+        if effects is not None:
+            parts = [p for chunk in synthesize() for p in pp.feed(chunk)] + list(pp.finish())
+            if parts:
+                yield effects(np.concatenate([np.asarray(p, np.float32) for p in parts]))
+            return
         for chunk in synthesize():
             yield from pp.feed(chunk)
         yield from pp.finish()

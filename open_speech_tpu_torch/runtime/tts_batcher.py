@@ -1,18 +1,25 @@
-"""Concurrent Kokoro requests batched onto one device pass.
+"""Concurrent Kokoro and Piper requests batched onto one device pass.
 
-Counterpart of the Kokoro half of ``open_speech_tpu/runtime/tts_batcher.py``.
-Jobs arrive from request threads (every serving path calls the backend's
-sync generator); one daemon scheduler thread owns the card, gathers the
-jobs that arrive together, runs one batched ``encode_utterance`` and one
-blockwise ``vocode_streaming`` over them, and hands each job its rows'
-audio back over a ``queue.Queue`` as host float32 arrays.
+Counterpart of ``open_speech_tpu/runtime/tts_batcher.py``. Jobs arrive
+from request threads (every serving path calls the backend's sync
+generator); one daemon scheduler thread per loaded model owns the card,
+gathers the jobs that arrive together and hands each job its rows' audio
+back over a ``queue.Queue`` as host float32 arrays.
 
-Row independence: every Kokoro op is per row (masked norms, per-row LSTM
-lengths and frame masks) and each row draws its noise from its own
-generator seeded 0 on the model's device, so a batched row equals the same
-request synthesized alone. The JAX version pads the batch to a bucket
-(1, 4, 16, 64) so that XLA compiles few programs; eager torch compiles
-nothing per shape, so the batch here is exactly the jobs gathered.
+- ``TTSBatcher`` (Kokoro): one batched ``encode_utterance`` and one
+  blockwise ``vocode_streaming`` over the gathered jobs.
+- ``PiperBatcher`` (VITS): one batched ``synthesize_vits``. VITS renders
+  the whole masked utterance in one pass, so the batch is the streaming
+  unit: each job's PCM lands as one chunk.
+
+Row independence: every op of both models is per row (masked norms,
+per-row LSTM lengths and frame masks), and each row's noise is a function
+of that row alone (Kokoro: its own generator seeded 0 on the model's
+device; Piper: ``_row_noise`` of the row's seed), so a batched row equals
+the same request synthesized alone. The JAX version pads the batch to a
+bucket (1, 4, 16, 64) so that XLA compiles few programs; eager torch
+compiles nothing per shape, so both batches here are exactly the jobs
+gathered (a padded row would cost a full row of convolutions for nothing).
 
 The scheduler thread never holds the interpreter lock across a device
 sync: PyTorch releases it inside its ops, the copies to the host included,
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 
 from open_speech_tpu_torch.models.kokoro.model import KModel, KokoroConfig, encode_utterance, vocode_streaming
+from open_speech_tpu_torch.models.piper.model import PiperConfig, PiperModel, synthesize_vits
 
 logger = logging.getLogger(__name__)
 
@@ -195,6 +203,75 @@ class TTSBatcher(_BatchScheduler):
         self._count(jobs)
 
 
+class PiperBatcher(_BatchScheduler):
+    """Batches Piper (VITS) jobs: one ``synthesize_vits`` per batch."""
+
+    model: PiperModel | None
+    cfg: PiperConfig
+
+    def precompile(self, rows: int = 4) -> None:
+        """One batch of ``rows`` warmup jobs ahead of traffic: the card's
+        libraries are then set up for batched shapes."""
+        sink: queue.Queue = queue.Queue()
+        self._run_batch([(list(range(1, 17)), 0, 1.0, 0, sink)] * min(rows, MAX_BATCH))
+        while sink.get() is not None:  # drain
+            pass
+
+    def synthesize(self, phoneme_ids: list[int], speaker_id: int, speed: float, seed: int) -> Iterator[np.ndarray]:
+        """Submit one piece; yields its float32 PCM (a single chunk)."""
+        return self.submit((phoneme_ids, speaker_id, speed, seed))
+
+    def _run_batch(self, jobs: list) -> None:
+        cfg = self.cfg
+        n = len(jobs)
+        phonemes = np.zeros((n, cfg.max_phonemes), np.int64)
+        lengths = np.ones((n,), np.int64)
+        speakers = np.zeros((n,), np.int64)
+        speeds = np.ones((n,), np.float32)
+        seeds = []
+        for i, (ids, speaker, speed, seed, _out) in enumerate(jobs):
+            ids = list(ids)[: cfg.max_phonemes]
+            phonemes[i, : len(ids)] = ids
+            lengths[i] = max(len(ids), 1)
+            speakers[i] = speaker
+            speeds[i] = speed if speed and speed > 0 else 1.0
+            seeds.append(seed)
+        audio, n_frames = _piper_rows(self.model, cfg, *(torch.from_numpy(a) for a in (
+            phonemes, lengths, speakers, speeds)), seeds)
+        totals = n_frames.cpu().numpy() * cfg.samples_per_frame
+        audio = audio.cpu().numpy()
+        for i, (*_r, out) in enumerate(jobs):
+            out.put(audio[i, : int(totals[i])])
+            out.put(None)
+        self._count(jobs)
+
+
+def _row_noise(seed: int, cfg: PiperConfig, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """One row's (dp noise [2, P] scaled by noise_scale_w, z noise [hidden,
+    F]) from a CPU generator seeded with the row's seed alone, then moved
+    to ``device``: a row's noise depends on neither its batch peers nor the
+    device, so the card's rows equal the CPU's. (The JAX package folds the
+    seed into ``PRNGKey(0)``; ``jax.random`` and ``torch.Generator`` draw
+    different numbers, so parity tests inject JAX's rows here.)"""
+    gen = torch.Generator().manual_seed(int(seed))
+    dp = torch.randn((2, cfg.max_phonemes), generator=gen) * cfg.noise_scale_w
+    z = torch.randn((cfg.hidden, cfg.max_frames), generator=gen)
+    return dp.to(device), z.to(device)
+
+
+def _piper_rows(model: PiperModel, cfg: PiperConfig, phonemes, lengths, speakers, speeds, seeds):
+    """``synthesize_vits`` with each row's noise drawn from that row's seed.
+
+    ``synthesize_vits`` draws batch-shaped noise from one generator, right
+    for a fixed batch; a batcher mixes arbitrary requests, so each row's
+    noise must be a function of the row alone: ``_row_noise`` per row,
+    injected as the explicit dp/z noise."""
+    rows = [_row_noise(seed, cfg, model.device) for seed in seeds]
+    dp_noise = torch.stack([dp for dp, _ in rows])
+    z_noise = torch.stack([z for _, z in rows])
+    return synthesize_vits(model, cfg, phonemes, lengths, speakers, speeds, dp_noise=dp_noise, z_noise=z_noise)
+
+
 # ──────────────────────────────────────────────────────────────────────
 # registry: one batcher per loaded model
 # ──────────────────────────────────────────────────────────────────────
@@ -216,6 +293,30 @@ def get_tts_batcher(backend) -> TTSBatcher:
             b = TTSBatcher(backend._model, backend._cfg)
             _batchers[key] = b
         return b
+
+
+def get_piper_batcher(backend, mid: str) -> PiperBatcher:
+    """The batcher of one loaded Piper voice, replaced (and the old one
+    stopped) when the voice was reloaded."""
+    model, cfg, _meta = backend._models[mid]
+    key = ("piper", id(backend), mid)
+    with _registry_lock:
+        b = _batchers.get(key)
+        if b is None or b.model is not model:
+            if b is not None:
+                b.stop()
+            b = PiperBatcher(model, cfg)
+            _batchers[key] = b
+        return b
+
+
+def release_piper_batcher(backend, mid: str) -> None:
+    """Stop the batcher of an unloading Piper voice (drops its weights)."""
+    key = ("piper", id(backend), mid)
+    with _registry_lock:
+        b = _batchers.pop(key, None)
+    if b is not None:
+        b.stop()
 
 
 def tts_batcher_stats() -> dict:

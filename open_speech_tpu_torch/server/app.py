@@ -168,7 +168,7 @@ async def transcribe(request: Request) -> Response:
         raise ApiError(400, "Diarization is disabled. Set STT_DIARIZE_ENABLED=true")
     if diarize:
         raise NotImplementedError(
-            "speaker diarization is not ported yet: ROADMAP.md module item 4")
+            "speaker diarization is not ported yet: ROADMAP.md module item 2")
 
     router: BackendRouter = request.app["stt_router"]
     audio = await _in_executor(prepare_upload, router, model, audio_bytes, content_type)

@@ -2,11 +2,15 @@
 
 Counterpart of ``open_speech_tpu/tts/router.py``: backends are found by
 duck-typing the modules of ``open_speech_tpu_torch.tts.backends`` (Kokoro
-today), ``provider/model`` ids resolve by their provider, unknown ids go
-to the default backend (Kokoro), load/unload run under an RLock, and voice
-listings aggregate across backends. The JAX router's plugin hook
-(``register_backend``) has no caller in the port, and its single-speaker
-voice rule comes back with Piper.
+and Piper), ``provider/model`` ids resolve by their provider, unknown ids
+go to the default backend (Kokoro), plugins can ``register_backend``,
+load/unload run under an RLock, single-speaker backends (Piper) receive
+the model id as the voice, and voice listings aggregate across backends.
+
+An id that the JAX router resolves to a backend the port does not have yet
+(``pocket-tts``) raises a named ``NotImplementedError`` from
+``get_backend``: the speech, capability and load routes report it, and no
+route answers with the default backend's audio in its place.
 
 Every backend is made for ``device`` (``settings.tts_effective_device``,
 the card, when None). A backend module that fails to import, or a backend
@@ -28,6 +32,9 @@ from open_speech_tpu_torch.config import settings
 from open_speech_tpu_torch.tts.backends.base import TTSBackend, TTSLoadedModelInfo, VoiceInfo
 
 _BACKEND_ATTRS = ("name", "sample_rate", "synthesize", "load_model")
+
+# backend names of the JAX router that the port has not ported yet
+NOT_PORTED = {"pocket-tts": "Pocket TTS is not ported yet: ROADMAP.md module item 1"}
 
 
 def _discover_backends() -> dict[str, type]:
@@ -58,17 +65,25 @@ class TTSRouter:
         self._default_backend: TTSBackend | None = self._backends.get("kokoro") or next(
             iter(self._backends.values()), None)
 
-    # ── resolution ────────────────────────────────────────────────────
+    # ── registration / resolution ─────────────────────────────────────
+
+    def register_backend(self, name: str, backend: TTSBackend) -> None:
+        """Plugin hook: add a backend at runtime."""
+        with self._lock:
+            self._backends[name] = backend
+            if self._default_backend is None:
+                self._default_backend = backend
 
     def get_backend(self, model_id: str) -> TTSBackend:
-        backend = self._backends.get(model_id)
-        if backend is None and "/" in model_id:
-            backend = self._backends.get(model_id.split("/", 1)[0])
-        if backend is None:
-            backend = self._default_backend
-        if backend is None:
+        keys = (model_id, model_id.split("/", 1)[0]) if "/" in model_id else (model_id,)
+        for key in keys:
+            if key in self._backends:
+                return self._backends[key]
+            if key in NOT_PORTED:
+                raise NotImplementedError(NOT_PORTED[key])
+        if self._default_backend is None:
             raise RuntimeError("No TTS backends available")
-        return backend
+        return self._default_backend
 
     def list_backends(self) -> list[str]:
         return list(self._backends)
@@ -105,7 +120,10 @@ class TTSRouter:
         speed: float = 1.0,
         lang_code: str | None = None,
     ) -> Iterator[np.ndarray]:
-        return self.get_backend(model).synthesize(text, voice, speed, lang_code)
+        backend = self.get_backend(model)
+        if getattr(backend, "single_speaker", False):
+            voice = model  # a single-speaker backend selects its voice by model id
+        return backend.synthesize(text, voice, speed, lang_code)
 
     def list_voices(self, model: str | None = None) -> list[VoiceInfo]:
         if model and model in self._backends:

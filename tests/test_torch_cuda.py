@@ -1,6 +1,6 @@
 """The port's flash kernels (K1, K2) and the streaming block encode on a
-Hopper card against their plain versions; Kokoro (no hand kernel) on the
-card against the CPU.
+Hopper card against their plain versions; Kokoro, Piper and the effects
+chain (no hand kernel) on the card against the CPU.
 
 These tests need an NVIDIA Hopper card and skip without one. On the card's
 machine, which has no JAX, run them without the suite's conftest (it sets
@@ -431,3 +431,80 @@ def test_kokoro_blocks_cover_the_utterance_on_the_card(card):
     full = K.vocode(dev, cfg, g, frames, rng=torch.Generator(device=card).manual_seed(3))
     full = full[:, : total * spf].cpu().numpy()
     assert np.abs(joined - full).max() <= 2e-3 * max(1.0, np.abs(full).max())
+
+
+# ── Piper and the effects chain (no hand kernel) ────────────────────────
+
+
+def _piper(card):
+    from open_speech_tpu_torch.models.piper import PiperConfig, PiperModel, init_piper_params
+
+    cfg = PiperConfig(hidden=32, ffn_filter=64, n_layers=2, dp_filter=32, flow_layers=2,
+                      upsample_rates=(4, 4), upsample_kernels=(8, 8), upsample_initial=64,
+                      resblock_kernels=(3, 5), resblock_dilations=((1, 3), (1, 3)),
+                      n_speakers=3, gin=8, max_phonemes=16, max_frames=64)
+    host = init_piper_params(torch.Generator().manual_seed(3), cfg, device="cpu")
+    with torch.no_grad():  # live flows: VITS starts their post convolutions at zero
+        for name, p in host.named_parameters():
+            if name.startswith("flow.") and ".post." in name:
+                p.copy_(torch.randn(p.shape, generator=torch.Generator().manual_seed(4)) * 0.05)
+    dev = PiperModel.empty(cfg, card)
+    dev.load_state_dict(host.state_dict())
+    return cfg, host, dev
+
+
+def test_piper_card_matches_cpu(card):
+    """A small Piper with speakers on the card against the CPU, the same
+    weights and host-drawn noise: n_frames equal, the audio within 1e-4.
+    The process's cuDNN TF32 flag is left as it was found."""
+    from open_speech_tpu_torch.models.piper import synthesize_vits
+
+    cfg, host, dev = _piper(card)
+    g = torch.Generator().manual_seed(5)
+    ph = torch.randint(1, cfg.n_phonemes, (2, cfg.max_phonemes), generator=g)
+    ph[1, 9:] = 0
+    args = (ph, torch.tensor([16, 9]), torch.tensor([1, 2]), torch.tensor([1.0, 1.3]))
+    noise = dict(dp_noise=torch.randn(2, 2, cfg.max_phonemes, generator=g) * cfg.noise_scale_w,
+                 z_noise=torch.randn(2, cfg.hidden, cfg.max_frames, generator=g))
+    flag = torch.backends.cudnn.allow_tf32
+    want, n_want = synthesize_vits(host, cfg, *args, **noise)
+    got, n_got = synthesize_vits(dev, cfg, *args, **noise)
+    assert torch.backends.cudnn.allow_tf32 == flag
+    assert got.device.type == "cuda" and torch.equal(n_got.cpu(), n_want)
+    assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+def test_piper_batcher_rows_on_the_card_match_the_cpu(card):
+    """The batcher's rows draw their noise on the host from their seeds, so
+    a card row equals the CPU row."""
+    from open_speech_tpu_torch.runtime.tts_batcher import _piper_rows
+
+    cfg, host, dev = _piper(card)
+    ph = torch.zeros(2, cfg.max_phonemes, dtype=torch.long)
+    ph[0, :7], ph[1, :12] = torch.arange(1, 8), torch.arange(3, 15)
+    args = (ph, torch.tensor([7, 12]), torch.tensor([0, 2]), torch.tensor([1.0, 0.9]), [11, 12])
+    want, n_want = _piper_rows(host, cfg, *args)
+    got, n_got = _piper_rows(dev, cfg, *args)
+    assert torch.equal(n_got.cpu(), n_want) and (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("effect", [
+    [{"type": "normalize"}], [{"type": "pitch", "semitones": 3}], [{"type": "reverb", "room": "large"}],
+    [{"type": "podcast_eq"}], [{"type": "robot"}],
+    [{"type": "podcast_eq"}, {"type": "pitch", "semitones": -2}, {"type": "reverb"}, {"type": "robot"},
+     {"type": "normalize"}]])
+def test_effects_on_the_card_match_the_cpu(card, effect):
+    """Each effect and a chain on 3 s at 24 kHz: the card's samples within
+    the CPU's (1e-5; pitch, and the chain through it, 2e-3: the phase
+    vocoder's float32 cumulative phase sums in another order on the card)."""
+    import numpy as np
+
+    from open_speech_tpu_torch.audio.effects import apply_chain
+
+    rng = np.random.default_rng(0)
+    t = np.arange(72_000) / 24000
+    x = (0.3 * np.sin(2 * np.pi * 220 * t) + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+    want = apply_chain(x, 24000, effect, device="cpu")
+    got = apply_chain(x, 24000, effect, device=card)
+    tol = 1e-4 if any(e["type"] == "pitch" for e in effect) else 1e-5
+    assert got.shape == want.shape and np.abs(got - want).max() <= tol

@@ -5,7 +5,8 @@ open_speech_tpu.
 importing it (and every submodule, the streaming session, the continuous
 batcher, its pool, batched long-form, int8 quantization, speculative
 decoding, Kokoro's model and converter, the
-vocoder ops, Piper's weight-norm folding, Kokoro serving (the TTS router,
+vocoder ops, Piper's model, converter and backend, the effects DSP and
+chain, the spectral report, Kokoro serving (the TTS router,
 backend and batcher, G2P, and the speech handler's body), and the server
 (the app, its HTTP/multipart/WebSocket shell, errors, middleware, TLS
 bootstrap and ``__main__``), the realtime socket, the Wyoming server, the
@@ -48,7 +49,8 @@ want = ("server.streaming", "runtime.batcher", "runtime.batcher_pool", "models.w
         "server.realtime.server", "server.realtime.events", "server.realtime.session",
         "server.realtime.audio_buffer", "server.wyoming", "server.wyoming.server",
         "server.wyoming.protocol", "runtime.registry", "server.metrics", "runtime.model_manager",
-        "runtime.lifecycle")
+        "runtime.lifecycle", "models.piper.model", "tts.backends.piper_torch", "ops.effects",
+        "audio.effects", "audio.spectral")
 print(len(names), ",".join(bad), int(all("open_speech_tpu_torch." + w in names for w in want)))
 """
 
@@ -63,7 +65,7 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
     assert n_modules >= 30, "walk_packages should find every submodule"
     assert named == "1", ("the streaming session, the batchers, batched long-form, "
                           "Kokoro's model and serving modules, the server, the realtime socket, "
-                          "Wyoming and model management must be among them")
+                          "Wyoming, model management, Piper and the effects must be among them")
     assert bad == "", f"port imported: {bad}"
 
 
@@ -137,11 +139,13 @@ _COPIES = [
 
 @pytest.mark.parametrize("rel", _COPIES)
 def test_copies_equal_their_jax_originals(rel):
-    """A copied module equals its original once the package name is
-    normalised, so the copies cannot drift."""
+    """A copied module equals its original once the package name, and the
+    Piper backend's module name it cites, are normalised, so the copies
+    cannot drift."""
     original = (ROOT / "open_speech_tpu" / rel).read_text(encoding="utf-8")
     copy = (PKG / rel).read_text(encoding="utf-8")
-    assert copy.replace("open_speech_tpu_torch", "open_speech_tpu") == original
+    normalised = copy.replace("open_speech_tpu_torch", "open_speech_tpu")
+    assert normalised.replace("backends/piper_torch.py", "backends/piper_jax.py") == original
 
 
 # the server's settings: the JAX package's names, env variables and defaults

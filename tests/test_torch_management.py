@@ -16,10 +16,12 @@ JAX package on the CPU.
   (``loaded_at``, ``last_used_at``, ``ttl_remaining``) within
   ``STAMP_TOL`` seconds, and artifact paths relative to each side's cache
   root. Both apps serve the fixture STT backend on the CPU. The JAX app's
-  TTS router is held to the provider the port has (Kokoro; Piper and
-  Pocket are later slices) and its Kokoro backend reports the CPU, where
-  it runs here. Kokoro is marked loaded without weights: no route here
-  synthesizes. A download is a load then an unload of a fixture
+  TTS router is held to the providers the port has (Kokoro and Piper;
+  Pocket is a later slice, so the port lists its catalog row without
+  capabilities where the held JAX router shows the Kokoro fallback's), its
+  backends report the CPU, where they run here, and both Piper backends
+  make their voices at ``tests/test_torch_piper.py``'s small geometry.
+  Kokoro is marked loaded without weights: no route here synthesizes. A download is a load then an unload of a fixture
   checkpoint on disk: nothing is fetched.
 - **The profiler's 409 guards**, and the port's refusal to start without
   the card's activity when its routers are on the card.
@@ -28,6 +30,7 @@ JAX package on the CPU.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import json
 import time
 from pathlib import Path
@@ -51,9 +54,11 @@ import open_speech_tpu_torch.schemas as TSCH
 import open_speech_tpu_torch.server.metrics as TMET
 import open_speech_tpu_torch.tts.backends.base as TTB
 from open_speech_tpu.config import settings as jax_settings
+from open_speech_tpu.models.piper.model import PiperConfig as JPiperConfig
 from open_speech_tpu.runtime.router import router as jax_router
 from open_speech_tpu.server import app as JAPP
 from open_speech_tpu_torch.config import settings as torch_settings
+from open_speech_tpu_torch.models.piper import PiperConfig as TPiperConfig
 from open_speech_tpu_torch.runtime.router import BackendRouter
 from open_speech_tpu_torch.server import app as TAPP
 from open_speech_tpu_torch.tts.router import TTSRouter
@@ -63,6 +68,10 @@ ROOT = Path(__file__).resolve().parent.parent
 FIXTURES = ROOT / "tests" / "fixtures"
 MODEL = "test-tiny-eot"
 STAMP_TOL = 5.0  # seconds between the two servers' clocks for one call
+# Piper voices made at a small geometry: a load through the routes stays cheap
+PIPER_CFG = JPiperConfig(hidden=32, ffn_filter=64, n_layers=2, dp_filter=32, flow_layers=2,
+                         upsample_rates=(4, 4), upsample_kernels=(8, 8), upsample_initial=64,
+                         resblock_kernels=(3,), resblock_dilations=((1, 3),), max_phonemes=16, max_frames=64)
 
 PACKAGES = {
     "jax": SimpleNamespace(settings=jax_settings, mm=JMM, lifecycle=JL, registry=JREG, pool=JBP,
@@ -607,15 +616,20 @@ def served(routers, monkeypatch, tmp_path):
     monkeypatch.setattr(jax_router, "_default_backend", jb)
     for key in list(jax_router._backends):
         monkeypatch.setitem(jax_router._backends, key, jb)
-    jkokoro = JAPP.tts_router.get_backend("kokoro")
-    monkeypatch.setattr(JAPP.tts_router, "_backends", {"kokoro": jkokoro})
+    jkokoro, jpiper = JAPP.tts_router.get_backend("kokoro"), JAPP.tts_router.get_backend("piper")
+    monkeypatch.setattr(JAPP.tts_router, "_backends", {"kokoro": jkokoro, "piper": jpiper})
     monkeypatch.setattr(jkokoro, "_device_arg", "cpu")
     monkeypatch.setattr(jkokoro, "_params", None)
+    monkeypatch.setattr(jpiper, "_device_arg", "cpu")
+    monkeypatch.setattr(jpiper, "_cfg", PIPER_CFG)
+    for attr in ("_models", "_loaded_at", "_last_used"):
+        monkeypatch.setattr(jpiper, attr, {})
     monkeypatch.setattr(JAPP, "_download_progress", {})
     monkeypatch.setattr(JAPP, "_profiler_active", {})
     monkeypatch.setattr(JAPP, "metrics", JMET.Metrics())
     monkeypatch.setattr(TAPP, "metrics", TMET.Metrics())
     tts = TTSRouter(device="cpu")
+    tts.get_backend("piper")._cfg = TPiperConfig(**dataclasses.asdict(PIPER_CFG))
     backends = (jb, trouter._default_backend)
     for backend in backends:
         for mid in list(backend._models):
@@ -649,10 +663,28 @@ def _stamped(got, want):
 
 
 def _same_stamped(jax, port):
+    jax = _pocket_unported(jax)
     (js, jh, jbody), (ts, th, tbody) = jax, port
     if jbody and tbody and jh.get("Content-Type", "").startswith("application/json"):
         tbody = json.dumps(_stamped(json.loads(tbody), json.loads(jbody))).encode()
     _same(jax, (ts, th, tbody))
+
+
+def _pocket_unported(answer):
+    """The JAX answer with the catalog's ``pocket-tts`` row as the port lists
+    it: no capabilities, since its router refuses to resolve a backend it
+    has not ported (the held JAX router would show the Kokoro fallback's)."""
+    status, headers, body = answer
+    if not body or not headers.get("Content-Type", "").startswith("application/json"):
+        return answer
+    data = json.loads(body)
+    rows = data.get("models") if isinstance(data, dict) else None
+    if not isinstance(rows, list) or not any(isinstance(r, dict) and r.get("id") == "pocket-tts" for r in rows):
+        return answer
+    for row in rows:
+        if row.get("id") == "pocket-tts" and "capabilities" in row:
+            row["capabilities"] = {}
+    return status, headers, json.dumps(data).encode()
 
 
 def _post(path, body=None):
@@ -668,6 +700,7 @@ def _delete(path):
 
 
 M = "/api/models"
+PIPER = "piper/en_US-lessac-medium"
 # (id, calls, settings changed on both sides, kokoro marked loaded)
 ROUTE_CASES = [
     ("ps", [_get("/api/ps")], {}, False),
@@ -688,8 +721,11 @@ ROUTE_CASES = [
     ("load-loaded", [_post(f"{M}/{MODEL}/load"), _get(f"{M}/{MODEL}/status")], {}, False),
     ("load-default", [_post(f"{M}/{MODEL}/load"), _get(M)], {"stt_model": MODEL}, False),
     ("load-kokoro", [_post(f"{M}/kokoro/load"), _get(f"{M}/kokoro/status")], {}, True),
-    ("load-provider-missing", [_post(f"{M}/piper/en_US-lessac-medium/load"),
-                               _get(f"{M}/piper/en_US-lessac-medium/progress")], {}, False),
+    ("load-provider-missing", [_post(f"{M}/pocket-tts/load"), _get(f"{M}/pocket-tts/progress")], {}, False),
+    ("load-piper", [_post(f"{M}/{PIPER}/load"), _get(f"{M}/{PIPER}/status"), _get("/api/ps"),
+                    _get("/v1/audio/models"), _delete(f"{M}/{PIPER}"), _get(f"{M}/{PIPER}/status"),
+                    _post("/v1/audio/models/load", {"model": PIPER}), _get("/v1/audio/models"),
+                    _post("/v1/audio/models/unload", {"model": PIPER}), _get("/api/ps")], {}, False),
     ("load-failed", [_post(f"{M}/nope-model/load"), _get(f"{M}/nope-model/progress"), _get("/api/ps")],
      {}, False),
     ("download", [_post(f"{M}/test-tiny/download"), _get(f"{M}/test-tiny/progress"),
@@ -725,7 +761,7 @@ ROUTE_STATUS = {
     "models": [200], "models-kokoro-loaded": [200], "tts-capabilities": [200] * 3,
     "tts-capabilities-off": [404], "status-progress": [200] * 7, "load": [200] * 6,
     "load-loaded": [200, 200], "load-default": [200, 200], "load-kokoro": [200, 200],
-    "load-provider-missing": [400, 200], "load-failed": [500, 200, 200],
+    "load-provider-missing": [400, 200], "load-piper": [200] * 10, "load-failed": [500, 200, 200],
     "download": [200] * 5, "download-loaded": [200, 200], "prefetch": [200, 200],
     "download-failed": [400, 200], "unload": [200, 404, 200, 200], "unload-kokoro": [200, 404],
     "pull": [200, 200, 500], "tts-models": [200], "tts-models-loaded": [200],

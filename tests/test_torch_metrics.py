@@ -13,11 +13,12 @@ against the JAX package on the CPU.
   the STT audio seconds within 1e-4; every time-derived value (walls,
   RTFx, TTFA, uptime) positive and finite; ``/api/stats`` has the same
   keys, ``replica`` compared by keys only.
-- **The effects repair.** With ``OS_EFFECTS_ENABLED=false`` a whole-body
-  request that carries ``effects`` gets the same status and audio from
-  both apps (within ``TOL_AUDIO`` plus one PCM step, as
-  ``tests/test_torch_server.py`` holds served WAVs); with the setting on,
-  or streamed, the port answers its named error (the DSP is a later item).
+- **The effects.** With ``OS_EFFECTS_ENABLED=false`` a whole-body request
+  that carries ``effects`` gets the same status and audio from both apps
+  (within ``TOL_AUDIO`` plus one PCM step, as ``tests/test_torch_server.py``
+  holds served WAVs); with the setting on, or streamed, both apps apply
+  them, and the port's PCM is the JAX app's within the same bound plus the
+  reverb's rounding.
 """
 
 from __future__ import annotations
@@ -193,30 +194,19 @@ def test_effects_are_ignored_when_disabled_as_the_jax_app_does(speech, both):
 
 @pytest.mark.parametrize("enabled,query", [(True, ""), (False, "?stream=true"), (True, "?stream=true")])
 def test_effects_the_port_cannot_apply_name_their_item(speech, both, enabled, query):
-    """With the setting on, or streamed (where the JAX app always applies
-    them), the port answers its named error."""
+    """The DSP is ported, so no named error is left: with the setting on,
+    or streamed (where both apps always apply them), the port answers the
+    JAX app's status, content type and effected PCM, within ``TOL_AUDIO``
+    plus the reverb's float32 rounding and one PCM step. Streamed, the whole
+    utterance goes out processed."""
     trouter, tts = speech
     both(os_effects_enabled=enabled)
     body = {"input": TEXT, "voice": "af_bella", "response_format": "pcm", "effects": EFFECTS}
-
-    async def ask():
-        import aiohttp
-
-        from open_speech_tpu_torch.server.http import serve_app
-
-        app = TAPP.create_app(stt_router=trouter, tts_router=tts)
-        server = await serve_app(app, "127.0.0.1", 0)
-        try:
-            async with aiohttp.ClientSession() as session:
-                async with session.post(f"http://127.0.0.1:{server.port}/v1/audio/speech{query}",
-                                        json=body) as resp:
-                    return resp.status, await resp.json()
-        finally:
-            await server.close()
-            await app.cleanup()
-
-    import asyncio
-
-    assert asyncio.run(ask()) == (500, {"error": {
-        "message": "speech effects (DSP) are not ported yet: ROADMAP.md module item 3",
-        "code": "internal_error"}})
+    calls = [("POST", "/v1/audio/speech" + query, None, {"json": body}),
+             ("POST", "/v1/audio/speech" + query, None, {"json": {**body, "effects": []}})]
+    [(jax, port), (_, plain)] = _ask_both(trouter, calls, tts_router=tts)
+    assert port[0] == jax[0] == plain[0] == 200 and port[1]["Content-Type"] == jax[1]["Content-Type"]
+    got, want = codec.pcm16_to_float(port[2]), codec.pcm16_to_float(jax[2])
+    assert got.shape == want.shape == codec.pcm16_to_float(plain[2]).shape and got.size > 0
+    np.testing.assert_allclose(got, want, atol=TOL_AUDIO + 1e-6 + 2 / 32768)
+    assert not np.allclose(got, codec.pcm16_to_float(plain[2]), atol=1e-3)  # the reverb was applied

@@ -326,14 +326,20 @@ def test_router_resolves_to_the_card_by_default(monkeypatch):
     nothing is loaded, so nothing runs."""
     monkeypatch.setattr(torch_settings, "stt_device", "cuda")
     monkeypatch.setattr(torch_settings, "tts_device", None)
+    from open_speech_tpu.tts.router import TTSRouter as JRouter
+    from open_speech_tpu_torch.tts.router import NOT_PORTED
+
     router = TTSRouter()
     backend = router.get_backend("kokoro")
-    assert backend.device == torch.device("cuda")
-    assert router.list_backends() == ["kokoro"]
+    assert backend.device == torch.device("cuda") and router.get_backend("piper").device == torch.device("cuda")
+    jr = JRouter(device="cpu")
+    # the JAX router's backends, but those the port has not ported yet (Pocket)
+    assert router.list_backends() == [n for n in jr.list_backends() if n not in NOT_PORTED] == ["kokoro", "piper"]
     assert router.get_backend("kokoro/any") is backend and router.get_backend("nope") is backend
     assert router.get_capabilities("kokoro")["voice_blend"] is True
     assert router.loaded_models() == [] and not router.is_model_loaded("kokoro")
-    assert len(router.list_voices()) == 52
+    want = [v.__dict__ for v in jr.list_voices() if not v.id.startswith("pocket/")]
+    assert [v.__dict__ for v in router.list_voices()] == want and len(want) == 52 + 30
     assert TTSRouter(device="cpu").get_backend("kokoro").device == torch.device("cpu")
 
 
@@ -412,12 +418,26 @@ def test_rejected_requests_match_the_jax_server(monkeypatch, jax_answers, name, 
     assert e.value.message == message
 
 
-def test_effects_name_their_later_item():
-    """With OS_EFFECTS_ENABLED on (the default), a request with effects
-    names the item that ports the DSP."""
+def test_effects_name_their_later_item(injected, model):
+    """The DSP is ported: with OS_EFFECTS_ENABLED on (the default), a
+    request with effects raises no named error but answers the plain
+    request's samples through ``apply_chain`` (the chain itself is held to
+    the JAX package's in ``tests/test_torch_effects.py``), within two PCM
+    steps of requantisation."""
+    from open_speech_tpu_torch.audio.effects import apply_chain
+
     router = TTSRouter(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md module item 3$"):
-        S.speech_response(router, {"input": "hi", "effects": [{"type": "reverb"}]})
+    backend = router.get_backend("kokoro")
+    backend._model, backend._cfg = model, TCFG
+    body = {"input": TEXT, "voice": "af_bella", "response_format": "pcm"}
+    effects = [{"type": "reverb", "room": "small"}]
+    _, plain = S.speech_response(router, body)
+    _, effected = S.speech_response(router, {**body, "effects": effects})
+    want = apply_chain(codec.pcm16_to_float(plain), 24000, effects, device="cpu")
+    got = codec.pcm16_to_float(effected)
+    assert got.shape == want.shape and got.size > 0
+    np.testing.assert_allclose(got, want, atol=2 / 32768)
+    assert not np.allclose(got, codec.pcm16_to_float(plain), atol=1e-3)
 
 
 @pytest.fixture(scope="module")

@@ -112,14 +112,14 @@ def _event_tuple(e):
 
 
 def test_describe_matches_jax(routers, tts_pair):
-    """The info equals JAX's but for the voices of the backends the port
-    has not yet (Piper and Pocket, ``ROADMAP.md`` items 4 and 5)."""
+    """The info equals JAX's, Piper's voices included, but for the voices
+    of the backend the port has not yet (Pocket, ``ROADMAP.md`` item 1)."""
     jax_replies, port_replies = _talk_to_both(routers, tts_pair, [TP.Event("bogus-event", {"x": 1}),
                                                                  TP.Event("describe")], ("info",))
     (info,), (want,) = port_replies, jax_replies
     voices = want.data["tts"][0]["voices"]
-    want.data["tts"][0]["voices"] = [v for v in voices if not v["name"].startswith(("piper/", "pocket/"))]
-    assert len(want.data["tts"][0]["voices"]) == 52 < len(voices)
+    want.data["tts"][0]["voices"] = [v for v in voices if not v["name"].startswith("pocket/")]
+    assert len(want.data["tts"][0]["voices"]) == 52 + 30 < len(voices)
     assert _event_tuple(info) == _event_tuple(want)
     names = [m["name"] for m in info.data["asr"][0]["models"]]
     assert len(names) == 8 and names[0] == "whisper-tiny"
