@@ -131,10 +131,27 @@ Phases, each of which raises on failure (exit code 1, no result line):
      registry voice behind ``create_app``: speech WAV (22.05 kHz) and
      streamed PCM equal to the direct backend call, Wyoming describe (its
      30 Piper voices) and synthesize at 16 kHz, the unload and load routes
-     giving the voice's bytes back, ``pocket-tts`` answering its named
-     error; 14c the five effects and a chain on 12 s at 24 kHz against the
-     CPU with ms per effect, and a speech request with the chain, whole
-     and streamed. Fails if a flash kernel is launched in phase 14.
+     giving the voice's bytes back, ``pocket-tts`` serving its own audio;
+     14c the five effects and a chain on 12 s at 24 kHz against the CPU
+     with ms per effect, and a speech request with the chain, whole and
+     streamed. Fails if a flash kernel is launched in phase 14.
+ 15. Pocket TTS (``models/pocket``, ``runtime/pocket_batcher.py``,
+     ``tts/backends/pocket_tts.py``) at full width (``PocketLMConfig()`` +
+     ``MimiConfig()``, random weights from seed 13, float32, TF32 off):
+     15a card against CPU: the Mimi codes of a 2 s clip (equal wherever
+     the CPU's RVQ margin exceeds 1e-3), a voice prompt's caches, 24 frames
+     teacher-forced on the CPU's tokens (hidden, text and depformer logits
+     per step within relative L2 1e-4; tokens equal at every decision whose
+     top-2 margin exceeds 1e-3), the card's streamed decode of those frames
+     against the CPU's whole decode; a sentence's TTFA, wall, ms per frame
+     and RTFx, and a profiled frame (launches, idle share); 15b the slot
+     pool at 1, 4 and 16 sessions (each row's frames and PCM against its
+     solo run, TTFA, wall, peak memory) and the host syncs of its groups
+     (at most one each); 15c ``pocket-tts`` behind ``create_app``: speech
+     with a speaker, a base64 reference clip and a voice design, whole and
+     streamed, and the clone route, each equal to the direct backend call;
+     capabilities, voices and Wyoming describe; the load and unload routes
+     giving the card's memory back. Fails if a flash kernel is launched.
 
 Each phase's seconds, and the whole script's, are printed on lines of
 their own.
@@ -619,6 +636,7 @@ def main() -> int:
     del router  # phase 13 loads turbo on a router of its own
     phases.append(timed("13 (model management)", phase_management, tts))
     timed("14 (piper and effects)", phase_piper)
+    timed("15 (pocket)", phase_pocket)
     for phase in phases:
         for key, n in phase.items():
             launches[key] = launches.get(key, 0) + n
@@ -4089,15 +4107,24 @@ def _piper_wyoming(served, tts, want) -> None:
 
 
 def _piper_pocket(port: int) -> None:
-    """``pocket-tts`` answers the named error, not the default backend's audio."""
-    body = json.dumps({"model": "pocket-tts", "input": "Hello there."}).encode()
+    """``pocket-tts`` serves its own audio (the backend's default tiny
+    preset, random weights, on the card), not the default backend's, and
+    reports its own capabilities."""
+    import numpy as np
+
+    from open_speech_tpu_torch.ops import audio as codec
+
+    body = json.dumps({"model": "pocket-tts", "input": "Hello there.", "response_format": "wav"}).encode()
     status, _, raw = _http(port, "POST", "/v1/audio/speech", body, {"Content-Type": "application/json"})
-    caps_status, _, caps = _http(port, "GET", "/api/tts/capabilities?model=pocket-tts")
-    msg = "Pocket TTS is not ported yet: ROADMAP.md module item 1"
-    for st, raw_body in ((status, raw), (caps_status, caps)):
-        if st != 500 or json.loads(raw_body)["error"]["message"] != msg:
-            raise AssertionError(f"piper 14b pocket-tts: {st} {raw_body[:200]!r}")
-    log(f"piper 14b pocket-tts: speech and capabilities answer 500 {msg!r}")
+    caps = _json_call(port, "GET", "/api/tts/capabilities?model=pocket-tts", 200)
+    if status != 200:
+        raise AssertionError(f"piper 14b pocket-tts: {status} {raw[:200]!r}")
+    samples, rate = codec.read_wav(raw)
+    if rate != 24000 or not samples.size or not np.isfinite(samples).all() or caps["backend"] != "pocket-tts" \
+            or not caps["capabilities"]["voice_clone"]:
+        raise AssertionError(f"piper 14b pocket-tts: {rate} Hz, {samples.size} samples, {caps}")
+    log(f"piper 14b pocket-tts: speech answers 200, {samples.size / rate:.3f} s of 24 kHz WAV from the Pocket "
+        f"backend; its capabilities name it, voice_clone on")
 
 
 def _piper_routes(port: int) -> None:
@@ -4174,6 +4201,671 @@ def _piper_effects_served(port: int, plain, plain_streamed) -> None:
     log(f"piper 14c POST /v1/audio/speech with the five-effect chain: whole 200 in {whole_s:.4f} s, "
         f"streamed 200, the processed utterance as its first chunk at {1e3 * ttfa:.3f} ms; max |diff| "
         f"against the CPU chain on the direct synthesis {errs[0]:.3e} (whole) {errs[1]:.3e} (streamed)")
+
+
+# ── phase 15: Pocket TTS ─────────────────────────────────────────────────
+
+POCKET_SEED = 13  # the weights of 15a and 15b
+POCKET_FRAMES = 24  # 15a's teacher-forced frames
+POCKET_TEXT = "Please call me back when you are ready to talk."  # 47 frames at one per character
+POCKET_ROWS = (1, 4, 16)  # 15b's concurrent sessions
+# 15a card against CPU (float32, TF32 off on both), relative L2: the prompt
+# caches, per generation step the temporal hidden, text and depformer
+# logits, and the streamed decode of the CPU's frames against the CPU's
+# whole decode; 15b a batched row's PCM against its solo run, max |diff|
+POCKET_TOL = {"cache": 1e-4, "hidden": 1e-4, "text_logits": 1e-4, "dep_logits": 1e-4, "pcm": 1e-3, "row": 1e-4}
+# a token decision must agree where the reference's top-2 logit gap exceeds
+# this, an RVQ code where its two nearest squared distances differ by more
+POCKET_MARGIN = 1e-3
+
+
+def phase_pocket() -> None:
+    """15: Pocket TTS at full width (``PocketLMConfig()``: LM 1024 x 16
+    layers, depformer 256 x 4 x 8 stages; ``MimiConfig()``: 512 x 8
+    layers; max_ctx 1536; random weights from a seed, float32, TF32 off).
+    15a card against CPU: Mimi codes of a 2 s clip, a voice prompt's
+    caches, 24 frames of generation teacher-forced on the CPU's tokens, the
+    streamed decode of its frames; then TTFA, wall and RTFx of a sentence,
+    a frame's wall without the profiler, and the launches and device time
+    of a profiled frame. 15b the slot-pool batcher at 1, 4 and 16 sessions
+    (rows against solo runs, host syncs per group, TTFA, wall, peak
+    memory). 15c served through ``create_app``: speech (speaker, clone,
+    design; whole and streamed; the speaker again with the batcher on) and
+    the clone route against direct backend calls, capabilities, voices,
+    Wyoming describe, and the load and unload routes giving the card's
+    memory back. Fails if a flash kernel is launched."""
+    import gc
+
+    from open_speech_tpu_torch.ops import attention as A
+
+    before = dict(A.launches)
+    host, card = _pocket_models()
+    state = _pocket_card_vs_cpu(host, card)
+    del host
+    gc.collect()
+    _pocket_timings(card, state)
+    _pocket_batcher(card, state)
+    del card, state
+    _pocket_served()
+    if dict(A.launches) != before:
+        raise AssertionError(f"pocket 15: flash launches moved: {before} -> {dict(A.launches)}")
+    log(f"pocket 15: flash launch counts unchanged through phase 15: {before}")
+
+
+def _pocket_models():
+    """The same full-width random weights on the CPU and on the card."""
+    import copy
+
+    import torch
+
+    from open_speech_tpu_torch.models.pocket import MimiConfig, PocketLMConfig, PocketTTS
+
+    t0 = time.perf_counter()
+    host = PocketTTS.random_init(torch.Generator().manual_seed(POCKET_SEED), PocketLMConfig(), MimiConfig(),
+                                 device="cpu")
+    init_s = time.perf_counter() - t0
+    card = PocketTTS(copy.deepcopy(host.lm_params).to("cuda"), copy.deepcopy(host.mimi_params).to("cuda"),
+                     host.lm_cfg, host.mimi_cfg)
+    torch.cuda.synchronize()
+    lm_n = sum(b.numel() for b in card.lm_params.buffers())
+    mimi_n = sum(b.numel() for b in card.mimi_params.buffers())
+    cfg, mcfg = card.lm_cfg, card.mimi_cfg
+    pool = 2 * cfg.n_layers * 16 * cfg.n_heads * cfg.max_ctx * cfg.head_dim * 4
+    log(f"pocket 15a: LM d {cfg.d_model} x {cfg.n_layers} layers ({cfg.n_heads} heads), depformer "
+        f"{cfg.dep_d_model} x {cfg.dep_layers} x {cfg.n_q} stages, Mimi {mcfg.dimension} x {mcfg.t_layers} layers, "
+        f"max_ctx {cfg.max_ctx}, random weights from seed {POCKET_SEED} (drawn in {init_s:.1f} s), float32: "
+        f"{lm_n} + {mimi_n} parameters ({4 * lm_n / 1e9:.3f} + {4 * mimi_n / 1e9:.3f} GB); a 16-slot KV pool is "
+        f"{pool / 1e9:.3f} GB, a voice prompt's caches {pool / 16 / 1e9:.3f} GB; {torch.cuda.memory_allocated()} "
+        f"bytes allocated on the card")
+    return host, card
+
+
+def _pocket_encode(host, card):
+    """15a 1: Mimi codes of a 2 s clip, card against CPU; the CPU's codes."""
+    import numpy as np
+    import torch
+
+    from open_speech_tpu_torch.models.pocket import mimi as Mi
+    from open_speech_tpu_torch.ops.vocoder import inference
+
+    mcfg = host.mimi_cfg
+    clip = _speechlike(2.0, 51, mcfg.sample_rate)
+    spf = mcfg.samples_per_frame
+    padded = np.zeros((1, -(-clip.size // spf) * spf), np.float32)
+    padded[0, : clip.size] = clip
+    codes, margins = {}, {}
+    for name, m in (("cpu", host), ("card", card)):
+        found: list = []
+        with inference():
+            codes[name] = Mi.mimi_encode(m.mimi_params, mcfg, torch.from_numpy(padded).to(m.device), found)[0].cpu()
+        margins[name] = torch.stack([g[0].cpu() for g in found])  # [n_q, F]
+    want, got, margin = codes["cpu"], codes["card"], margins["cpu"]
+    # each frame's residual chain: after a code that differs within the
+    # margin, the later levels quantize another residual and are excused
+    excused = 0
+    for f in range(want.shape[1]):
+        for q in range(want.shape[0]):
+            if got[q, f] != want[q, f]:
+                if margin[q, f] > POCKET_MARGIN:
+                    raise AssertionError(f"pocket 15a encode: frame {f} level {q}: card code {int(got[q, f])} vs CPU "
+                                         f"{int(want[q, f])} at margin {float(margin[q, f]):.3e}")
+                excused += want.shape[0] - q
+                break
+    log(f"pocket 15a Mimi encode of a 2 s clip: {want.shape[0]} x {want.shape[1]} codes, card = CPU at every code "
+        f"({excused} after a flip within the margin {POCKET_MARGIN}); least CPU margin {float(margin.min()):.3e}, "
+        f"{int((margin <= POCKET_MARGIN).sum())} codes within it")
+    return want[None].numpy()
+
+
+def _pocket_prefill_text(m, state):
+    """generate_stream's text prefill of POCKET_TEXT after ``state`` on a
+    copy of its caches: (caches, next position, text pad token)."""
+    import numpy as np
+    import torch
+
+    from open_speech_tpu_torch.models.pocket import model as Mo
+
+    cfg, dev = m.lm_cfg, m.device
+    ids = [cfg.text_bos_id] + m.tokenizer.encode(POCKET_TEXT) + [cfg.text_eos_id]
+    pad_to = Mo._bucket(len(ids), cap=cfg.max_ctx - state.length - 1)
+    text = np.full((1, pad_to), cfg.text_pad_id, np.int64)
+    text[0, : len(ids)] = ids
+    grid = torch.full((1, cfg.n_q, pad_to), cfg.audio_initial, dtype=torch.int64, device=dev)
+    caches = (state.k_cache.clone(), state.v_cache.clone())
+    caches = Mo._prefill(m.lm_params, cfg, torch.from_numpy(text).to(dev), grid, caches, state.length, len(ids))
+    return caches, state.length + len(ids), torch.full((1,), cfg.text_pad_id, dtype=torch.int64, device=dev)
+
+
+def _pocket_steps(m, state, feed=None) -> dict:
+    """POCKET_FRAMES frames of greedy generation after the text prefill:
+    per step the temporal hidden, the text logits, the depformer's logits
+    at the step's tokens and the tokens. With ``feed`` (the CPU's tokens
+    per step) the tokens and the next step's inputs are the CPU's: teacher
+    forcing."""
+    import numpy as np
+    import torch
+
+    from open_speech_tpu_torch.models.pocket import lm as L
+    from open_speech_tpu_torch.ops.vocoder import inference
+
+    cfg, dev, p = m.lm_cfg, m.device, m.lm_params
+    delays = np.asarray(cfg.delays)
+    out = {"hidden": [], "text_logits": [], "dep_logits": [], "toks": []}
+    with inference():
+        caches, pos, text_pad = _pocket_prefill_text(m, state)
+        audio_in = torch.full((1, cfg.n_q), cfg.audio_initial, dtype=torch.int64, device=dev)
+        for s in range(POCKET_FRAMES + cfg.max_delay):
+            h, caches = L.temporal_step(p, cfg, L.embed_step(p, cfg, text_pad, audio_in), caches,
+                                        torch.full((1,), pos + s, dtype=torch.int64, device=dev))
+            hn = L._rms(h, p["out_norm"])
+            toks = L.depformer_sample(p, cfg, hn, text_pad) if feed is None else feed[s].to(dev)
+            out["hidden"].append(h[0].cpu())
+            out["text_logits"].append((hn @ p["text_linear"]["w"])[0].cpu())
+            out["dep_logits"].append(L.depformer_forward(p, cfg, hn, text_pad, toks)[0].cpu())
+            out["toks"].append(toks.cpu())
+            frame = s - delays
+            live = torch.from_numpy((frame >= 0) & (frame < POCKET_FRAMES)).to(dev)
+            audio_in = torch.where(live[None], toks, cfg.audio_initial)
+    return out
+
+
+def _pocket_card_vs_cpu(host, card):
+    """15a checks 1-4; returns the card's prompt state (the CPU's codes)."""
+    import numpy as np
+    import torch
+
+    from open_speech_tpu_torch.models.pocket import mimi as Mi
+    from open_speech_tpu_torch.ops.vocoder import inference
+
+    tokens = _pocket_encode(host, card)
+    t0 = time.perf_counter()
+    states = {"cpu": host.state_for_tokens(tokens), "card": card.state_for_tokens(tokens)}
+    torch.cuda.synchronize()
+    if states["cpu"].length != states["card"].length:
+        raise AssertionError(f"pocket 15a prompt: lengths {states['cpu'].length} vs {states['card'].length}")
+    n = states["cpu"].length
+    errs = [_rel_l2(f"pocket 15a prompt {kind} cache", getattr(states["card"], kind)[..., :n, :],
+                    getattr(states["cpu"], kind)[..., :n, :], POCKET_TOL["cache"]) for kind in ("k_cache", "v_cache")]
+    log(f"pocket 15a voice prompt: {tokens.shape[2]} frames -> {n} steps in the caches on both; relative L2 "
+        f"k {errs[0]:.3e} v {errs[1]:.3e} (bound {POCKET_TOL['cache']}); both prefills {time.perf_counter() - t0:.2f} s")
+
+    cpu = _pocket_steps(host, states["cpu"])
+    gpu = _pocket_steps(card, states["card"], feed=cpu["toks"])
+    worst = {}
+    for key in ("hidden", "text_logits", "dep_logits"):
+        worst[key] = max(_rel_l2(f"pocket 15a step {s} {key}", g, w, POCKET_TOL[key])
+                         for s, (g, w) in enumerate(zip(gpu[key], cpu[key])))
+    cfg = host.lm_cfg
+    dep_cpu, dep_gpu = torch.stack(cpu["dep_logits"]), torch.stack(gpu["dep_logits"])  # [S, n_q, card]
+    top2 = torch.topk(dep_cpu, 2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    decided = margin > POCKET_MARGIN
+    want = torch.stack(cpu["toks"])[:, 0]  # [S, n_q]
+    got = dep_gpu.argmax(-1)
+    if not torch.equal(got[decided], want[decided]):
+        bad = (got != want) & decided
+        raise AssertionError(f"pocket 15a: card tokens differ from the CPU's at {int(bad.sum())} decided decisions")
+    log(f"pocket 15a generation, {POCKET_FRAMES} frames ({want.shape[0]} steps) teacher-forced on the CPU's tokens: "
+        f"worst per-step relative L2 hidden {worst['hidden']:.3e} text logits {worst['text_logits']:.3e} depformer "
+        f"logits {worst['dep_logits']:.3e} (bound 1e-4); card tokens = CPU at all {int(decided.sum())} of "
+        f"{decided.numel()} decisions whose top-2 margin exceeds {POCKET_MARGIN}; least margin {float(margin.min()):.3e}, "
+        f"{int((~decided).sum())} decisions under it ({int((got != want).sum())} differ)")
+
+    delays = np.asarray(cfg.delays)
+    toks = want.numpy()
+    frames = np.stack([toks[d: d + POCKET_FRAMES, k] for k, d in enumerate(delays)])[None]  # [1, n_q, F]
+    with inference():
+        whole = Mi.mimi_decode(host.mimi_params, host.mimi_cfg, torch.from_numpy(frames))
+    streamed = Mi.MimiStreamingDecoder(card.mimi_params, card.mimi_cfg, block_frames=2).feed(frames)
+    rel = _rel_l2("pocket 15a streamed decode", streamed, whole, POCKET_TOL["pcm"])
+    log(f"pocket 15a Mimi streaming decode on the card of the CPU's {POCKET_FRAMES} frames (blocks of 2) against the "
+        f"CPU's whole decode: relative L2 {rel:.3e} (bound {POCKET_TOL['pcm']}), {streamed.shape[1]} samples, "
+        f"max|pcm| {float(whole.abs().max()):.4g}")
+    return states["card"]
+
+
+def _pocket_timings(card, state) -> None:
+    """15a 5: one sentence through ``generate_stream`` from the voice
+    prompt (TTFA = the first 2-frame block), then five frames without the
+    profiler and one under it."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from open_speech_tpu_torch.models.pocket import model as Mo
+    from open_speech_tpu_torch.ops.vocoder import inference
+
+    runs = []
+    for _ in range(3):  # the first run also pays the card's one-time set-ups
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ttfa, blocks = None, []
+        for blk in card.generate_stream(POCKET_TEXT, state):
+            ttfa = ttfa if ttfa is not None else time.perf_counter() - t0
+            blocks.append(blk)
+        runs.append((ttfa, time.perf_counter() - t0, np.concatenate(blocks)))
+    pcm = runs[-1][2]
+    frames = len(POCKET_TEXT)
+    if not np.isfinite(pcm).all() or pcm.size != frames * card.mimi_cfg.samples_per_frame:
+        raise AssertionError(f"pocket 15a sentence: {pcm.size} samples, or not finite")
+    if not all(np.array_equal(r[2], pcm) for r in runs):
+        raise AssertionError("pocket 15a sentence: runs differ")
+    audio_s = pcm.size / card.sample_rate
+    log(f"pocket 15a one sentence ({len(POCKET_TEXT)} characters, {frames} frames, {audio_s:.3f} s of audio) from "
+        f"the voice prompt: TTFA ms " + " ".join(f"{1e3 * r[0]:.3f}" for r in runs) + "; wall s "
+        + " ".join(f"{r[1]:.4f}" for r in runs) + f"; ms per frame {1e3 * runs[-1][1] / frames:.3f}; RTFx "
+        f"{audio_s / runs[-1][1]:.2f} (the last of 3 runs; Mimi decode included)")
+
+    cfg, dev = card.lm_cfg, card.device
+    with inference():
+        caches, pos, text_pad = _pocket_prefill_text(card, state)
+        audio_in = torch.full((1, cfg.n_q), cfg.audio_initial, dtype=torch.int64, device=dev)
+
+        def frame(s):
+            toks, _, _ = Mo._gen_step(card.lm_params, cfg, text_pad, text_pad, audio_in, caches,
+                                      torch.full((1,), pos + s, dtype=torch.int64, device=dev))
+            return toks.cpu()  # the loop's one readback per frame
+
+        frame(0)
+        plain = []  # frames without the profiler, whose own host cost would count as idle
+        for s in range(1, 6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frame(s)
+            plain.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            frame(6)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    if busy <= 0:
+        raise AssertionError("pocket 15a profile: no device time in the trace")
+    n_launch = sum(e.count for e in kernels)
+    plain_wall = sorted(plain)[len(plain) // 2]
+    log(f"pocket 15a one frame (temporal step + 8-stage depformer + readback): unprofiled wall_ms median "
+        f"{1e3 * plain_wall:.3f} of " + " ".join(f"{1e3 * t:.3f}" for t in plain) + f"; profiled wall_ms "
+        f"{1e3 * wall:.3f} (profiler overhead included) device_busy_ms {1e3 * busy:.3f}; kernel launches {n_launch}; "
+        f"idle_share against the unprofiled wall {1 - busy / plain_wall:.4f} (against the profiled "
+        f"{1 - busy / wall:.4f}); host us per launch (unprofiled wall / launches) {1e6 * plain_wall / n_launch:.2f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} x  {e.key[:90]}")
+
+
+def _pocket_texts(n: int) -> list[str]:
+    words = SERVING_TEXT.replace(".", "").split()
+    return [" ".join(words[i % 7: i % 7 + 3 + i % 4]) for i in range(n)]
+
+
+class _PocketSolo:
+    """Wraps ``depformer_sample`` of the model module: each step's tokens
+    and per-stage logits of the runs made inside the block."""
+
+    def __enter__(self):
+        from open_speech_tpu_torch.models.pocket import model as Mo
+
+        self.module, self.real, self.steps = Mo, Mo.depformer_sample, []
+
+        def logged(params, cfg, h, text_tok, temp=0.0, generator=None):
+            logits: list = []
+            toks = self.real(params, cfg, h, text_tok, temp, generator, logits_out=logits)
+            self.steps.append((toks, logits))
+            return toks
+
+        Mo.depformer_sample = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.module.depformer_sample = self.real
+
+
+def _pocket_solo(card, text, state):
+    """A solo run's PCM, frames [n_q, F] and per-decision margins [n_q, F]."""
+    import numpy as np
+    import torch
+
+    with _PocketSolo() as rec:
+        pcm = np.concatenate(list(card.generate_stream(text, state)))
+    delays, n = card.lm_cfg.delays, max(4, len(text))
+    toks = torch.stack([t[0] for t, _ in rec.steps]).cpu()  # [S, n_q]
+    logits = torch.stack([torch.stack([lg[0] for lg in stages]) for _, stages in rec.steps])  # [S, n_q, card]
+    top2 = torch.topk(logits, 2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).cpu()
+    frames = np.stack([toks[d: d + n, k].numpy() for k, d in enumerate(delays)])
+    margins = np.stack([margin[d: d + n, k].numpy() for k, d in enumerate(delays)])
+    return pcm, frames, margins
+
+
+def _pocket_batch_round(card, jobs, log_tokens: bool):
+    """Every job queued before the scheduler starts (one wave); (per job:
+    PCM, frames or None, TTFA s), wall s, peak bytes."""
+    import queue
+    import threading
+
+    import numpy as np
+    import torch
+
+    from open_speech_tpu_torch.runtime import pocket_batcher as TB
+
+    b = TB.PocketBatcher(card, slots=16, block_frames=2)
+    b.precompile()
+    blocks: dict = {}
+    real = TB._mimi_group
+    if log_tokens:
+        def logged(mimi_params, cfg, tokens, state, reset_mask, decode_mask):
+            for row in torch.nonzero(decode_mask).flatten().tolist():
+                blocks.setdefault(id(b._slots[row].out), []).append(tokens[row].cpu().numpy())
+            return real(mimi_params, cfg, tokens, state, reset_mask, decode_mask)
+
+        TB._mimi_group = logged
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        outs = [queue.Queue() for _ in jobs]
+        got: list = [None] * len(jobs)
+
+        def drain(i):
+            parts, first = [], None
+            while (item := outs[i].get(timeout=600)) is not None:
+                if isinstance(item, Exception):
+                    got[i] = item
+                    return
+                first = first if first is not None else time.perf_counter()
+                parts.append(item)
+            got[i] = (np.concatenate(parts), first)
+
+        threads = [threading.Thread(target=drain, args=(i,)) for i in range(len(jobs))]
+        for th in threads:
+            th.start()
+        t0 = time.perf_counter()
+        for (text, state), out in zip(jobs, outs):
+            b._queue.put(TB._Job(text, state, out))
+        b._ensure_thread()
+        for th in threads:
+            th.join(600)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        TB._mimi_group = real
+        b.stop(wait=True)
+    rows = []
+    for job, out, res in zip(jobs, outs, got):
+        if not isinstance(res, tuple):
+            raise AssertionError(f"pocket 15b: a session failed: {res!r}")
+        frames = np.concatenate(blocks[id(out)], axis=1)[:, : max(4, len(job[0]))] if log_tokens else None
+        rows.append((res[0], frames, res[1] - t0))
+    return rows, wall, peak, b.stats
+
+
+def _pocket_batcher(card, state) -> None:
+    """15b: 1, 4 and 16 sessions through one wave of the slot pool, every
+    second one in the cloned voice; each row's frames and PCM against its
+    solo run; then the host syncs of a full pool's groups."""
+    import statistics
+
+    import numpy as np
+
+    texts = _pocket_texts(max(POCKET_ROWS))
+    jobs = [(t, state if i % 2 else None) for i, t in enumerate(texts)]
+    solo = [_pocket_solo(card, t, s) for t, s in jobs]
+    for n in POCKET_ROWS:
+        rows, _, _, _ = _pocket_batch_round(card, jobs[:n], log_tokens=True)
+        flips, err = [], 0.0
+        for i, ((pcm, frames, _), (want_pcm, want_frames, margins)) in enumerate(zip(rows, solo)):
+            if frames.shape != want_frames.shape or pcm.shape != want_pcm.shape:
+                raise AssertionError(f"pocket 15b {n} rows: row {i} {frames.shape} vs solo {want_frames.shape}")
+            diff = np.argwhere(frames != want_frames)
+            upto = pcm.size
+            if diff.size:  # the first differing decision must be a near-tie of the solo run
+                k, f = diff[np.argmin(diff[:, 1])]
+                if margins[k, f] > POCKET_MARGIN:
+                    raise AssertionError(f"pocket 15b {n} rows: row {i} frame {f} stage {k}: {frames[k, f]} vs solo "
+                                         f"{want_frames[k, f]} at margin {margins[k, f]:.3e}")
+                flips.append((i, int(f), float(margins[k, f])))
+                upto = int(f) * card.mimi_cfg.samples_per_frame
+            err = max(err, float(np.abs(pcm[:upto] - want_pcm[:upto]).max()) if upto else 0.0)
+        if err > POCKET_TOL["row"]:
+            raise AssertionError(f"pocket 15b {n} rows: max |row - solo| {err:.3e}")
+        rows2, wall, peak, stats = _pocket_batch_round(card, jobs[:n], log_tokens=False)
+        ttfa = [r[2] for r in rows2]
+        audio_s = sum(r[0].size for r in rows2) / card.sample_rate
+        log(f"pocket 15b {n} concurrent sessions ({sum(len(t) for t, _ in jobs[:n])} frames): frames = their solo "
+            f"runs' ({len(flips)} near-tie flips {flips}), max |row - solo| {err:.3e}; TTFA s p50 "
+            f"{statistics.median(ttfa):.4f} max {max(ttfa):.4f}; wall {wall:.4f} s for {audio_s:.2f} s of audio "
+            f"(RTFx {audio_s / wall:.2f}); groups {stats['groups']}, peak live {stats['peak_live']}; peak card memory "
+            f"{peak} bytes")
+    _pocket_sync_probe(card, jobs)
+
+
+def _pocket_sync_probe(card, jobs) -> None:
+    """Four groups of a 16-session pool run on this thread under CUDA's sync
+    debug mode: each may sync with the host once. As in phase 5's probe,
+    garbage is collected first, under the mode, and its syncs reported
+    apart (so is the mode's first switch in a process)."""
+    import gc
+    import queue
+
+    import torch
+
+    from open_speech_tpu_torch.ops.vocoder import inference
+    from open_speech_tpu_torch.runtime import pocket_batcher as TB
+
+    b = TB.PocketBatcher(card, slots=16, block_frames=2)
+    try:
+        with inference():
+            b._install([TB._Job(t, s, queue.Queue()) for t, s in jobs], list(range(len(jobs))))
+            torch.cuda.synchronize()
+            in_gc = _count_syncs(gc.collect)
+            syncs, times = [], []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                syncs.append(_count_syncs(b._run_group))
+                times.append(time.perf_counter() - t0)
+    finally:
+        b.stop(wait=True)
+    if any(len(s) > 1 for s in syncs):
+        raise AssertionError(f"pocket 15b: pool groups synced at {syncs} (want at most 1 each)")
+    log(f"pocket 15b sync probe: collecting garbage first synced {len(in_gc)} time(s) {in_gc}")
+    log(f"pocket 15b sync probe: 4 groups of 16 live sessions, host syncs per group {[len(s) for s in syncs]} at "
+        f"{sorted({x for s in syncs for x in s})}; group ms " + " ".join(f"{1e3 * t:.3f}" for t in times))
+
+
+def _pocket_multipart(fields: dict, ref: bytes) -> tuple[bytes, dict]:
+    """A multipart body: ``fields`` and ``ref`` as the ``reference_audio`` file."""
+    import os
+
+    boundary = "chipsmoke" + os.urandom(8).hex()
+    parts = [f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'.encode()
+             for k, v in fields.items()]
+    parts.append(f'--{boundary}\r\nContent-Disposition: form-data; name="reference_audio"; filename="ref.wav"'
+                 f"\r\nContent-Type: audio/wav\r\n\r\n".encode() + ref + b"\r\n")
+    parts.append(f"--{boundary}--\r\n".encode())
+    return b"".join(parts), {"Content-Type": f"multipart/form-data; boundary={boundary}"}
+
+
+def _pocket_served() -> None:
+    """15c: pocket-tts at full width behind ``create_app`` on the card."""
+    import base64
+    import os
+
+    import numpy as np
+
+    from open_speech_tpu_torch.audio.postprocessing import StreamingPostProcessor, process_tts_chunks
+    from open_speech_tpu_torch.config import settings
+    from open_speech_tpu_torch.models.pocket import PocketLMConfig
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.runtime.router import BackendRouter
+    from open_speech_tpu_torch.tts.router import TTSRouter
+
+    saved_env = os.environ.get("OS_POCKET_PRESET")
+    os.environ["OS_POCKET_PRESET"] = "base"
+    baseline = _card_bytes()
+    tts = TTSRouter()  # the card
+    model = "pocket-tts"
+    ref = codec.write_wav(_speechlike(3.0, 61, 16000), 16000)
+    kw = dict(trim=settings.tts_trim_silence, normalize=settings.tts_normalize_output)
+    try:
+        with _Served(BackendRouter(device="cuda:0"), tts) as served:
+            port = served.port
+            t0 = time.perf_counter()
+            loaded = _json_call(port, "POST", f"/api/models/{model}/load", 200)
+            load_s, held = time.perf_counter() - t0, _card_bytes() - baseline
+            backend = tts.get_backend(model)
+            if loaded.get("state") != "loaded" or backend._model.device.type != "cuda" \
+                    or backend._model.lm_cfg != PocketLMConfig():
+                raise AssertionError(f"pocket 15c load: {loaded}, {backend._model.device}")
+            log(f"pocket 15c POST /api/models/{model}/load (OS_POCKET_PRESET=base, random weights, warmup "
+                f"included): {loaded['state']} on {loaded.get('device')} in {load_s:.3f} s, {held} bytes on the card")
+
+            def direct(streamed: bool, **extra) -> np.ndarray:
+                chunks = backend.synthesize(POCKET_TEXT, extra.pop("voice", "pocket/alice"), **extra)
+                if not streamed:
+                    return np.concatenate(list(process_tts_chunks(chunks, **kw)))
+                pp = StreamingPostProcessor(**kw)
+                return np.concatenate([p for c in chunks for p in pp.feed(c)] + list(pp.finish()))
+
+            cases = [("speaker", {"voice": "pocket/alice"}, {"voice": "pocket/alice"}),
+                     ("clone", {"reference_audio": base64.b64encode(ref).decode()}, {"reference_audio": ref}),
+                     ("design", {"voice_design": "a warm narrator"}, {"voice_design": "a warm narrator"})]
+            for name, fields, extra in cases:
+                body = {"model": model, "input": POCKET_TEXT, **fields}
+                t0 = time.perf_counter()
+                status, _, wav = _http(port, "POST", "/v1/audio/speech",
+                                       json.dumps({**body, "response_format": "wav"}).encode(),
+                                       {"Content-Type": "application/json"})
+                wall = time.perf_counter() - t0
+                if status != 200:
+                    raise AssertionError(f"pocket 15c speech {name}: {status} {wav[:300]!r}")
+                got, rate = codec.read_wav(wav)
+                want = direct(False, **dict(extra))
+                if rate != 24000 or not np.array_equal(got, codec.pcm16_to_float(codec.float_to_pcm16(want))):
+                    raise AssertionError(f"pocket 15c speech {name}: {rate} Hz, {got.shape} vs direct {want.shape}")
+                ttfa, pcm = _pocket_streamed(port, body)
+                want_streamed = direct(True, **dict(extra))
+                if pcm != codec.float_to_pcm16(want_streamed):
+                    raise AssertionError(f"pocket 15c streamed {name}: {len(pcm)} bytes vs {2 * want_streamed.size}")
+                log(f"pocket 15c POST /v1/audio/speech {name}: WAV {got.size / rate:.3f} s = the direct backend call's "
+                    f"samples, wall {wall:.4f} s; streamed PCM = the direct call's bytes, TTFA {1e3 * ttfa:.3f} ms")
+            _pocket_served_batched(port, backend, direct, want_solo=direct(False))
+            payload, headers = _pocket_multipart(
+                {"input": POCKET_TEXT, "model": model, "response_format": "wav", "transcript": "a tone"}, ref)
+            t0 = time.perf_counter()
+            status, _, wav = _http(port, "POST", "/v1/audio/speech/clone", payload, headers)
+            wall = time.perf_counter() - t0
+            want = direct(False, voice="Ryan", reference_audio=ref, clone_transcript="a tone")
+            if status != 200 or not np.array_equal(codec.read_wav(wav)[0],
+                                                   codec.pcm16_to_float(codec.float_to_pcm16(want))):
+                raise AssertionError(f"pocket 15c clone route: {status} {wav[:200]!r}")
+            log(f"pocket 15c POST /v1/audio/speech/clone (multipart, 16 kHz reference): 200, WAV = the direct call's "
+                f"samples, wall {wall:.4f} s")
+            _pocket_listings(served, tts, backend)
+            t0 = time.perf_counter()
+            done = _json_call(port, "DELETE", f"/api/models/{model}", 200)
+            after = _card_bytes() - baseline
+            if done.get("status") != "unloaded" or after > FREED_SLACK:
+                raise AssertionError(f"pocket 15c unload: {done}, {after} bytes over the baseline")
+            log(f"pocket 15c DELETE /api/models/{model}: unloaded in {time.perf_counter() - t0:.3f} s, {after} bytes "
+                f"over the phase's baseline (bound {FREED_SLACK})")
+    finally:
+        if saved_env is None:
+            os.environ.pop("OS_POCKET_PRESET", None)
+        else:
+            os.environ["OS_POCKET_PRESET"] = saved_env
+        for m in [m.model for m in tts.loaded_models()]:
+            tts.unload_model(m)
+
+
+def _pocket_served_batched(port: int, backend, direct, want_solo) -> None:
+    """15c: one speaker request with ``OS_TTS_BATCHER_ENABLED`` on, so the
+    served path runs the backend's slot-pool batcher at full width; its
+    body equals the direct call's through the batcher, whole and streamed,
+    and is within ``POCKET_TOL["row"]`` of the solo generation's."""
+    import numpy as np
+
+    from open_speech_tpu_torch.config import settings
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.runtime.pocket_batcher import pocket_batcher_stats
+
+    body = {"model": "pocket-tts", "input": POCKET_TEXT, "voice": "pocket/alice"}
+    saved = settings.os_tts_batcher_enabled
+    settings.os_tts_batcher_enabled = True
+    try:
+        t0 = time.perf_counter()
+        status, _, wav = _http(port, "POST", "/v1/audio/speech", json.dumps({**body, "response_format": "wav"}).encode(),
+                               {"Content-Type": "application/json"})
+        wall = time.perf_counter() - t0
+        if status != 200:
+            raise AssertionError(f"pocket 15c batched speech: {status} {wav[:300]!r}")
+        ttfa, pcm = _pocket_streamed(port, body)
+        want, want_streamed = direct(False), direct(True)
+        stats = pocket_batcher_stats()
+    finally:
+        settings.os_tts_batcher_enabled = saved
+    got, rate = codec.read_wav(wav)
+    if rate != 24000 or not np.array_equal(got, codec.pcm16_to_float(codec.float_to_pcm16(want))):
+        raise AssertionError(f"pocket 15c batched speech: {rate} Hz, {got.shape} vs direct {want.shape}")
+    if pcm != codec.float_to_pcm16(want_streamed):
+        raise AssertionError(f"pocket 15c batched streamed: {len(pcm)} bytes vs {2 * want_streamed.size}")
+    err = float(np.abs(want - want_solo).max()) if want.shape == want_solo.shape else float("inf")
+    if err > POCKET_TOL["row"]:
+        raise AssertionError(f"pocket 15c batched: {want.shape} vs solo {want_solo.shape}, max |batched - solo| {err:.3e}")
+    jobs = sum(st["jobs"] for st in stats.values())
+    if jobs < 4:  # the two served and the two direct requests
+        raise AssertionError(f"pocket 15c batched: the batcher counted {stats}")
+    log(f"pocket 15c POST /v1/audio/speech speaker with OS_TTS_BATCHER_ENABLED on: WAV and streamed PCM = the direct "
+        f"call's through the batcher, max |batched - solo| {err:.3e} (bound {POCKET_TOL['row']}); wall {wall:.4f} s, "
+        f"streamed TTFA {1e3 * ttfa:.3f} ms; batcher {stats}")
+
+
+def _pocket_streamed(port: int, body: dict) -> tuple[float, bytes]:
+    """A streamed PCM speech request: (seconds to the first chunk, body)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/v1/audio/speech?stream=true", body=json.dumps({**body, "response_format": "pcm"}),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise AssertionError(f"pocket 15c streamed speech: {resp.status} {resp.read()[:300]!r}")
+        first = resp.read1(65536)
+        return time.perf_counter() - t0, first + resp.read()
+    finally:
+        conn.close()
+
+
+def _pocket_listings(served, tts, backend) -> None:
+    """The capabilities route, the voices route and Wyoming describe list
+    Pocket as the JAX app does: its capabilities and its 8 speakers."""
+    from open_speech_tpu_torch.server.wyoming.server import start_wyoming_server
+
+    port = served.port
+    speakers = ["alice", "bob", "carol", "dave", "eve", "frank", "grace", "henry"]
+    caps = _json_call(port, "GET", "/api/tts/capabilities?model=pocket-tts", 200)
+    voices = _json_call(port, "GET", "/v1/audio/voices?model=pocket-tts", 200)["voices"]
+    want_caps = {**backend.capabilities}
+    if caps != {"backend": "pocket-tts", "capabilities": want_caps} or not want_caps["voice_clone"] \
+            or [v["id"] for v in voices] != [f"pocket/{s}" for s in speakers]:
+        raise AssertionError(f"pocket 15c listings: {caps}, {voices}")
+    server = served._run(start_wyoming_server(served.app["stt_router"], tts, host="127.0.0.1", port=0))
+    try:
+        client = _WyomingClient(server.sockets[0].getsockname()[1])
+        client.send("describe")
+        ((_, info, _),) = client.until("info")
+        client.close()
+    finally:
+        served._run(_closed(server))
+    names = [v["name"] for v in info["tts"][0]["voices"]]
+    if [n for n in names if n.startswith("pocket/")] != [f"pocket/{s}" for s in speakers]:
+        raise AssertionError(f"pocket 15c wyoming describe: {names}")
+    log(f"pocket 15c /api/tts/capabilities: pocket-tts, voice_clone and voice_design on; /v1/audio/voices and Wyoming "
+        f"describe list the 8 pocket/ speakers ({len(names)} voices in all)")
+
 
 if __name__ == "__main__":
     sys.exit(main())

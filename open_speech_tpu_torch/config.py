@@ -8,7 +8,7 @@ the continuous batcher, Kokoro serving (``POST /v1/audio/speech``'s
 body, the backend and the TTS batcher), the HTTP server (``server/``:
 binding, TLS, auth, CORS, rate limits, upload size, preloads), the
 realtime socket, the Wyoming server, model management and its TTL/LRU
-lifecycle, and the profiler routes read. ``os_vad_device``
+lifecycle, the profiler routes and Pocket's slot-pool batcher read. ``os_vad_device``
 (``OS_VAD_DEVICE``, which the JAX package reads from the environment
 directly) names the VAD's device; its default is the STT device. ``stt_device`` defaults to ``cuda``; ``tts_device`` defaults to
 ``stt_device``.
@@ -102,10 +102,16 @@ _DEFAULTS: dict[str, object] = {
     "tts_preload_models": "",
     # speech effects (DSP) on a whole-body /v1/audio/speech request
     "os_effects_enabled": True,
-    # concurrent Kokoro requests share one batched encode + blockwise vocode
+    # concurrent Kokoro and Piper requests share one batched encode +
+    # blockwise vocode; Pocket sessions share the slot-pool batcher
     "os_tts_batcher_enabled": False,
     # rows of the TTS batcher's warmup batch at load: the largest entry
     "os_tts_precompile_buckets": "1,4,16,64",
+    # Pocket's slot pool: concurrent sessions per pool group (sizes the
+    # card's KV pool, 2*L*slots*H*max_ctx*Dh entries), and the frames each
+    # group advances every session (one host sync, one Mimi block)
+    "os_pocket_batch_slots": 16,
+    "os_pocket_block_frames": 2,
 }
 
 _OPTIONAL_STR = {"stt_model_dir", "tts_device"}

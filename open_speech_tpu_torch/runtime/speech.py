@@ -5,11 +5,14 @@ does with a parsed JSON body (``open_speech_tpu/server/app.py``), in its
 order and with its status codes and messages: the TTS switch (404), the
 request's validation (422), input length and emptiness (400), features
 the backend lacks (400), the response format (400), then SSML and the
-pronunciation dictionary, then synthesis through the router, trim and
-normalise, and WAV/PCM encoding (compressed formats through ffmpeg when it
-is installed). Every rejection raises ``SpeechError`` with the status and
-message the JAX server answers with, so the HTTP shell maps them one to
-one.
+pronunciation dictionary, then synthesis through the router (or, for a
+request with ``voice_design`` or ``reference_audio``, the backend called
+directly with the extended arguments its capabilities allow: the design,
+the reference audio base64-decoded, or its raw bytes when it does not
+decode, and the clone transcript), trim and normalise, and WAV/PCM
+encoding (compressed formats through ffmpeg when it is installed). Every
+rejection raises ``SpeechError`` with the status and message the JAX
+server answers with, so the HTTP shell maps them one to one.
 
 A streamed response is an iterator of encoded bytes that pulls synthesis
 lazily: a consumer that stops early stops the synthesis before its next
@@ -35,6 +38,7 @@ JAX server's time to first audio) and ``audio_seconds``.
 
 from __future__ import annotations
 
+import base64
 import time
 from functools import lru_cache
 from typing import Iterator
@@ -70,15 +74,34 @@ def _pronunciation_dict(path: str) -> PronunciationDictionary:
     return PronunciationDictionary(path)
 
 
-def _feature_error(router: TTSRouter, req: TTSSpeechRequest) -> str | None:
-    backend = router.get_backend(req.model)
-    name = getattr(backend, "name", req.model)
+def feature_error(router: TTSRouter, model_id: str, voice_design=None, reference_audio=None) -> str | None:
+    """The JAX server's 400 message for a design or clone request that the
+    model's backend cannot serve; None when it can."""
+    backend = router.get_backend(model_id)
+    name = getattr(backend, "name", model_id)
     caps = getattr(backend, "capabilities", {})
-    if req.voice_design and not caps.get("voice_design", False):
+    if voice_design and not caps.get("voice_design", False):
         return f"voice_design is not supported by the {name} backend."
-    if req.reference_audio is not None and not caps.get("voice_clone", False):
+    if reference_audio is not None and not caps.get("voice_clone", False):
         return f"Voice cloning is not supported by the {name} backend."
     return None
+
+
+def _extended_kwargs(backend, req: TTSSpeechRequest, text: str) -> dict:
+    """The backend's arguments for a design or clone request, each gated
+    by the backend's capabilities as the JAX route gates them."""
+    caps = getattr(backend, "capabilities", {})
+    kwargs: dict = dict(text=text, voice=req.voice, speed=req.speed, lang_code=req.language)
+    if req.voice_design and (caps.get("voice_design") or caps.get("voice_clone")):
+        kwargs["voice_design"] = req.voice_design
+    if req.reference_audio and caps.get("voice_clone"):
+        try:
+            kwargs["reference_audio"] = base64.b64decode(req.reference_audio)
+        except Exception:  # noqa: BLE001 — as the JAX route: not base64, so the raw bytes
+            kwargs["reference_audio"] = req.reference_audio.encode()
+    if req.clone_transcript and caps.get("voice_clone"):
+        kwargs["clone_transcript"] = req.clone_transcript
+    return kwargs
 
 
 def speech_response(
@@ -98,9 +121,9 @@ def speech_response(
         raise SpeechError(400, f"Input too long. Max: {settings.tts_max_input_length} characters")
     if not req.input.strip():
         raise SpeechError(400, "Input text is empty")
-    feature_error = _feature_error(router, req)
-    if feature_error:
-        raise SpeechError(400, feature_error)
+    rejected = feature_error(router, req.model, req.voice_design, req.reference_audio)
+    if rejected:
+        raise SpeechError(400, rejected)
     if req.response_format not in CONTENT_TYPES:  # the formats the server answers in
         raise SpeechError(400, "Invalid response_format. Must be one of: " + ", ".join(sorted(CONTENT_TYPES)))
     content_type = get_content_type(req.response_format)
@@ -115,6 +138,8 @@ def speech_response(
     timing.update(rate=rate, format=req.response_format)
 
     def synthesize() -> Iterator[np.ndarray]:
+        if req.voice_design or req.reference_audio:
+            return backend.synthesize(**_extended_kwargs(backend, req, text))
         return router.synthesize(text=text, model=req.model, voice=req.voice, speed=req.speed,
                                  lang_code=req.language)
 

@@ -9,7 +9,9 @@ machine has no aiohttp and no pydantic):
 - ``GET /v1/audio/stream``, the streaming session's WebSocket;
 - ``GET /v1/realtime``, the OpenAI Realtime socket (``server/realtime/``);
 - ``POST /v1/audio/speech``, whole or with ``?stream=true`` in chunked
-  transfer whose headers wait for the first chunk;
+  transfer whose headers wait for the first chunk, and ``POST
+  /v1/audio/speech/clone`` (multipart: the text, the model and a
+  ``reference_audio`` file part);
 - model management: the legacy ``/api/ps`` routes, ``/api/models`` and its
   per-model ``status``, ``progress``, ``load``, ``download``, ``prefetch``,
   ``artifacts`` and unload, ``/api/pull/{model}``,
@@ -36,9 +38,10 @@ lifecycle (``runtime/lifecycle.py``) over them; with
 (``server/wyoming/``) on the same routers. The cleanup stops both.
 
 Left out, each an item of ``ROADMAP.md``: the other routes of the JAX app
-(an unknown path answers 404), history logging, and diarization
-(``diarize=true`` with ``STT_DIARIZE_ENABLED`` raises a named error).
-``/api/stats`` has no Pocket batchers (``{}``).
+(an unknown path answers 404), history logging, diarization
+(``diarize=true`` with ``STT_DIARIZE_ENABLED`` raises a named error) and
+the voice library (a clone request that names ``voice_library_ref``
+without a ``reference_audio`` part raises a named error).
 """
 
 from __future__ import annotations
@@ -47,11 +50,16 @@ import asyncio
 import concurrent.futures
 import dataclasses
 import functools
+import inspect
 import logging
 import os
 import time
 
+import numpy as np
+
 from open_speech_tpu_torch import __version__
+from open_speech_tpu_torch.audio.encode import encode_audio
+from open_speech_tpu_torch.audio.postprocessing import process_tts_chunks
 from open_speech_tpu_torch.config import settings
 from open_speech_tpu_torch.runtime.batcher_pool import pool_stats, shutdown_batchers
 from open_speech_tpu_torch.runtime.lifecycle import ModelLifecycleManager
@@ -67,7 +75,8 @@ from open_speech_tpu_torch.runtime.router import (
     render_result,
     transcription_body,
 )
-from open_speech_tpu_torch.runtime.speech import SpeechError, speech_response
+from open_speech_tpu_torch.runtime.pocket_batcher import pocket_batcher_stats, reset_pocket_batchers
+from open_speech_tpu_torch.runtime.speech import SpeechError, feature_error, get_content_type, speech_response
 from open_speech_tpu_torch.runtime.tts_batcher import reset_tts_batchers, tts_batcher_stats
 from open_speech_tpu_torch.schemas import HealthResponse, ModelListResponse, ModelObject
 from open_speech_tpu_torch.server.errors import ApiError, error_middleware
@@ -89,6 +98,7 @@ from open_speech_tpu_torch.server.middleware import (
 from open_speech_tpu_torch.server.realtime.server import realtime_endpoint
 from open_speech_tpu_torch.server.streaming import _active_sessions, streaming_endpoint
 from open_speech_tpu_torch.server.websocket import WebSocketResponse
+from open_speech_tpu_torch.tts.backends.base import backend_sample_rate
 from open_speech_tpu_torch.tts.router import TTSRouter
 
 logger = logging.getLogger(__name__)
@@ -168,7 +178,7 @@ async def transcribe(request: Request) -> Response:
         raise ApiError(400, "Diarization is disabled. Set STT_DIARIZE_ENABLED=true")
     if diarize:
         raise NotImplementedError(
-            "speaker diarization is not ported yet: ROADMAP.md module item 2")
+            "speaker diarization is not ported yet: ROADMAP.md module item 1")
 
     router: BackendRouter = request.app["stt_router"]
     audio = await _in_executor(prepare_upload, router, model, audio_bytes, content_type)
@@ -563,7 +573,7 @@ async def stats_route(request: Request) -> Response:
     ]
     snap["batchers"] = pool_stats()
     snap["tts_batchers"] = tts_batcher_stats()
-    snap["pocket_batchers"] = {}  # Pocket is not ported
+    snap["pocket_batchers"] = pocket_batcher_stats()
     snap["replica"] = _replica_info()
     return json_response(snap)
 
@@ -775,6 +785,60 @@ async def synthesize_speech(request: Request):
     return resp
 
 
+def _clone_body(router: TTSRouter, model: str, text: str, voice: str, speed: float, language, transcript,
+                ref_bytes: bytes | None, response_format: str) -> bytes:
+    """The clone route's synthesis: the backend called with the reference
+    audio and the transcript where its ``synthesize`` takes them, trimmed
+    and normalised, encoded whole."""
+    backend = router.get_backend(model)
+    kwargs: dict = dict(text=text, voice=voice, speed=speed, lang_code=language)
+    params = inspect.signature(backend.synthesize).parameters
+    if "reference_audio" in params:
+        kwargs["reference_audio"] = ref_bytes
+    if transcript and "clone_transcript" in params:
+        kwargs["clone_transcript"] = transcript
+    native = backend_sample_rate(backend, model)
+    chunks = list(process_tts_chunks(backend.synthesize(**kwargs), trim=settings.tts_trim_silence,
+                                     normalize=settings.tts_normalize_output))
+    samples = np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
+    return encode_audio(samples, native, response_format)
+
+
+async def clone_speech(request: Request) -> Response:
+    if not settings.tts_enabled:
+        raise ApiError(404, "TTS is disabled")
+    form = await request.post()
+    text = str(form.get("input") or "")
+    if not text.strip():
+        raise ApiError(400, "Input text is empty")
+    model = str(form.get("model") or "kokoro")
+    voice = str(form.get("voice") or "Ryan")
+    speed = _form_float(form, "speed", 1.0)
+    response_format = str(form.get("response_format") or "mp3")
+    if form.get("voice_library_ref") and "reference_audio" not in form:
+        raise NotImplementedError("the voice library is not ported yet: ROADMAP.md module item 2")
+    ref = form.get("reference_audio")
+    ref_bytes = ref[0] if isinstance(ref, tuple) else None
+    router = request.app["tts_router"]
+    if ref_bytes is not None:
+        rejected = feature_error(router, model, reference_audio=b"provided")
+        if rejected:
+            raise ApiError(400, rejected)
+        if len(ref_bytes) > settings.os_max_upload_mb * 1024 * 1024:
+            raise ApiError(413, f"Upload too large. Max: {settings.os_max_upload_mb}MB")
+        if len(ref_bytes) == 0:
+            raise ApiError(400, "Reference audio is empty")
+    content_type = get_content_type(response_format)
+    try:
+        body = await _in_executor(_clone_body, router, model, text, voice, speed,
+                                  form.get("language") or None, form.get("transcript") or None,
+                                  ref_bytes, response_format)
+    except Exception as e:  # noqa: BLE001 — any synthesis failure is a 500, as in the JAX route
+        logger.exception("Voice cloning synthesis failed")
+        raise ApiError(500, str(e))
+    return Response(body=body, content_type=content_type)
+
+
 # ── lifespan ───────────────────────────────────────────────────────────
 
 
@@ -817,6 +881,7 @@ async def _on_cleanup(app: Application) -> None:
     # instead of abandoning their tasks at loop teardown
     await shutdown_batchers()
     reset_tts_batchers()
+    reset_pocket_batchers()
 
 
 def create_app(stt_router: BackendRouter | None = None,
@@ -861,6 +926,7 @@ def create_app(stt_router: BackendRouter | None = None,
     r.add_get("/v1/audio/stream", ws_stream)
     r.add_get("/v1/realtime", ws_realtime)
     r.add_post("/v1/audio/speech", synthesize_speech)
+    r.add_post("/v1/audio/speech/clone", clone_speech)
     r.add_post("/v1/audio/models/load", load_tts_model)
     r.add_post("/v1/audio/models/unload", unload_tts_model)
     r.add_get("/v1/audio/models", list_tts_models)

@@ -1,4 +1,4 @@
-"""TTS engines of the PyTorch/CUDA port: Kokoro today. Each module exposes
+"""TTS engines of the PyTorch/CUDA port: Kokoro, Piper and Pocket. Each module exposes
 one backend class that the router's duck-typing scan discovers.
 """
 

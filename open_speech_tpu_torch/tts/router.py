@@ -1,16 +1,11 @@
 """TTS router: model id -> backend, with discovery of the backends package.
 
 Counterpart of ``open_speech_tpu/tts/router.py``: backends are found by
-duck-typing the modules of ``open_speech_tpu_torch.tts.backends`` (Kokoro
-and Piper), ``provider/model`` ids resolve by their provider, unknown ids
+duck-typing the modules of ``open_speech_tpu_torch.tts.backends`` (Kokoro,
+Piper and Pocket), ``provider/model`` ids resolve by their provider, unknown ids
 go to the default backend (Kokoro), plugins can ``register_backend``,
 load/unload run under an RLock, single-speaker backends (Piper) receive
 the model id as the voice, and voice listings aggregate across backends.
-
-An id that the JAX router resolves to a backend the port does not have yet
-(``pocket-tts``) raises a named ``NotImplementedError`` from
-``get_backend``: the speech, capability and load routes report it, and no
-route answers with the default backend's audio in its place.
 
 Every backend is made for ``device`` (``settings.tts_effective_device``,
 the card, when None). A backend module that fails to import, or a backend
@@ -32,10 +27,6 @@ from open_speech_tpu_torch.config import settings
 from open_speech_tpu_torch.tts.backends.base import TTSBackend, TTSLoadedModelInfo, VoiceInfo
 
 _BACKEND_ATTRS = ("name", "sample_rate", "synthesize", "load_model")
-
-# backend names of the JAX router that the port has not ported yet
-NOT_PORTED = {"pocket-tts": "Pocket TTS is not ported yet: ROADMAP.md module item 1"}
-
 
 def _discover_backends() -> dict[str, type]:
     import open_speech_tpu_torch.tts.backends as pkg
@@ -79,8 +70,6 @@ class TTSRouter:
         for key in keys:
             if key in self._backends:
                 return self._backends[key]
-            if key in NOT_PORTED:
-                raise NotImplementedError(NOT_PORTED[key])
         if self._default_backend is None:
             raise RuntimeError("No TTS backends available")
         return self._default_backend

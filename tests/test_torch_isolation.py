@@ -162,6 +162,7 @@ _SERVER_SETTINGS = [
     "stt_vad_min_speech_ms", "stt_vad_silence_ms",
     "os_model_ttl", "os_max_loaded_models", "os_profile_dir", "os_effects_enabled",
     "stt_model_ttl", "stt_max_loaded_models",
+    "os_pocket_batch_slots", "os_pocket_block_frames",
 ]
 
 

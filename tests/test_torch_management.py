@@ -16,11 +16,12 @@ JAX package on the CPU.
   (``loaded_at``, ``last_used_at``, ``ttl_remaining``) within
   ``STAMP_TOL`` seconds, and artifact paths relative to each side's cache
   root. Both apps serve the fixture STT backend on the CPU. The JAX app's
-  TTS router is held to the providers the port has (Kokoro and Piper;
-  Pocket is a later slice, so the port lists its catalog row without
-  capabilities where the held JAX router shows the Kokoro fallback's), its
-  backends report the CPU, where they run here, and both Piper backends
-  make their voices at ``tests/test_torch_piper.py``'s small geometry.
+  TTS router is held to Kokoro, Piper and Pocket, its backends report the
+  CPU, where they run here, both Piper backends make their voices at
+  ``tests/test_torch_piper.py``'s small geometry, and a Pocket load builds
+  the tiny preset in both (the JAX one from ``tests/torch_pocket_common.py``'s
+  numpy trees, without an init compile). The provider-missing case drops
+  Pocket from both routers.
   Kokoro is marked loaded without weights: no route here synthesizes. A download is a load then an unload of a fixture
   checkpoint on disk: nothing is fetched.
 - **The profiler's 409 guards**, and the port's refusal to start without
@@ -38,6 +39,7 @@ from types import SimpleNamespace
 
 import pytest
 
+import open_speech_tpu.models.pocket.model as JPM
 import open_speech_tpu.runtime.batcher_pool as JBP
 import open_speech_tpu.runtime.lifecycle as JL
 import open_speech_tpu.runtime.model_manager as JMM
@@ -63,6 +65,7 @@ from open_speech_tpu_torch.runtime.router import BackendRouter
 from open_speech_tpu_torch.server import app as TAPP
 from open_speech_tpu_torch.tts.router import TTSRouter
 from tests.test_torch_server import _ask_both, _same
+from tests.torch_pocket_common import models as pocket_models
 
 ROOT = Path(__file__).resolve().parent.parent
 FIXTURES = ROOT / "tests" / "fixtures"
@@ -603,7 +606,8 @@ def _kokoro_loaded(monkeypatch, jkokoro, tkokoro) -> None:
 @pytest.fixture
 def served(routers, monkeypatch, tmp_path):
     """Both apps' routers with only the fixture loaded, the JAX app's TTS
-    router held to Kokoro, fresh download progress and metrics. Returns
+    router held to Kokoro, Piper and Pocket, fresh download progress and
+    metrics. Returns
     (port STT router, port TTS router, settings changer, kokoro marker)."""
     jb, trouter = routers
     for key, value in (("stt_model_dir", str(FIXTURES)), ("os_precompile_on_load", False),
@@ -617,7 +621,11 @@ def served(routers, monkeypatch, tmp_path):
     for key in list(jax_router._backends):
         monkeypatch.setitem(jax_router._backends, key, jb)
     jkokoro, jpiper = JAPP.tts_router.get_backend("kokoro"), JAPP.tts_router.get_backend("piper")
-    monkeypatch.setattr(JAPP.tts_router, "_backends", {"kokoro": jkokoro, "piper": jpiper})
+    jpocket = JAPP.tts_router.get_backend("pocket-tts")
+    monkeypatch.setattr(JAPP.tts_router, "_backends", {"kokoro": jkokoro, "piper": jpiper, "pocket-tts": jpocket})
+    for attr, value in (("_device_arg", "cpu"), ("_model", None), ("_loaded_at", None), ("_prompt_cache", {})):
+        monkeypatch.setattr(jpocket, attr, value)
+    monkeypatch.setattr(JPM.PocketTTS, "random_init", classmethod(lambda cls, *a, **kw: pocket_models()[0]))
     monkeypatch.setattr(jkokoro, "_device_arg", "cpu")
     monkeypatch.setattr(jkokoro, "_params", None)
     monkeypatch.setattr(jpiper, "_device_arg", "cpu")
@@ -663,28 +671,10 @@ def _stamped(got, want):
 
 
 def _same_stamped(jax, port):
-    jax = _pocket_unported(jax)
     (js, jh, jbody), (ts, th, tbody) = jax, port
     if jbody and tbody and jh.get("Content-Type", "").startswith("application/json"):
         tbody = json.dumps(_stamped(json.loads(tbody), json.loads(jbody))).encode()
     _same(jax, (ts, th, tbody))
-
-
-def _pocket_unported(answer):
-    """The JAX answer with the catalog's ``pocket-tts`` row as the port lists
-    it: no capabilities, since its router refuses to resolve a backend it
-    has not ported (the held JAX router would show the Kokoro fallback's)."""
-    status, headers, body = answer
-    if not body or not headers.get("Content-Type", "").startswith("application/json"):
-        return answer
-    data = json.loads(body)
-    rows = data.get("models") if isinstance(data, dict) else None
-    if not isinstance(rows, list) or not any(isinstance(r, dict) and r.get("id") == "pocket-tts" for r in rows):
-        return answer
-    for row in rows:
-        if row.get("id") == "pocket-tts" and "capabilities" in row:
-            row["capabilities"] = {}
-    return status, headers, json.dumps(data).encode()
 
 
 def _post(path, body=None):
@@ -710,7 +700,8 @@ ROUTE_CASES = [
     ("models", [_get(M)], {}, False),
     ("models-kokoro-loaded", [_get(M)], {}, True),
     ("tts-capabilities", [_get("/api/tts/capabilities"), _get("/api/tts/capabilities?model=kokoro"),
-                          _get("/api/tts/capabilities?model=piper/en_US-lessac-medium")], {}, False),
+                          _get("/api/tts/capabilities?model=piper/en_US-lessac-medium"),
+                          _get("/api/tts/capabilities?model=pocket-tts")], {}, False),
     ("tts-capabilities-off", [_get("/api/tts/capabilities")], {"tts_enabled": False}, False),
     ("status-progress", [_get(f"{M}/{MODEL}/status"), _get(f"{M}/{MODEL}/progress"),
                          _get(f"{M}/test-tiny/status"), _get(f"{M}/test-tiny/progress"),
@@ -722,6 +713,10 @@ ROUTE_CASES = [
     ("load-default", [_post(f"{M}/{MODEL}/load"), _get(M)], {"stt_model": MODEL}, False),
     ("load-kokoro", [_post(f"{M}/kokoro/load"), _get(f"{M}/kokoro/status")], {}, True),
     ("load-provider-missing", [_post(f"{M}/pocket-tts/load"), _get(f"{M}/pocket-tts/progress")], {}, False),
+    ("load-pocket", [_post(f"{M}/pocket-tts/load"), _get(f"{M}/pocket-tts/status"), _get("/api/ps"),
+                     _get("/v1/audio/models"), _get(M), _delete(f"{M}/pocket-tts"), _get(f"{M}/pocket-tts/status"),
+                     _post("/v1/audio/models/load", {"model": "pocket-tts"}), _get("/v1/audio/models"),
+                     _post("/v1/audio/models/unload", {"model": "pocket-tts"}), _get("/api/ps")], {}, False),
     ("load-piper", [_post(f"{M}/{PIPER}/load"), _get(f"{M}/{PIPER}/status"), _get("/api/ps"),
                     _get("/v1/audio/models"), _delete(f"{M}/{PIPER}"), _get(f"{M}/{PIPER}/status"),
                     _post("/v1/audio/models/load", {"model": PIPER}), _get("/v1/audio/models"),
@@ -750,7 +745,8 @@ ROUTE_CASES = [
     ("tts-off", [_get("/v1/audio/models"), _post("/v1/audio/models/load"), _post("/v1/audio/models/unload"),
                  _get("/v1/audio/voices")], {"tts_enabled": False}, False),
     ("voices", [_get("/v1/audio/voices"), _get("/v1/audio/voices?model=kokoro"),
-                _get("/v1/audio/voices?model=kokoro/v1"), _get("/v1/audio/voices?model=piper")], {}, False),
+                _get("/v1/audio/voices?model=kokoro/v1"), _get("/v1/audio/voices?model=piper"),
+                _get("/v1/audio/voices?model=pocket-tts")], {}, False),
     ("methods", [_get(f"{M}/{MODEL}"), _get("/api/pull/x"), _post("/api/ps"), _get("/api/profiler/start"),
                  _delete(M)], {}, False),
 ]
@@ -758,22 +754,25 @@ ROUTE_CASES = [
 # the statuses both apps answer each case's calls with
 ROUTE_STATUS = {
     "ps": [200], "ps-load-unload": [200, 200, 200, 404, 200], "ps-load-unknown": [500, 200],
-    "models": [200], "models-kokoro-loaded": [200], "tts-capabilities": [200] * 3,
+    "models": [200], "models-kokoro-loaded": [200], "tts-capabilities": [200] * 4,
     "tts-capabilities-off": [404], "status-progress": [200] * 7, "load": [200] * 6,
     "load-loaded": [200, 200], "load-default": [200, 200], "load-kokoro": [200, 200],
-    "load-provider-missing": [400, 200], "load-piper": [200] * 10, "load-failed": [500, 200, 200],
+    "load-provider-missing": [400, 200], "load-pocket": [200] * 11, "load-piper": [200] * 10, "load-failed": [500, 200, 200],
     "download": [200] * 5, "download-loaded": [200, 200], "prefetch": [200, 200],
     "download-failed": [400, 200], "unload": [200, 404, 200, 200], "unload-kokoro": [200, 404],
     "pull": [200, 200, 500], "tts-models": [200], "tts-models-loaded": [200],
     "tts-load": [200, 200, 200, 422, 200, 200], "tts-unload": [200, 404, 404, 422, 200],
-    "tts-off": [404] * 4, "voices": [200] * 4, "methods": [405] * 5,
+    "tts-off": [404] * 4, "voices": [200] * 5, "methods": [405] * 5,
 }
 
 
 @pytest.mark.parametrize("name,calls,changed,kokoro", ROUTE_CASES, ids=[c[0] for c in ROUTE_CASES])
-def test_management_routes_match_the_jax_app(served, name, calls, changed, kokoro):
+def test_management_routes_match_the_jax_app(served, monkeypatch, name, calls, changed, kokoro):
     trouter, tts, change, kokoro_loaded = served
     change(**changed)
+    if name == "load-provider-missing":  # a provider neither router has
+        for router in (JAPP.tts_router, tts):
+            monkeypatch.delitem(router._backends, "pocket-tts")
     if kokoro:
         kokoro_loaded()
     answers = _ask_both(trouter, calls, tts_router=tts)

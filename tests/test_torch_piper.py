@@ -31,8 +31,8 @@
   the JAX backend's PCM (JAX's row noise injected), batcher on and off;
   the registry, the sample rates, speaker selectors, unload.
 - **The router**: every TTS id of the catalog resolves to the JAX router's
-  backend name, or raises the named error of a backend the port has not
-  ported (Pocket); nothing falls back to Kokoro in its place.
+  backend name (Pocket's included); nothing falls back to Kokoro in its
+  place.
 
 The ceilings: the two packages' log durations differ by at most 2.9e-6
 here, while the nearest duration lies 3.6e-3 (one speaker) and 2.8e-2
@@ -609,21 +609,14 @@ def test_backend_surface_matches_the_jax_backend():
 def test_every_catalog_tts_id_resolves_as_the_jax_router_does():
     from open_speech_tpu.tts.router import TTSRouter as JRouter
     from open_speech_tpu_torch.runtime.registry import get_known_models
-    from open_speech_tpu_torch.tts.router import NOT_PORTED, TTSRouter
+    from open_speech_tpu_torch.tts.router import TTSRouter
 
     jr, tr = JRouter(device="cpu"), TTSRouter(device="cpu")
     ids = [m["id"] for m in get_known_models() if m["type"] == "tts"]
     assert "pocket-tts" in ids and "kokoro" in ids and sum(i.startswith("piper/") for i in ids) > 10
-    refused = []
     for mid in ids + ["piper", "kokoro/v1", "pocket-tts/x", "nope"]:
-        want = jr.get_backend(mid).name
-        if want in NOT_PORTED:
-            with pytest.raises(NotImplementedError, match=r"ROADMAP\.md module item 1$"):
-                tr.get_backend(mid)
-            refused.append(mid)
-        else:
-            assert tr.get_backend(mid).name == want, mid
-    assert refused == ["pocket-tts", "pocket-tts/x"]
+        assert tr.get_backend(mid).name == jr.get_backend(mid).name, mid
+    assert tr.get_backend("pocket-tts").name == tr.get_backend("pocket-tts/x").name == "pocket-tts"
 
 
 def test_router_gives_single_speaker_backends_the_model_id(monkeypatch):

@@ -338,7 +338,7 @@ def test_diarize_enabled_names_its_later_item(backends, monkeypatch):
     status, _, body = asyncio.run(main())
     assert status == 500
     assert json.loads(body)["error"] == {
-        "message": "speaker diarization is not ported yet: ROADMAP.md module item 2",
+        "message": "speaker diarization is not ported yet: ROADMAP.md module item 1",
         "code": "internal_error"}
 
 

@@ -327,19 +327,18 @@ def test_router_resolves_to_the_card_by_default(monkeypatch):
     monkeypatch.setattr(torch_settings, "stt_device", "cuda")
     monkeypatch.setattr(torch_settings, "tts_device", None)
     from open_speech_tpu.tts.router import TTSRouter as JRouter
-    from open_speech_tpu_torch.tts.router import NOT_PORTED
 
     router = TTSRouter()
     backend = router.get_backend("kokoro")
-    assert backend.device == torch.device("cuda") and router.get_backend("piper").device == torch.device("cuda")
+    assert all(router.get_backend(n).device == torch.device("cuda") for n in ("kokoro", "piper", "pocket-tts"))
     jr = JRouter(device="cpu")
-    # the JAX router's backends, but those the port has not ported yet (Pocket)
-    assert router.list_backends() == [n for n in jr.list_backends() if n not in NOT_PORTED] == ["kokoro", "piper"]
+    # the JAX router's backends, in its order
+    assert router.list_backends() == jr.list_backends() == ["kokoro", "piper", "pocket-tts"]
     assert router.get_backend("kokoro/any") is backend and router.get_backend("nope") is backend
     assert router.get_capabilities("kokoro")["voice_blend"] is True
     assert router.loaded_models() == [] and not router.is_model_loaded("kokoro")
-    want = [v.__dict__ for v in jr.list_voices() if not v.id.startswith("pocket/")]
-    assert [v.__dict__ for v in router.list_voices()] == want and len(want) == 52 + 30
+    want = [v.__dict__ for v in jr.list_voices()]
+    assert [v.__dict__ for v in router.list_voices()] == want and len(want) == 52 + 30 + 8
     assert TTSRouter(device="cpu").get_backend("kokoro").device == torch.device("cpu")
 
 
