@@ -152,6 +152,24 @@ Phases, each of which raises on failure (exit code 1, no result line):
      streamed, and the clone route, each equal to the direct backend call;
      capabilities, voices and Wyoming describe; the load and unload routes
      giving the card's memory back. Fails if a flash kernel is launched.
+ 16. speaker diarization (``models/{segmentation,wespeaker,ge2e,diarize}.py``,
+     ``diarization.py``), run after phase 12 while phase 4's router is
+     loaded: PyanNet segmentation-3.0 and WeSpeaker ResNet34 at full width
+     from random released-layout checkpoints (seed 17) found through
+     ``OS_SEGMENTATION_CKPT_PATH`` and ``OS_WESPEAKER_CKPT_PATH`` (both must
+     convert), GE2E and the conv embedder, float32 with TF32 off. 16a card
+     against CPU: segmentation log-probs of a 60 s three-speaker
+     recording's chunks (relative L2, least argmax margin, every decision
+     past 1e-3 equal), kaldi fbank, WeSpeaker, GE2E and conv embeddings of
+     16 windows, and the whole segmented and energy-gated diarizations
+     (turns equal). 16b: both pipelines on 60 s and 10 min (wall, RTFx,
+     segmentation and embedding time, host gathering and clustering, peak
+     memory), a batch of 8 chunks and a 512-window dispatch alone, a
+     profiled segmentation batch. 16c: ``POST
+     /v1/audio/transcriptions?diarize=true`` with ``STT_DIARIZE_ENABLED``
+     equals the direct transcription plus the direct diarization, with the
+     plain transcription's K1 launches; 400 with the setting off. Fails if
+     a flash kernel is launched in 16a or 16b.
 
 Each phase's seconds, and the whole script's, are printed on lines of
 their own.
@@ -632,7 +650,8 @@ def main() -> int:
     tts = timed("11-12 (kokoro load)", load_kokoro)
     # 11-13: the same kernels through the sockets, each counted from 0
     phases = [timed("11 (server)", phase_server, router, tts),
-              timed("12 (realtime and Wyoming)", phase_realtime, router, tts)]
+              timed("12 (realtime and Wyoming)", phase_realtime, router, tts),
+              timed("16 (diarization)", phase_diarize, router)]  # here: 16c serves phase 4's router
     del router  # phase 13 loads turbo on a router of its own
     phases.append(timed("13 (model management)", phase_management, tts))
     timed("14 (piper and effects)", phase_piper)
@@ -4865,6 +4884,532 @@ def _pocket_listings(served, tts, backend) -> None:
         raise AssertionError(f"pocket 15c wyoming describe: {names}")
     log(f"pocket 15c /api/tts/capabilities: pocket-tts, voice_clone and voice_design on; /v1/audio/voices and Wyoming "
         f"describe list the 8 pocket/ speakers ({len(names)} voices in all)")
+
+
+
+# ── phase 16: speaker diarization ───────────────────────────────────────
+
+DIARIZE_SEED = 17  # the released-layout checkpoints' weights, GE2E's, the recordings
+DIARIZE_SECONDS = (60.0, 600.0)  # 16b's recordings; 16a's whole diarizations run the first
+SERVED_DIARIZE_SECONDS = 20.0  # 16c's upload
+DIARIZE_WINDOWS = 16  # 16a's 1.5 s windows for the embedders
+DIARIZE_VARS = ("OS_SEGMENTATION_CKPT_PATH", "OS_WESPEAKER_CKPT_PATH", "OS_DIARIZER_CKPT_PATH")
+# 16a card against CPU (float32, TF32 off on both), relative L2
+DIARIZE_TOL = {"logp": 1e-4, "fbank": 1e-4, "wespeaker": 1e-4, "ge2e_mel": 1e-4, "ge2e": 1e-4,
+               "conv": 1e-4, "embeddings": 1e-4}
+# a powerset decision must agree where the CPU's top-2 log-prob gap exceeds this
+DIARIZE_MARGIN = 1e-3
+
+
+def _meeting(seconds: float, seed: int):
+    """Three synthetic speakers (harmonic stacks at 115, 185 and 265 Hz with
+    vibrato and a syllable gate) taking turns of 2-8 s with short gaps;
+    every fourth turn overlaps the next by 1-2 s. (float32 16 kHz audio,
+    the reference turns)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = int(seconds * SR)
+    ref, pos, spk, k = [], 0.0, 0, 0
+    while pos < seconds - 0.5:
+        end = min(seconds, pos + rng.uniform(2.0, 8.0))
+        ref.append({"speaker": "ABC"[spk], "start": round(pos, 3), "end": round(end, 3)})
+        spk = (spk + int(rng.integers(1, 3))) % 3
+        pos = end - (rng.uniform(1.0, 2.0) if k % 4 == 3 else -rng.uniform(0.0, 0.3))
+        k += 1
+    audio = 0.005 * rng.standard_normal(n)
+    for turn in ref:
+        a, b = int(turn["start"] * SR), int(turn["end"] * SR)
+        i = "ABC".index(turn["speaker"])
+        t = np.arange(a, b) / SR
+        f0 = (115.0, 185.0, 265.0)[i] * (1 + 0.03 * np.sin(2 * np.pi * (0.4 + 0.1 * i) * t))
+        phase = 2 * np.pi * np.cumsum(f0) / SR
+        gate = 0.6 + 0.4 * (np.sin(2 * np.pi * (3.0 + i) * t) > -0.3)
+        audio[a:b] += 0.15 * gate * sum(np.sin(h * phase) / h for h in (1, 2, 3, 4))
+    return audio.astype(np.float32), ref
+
+
+def _diarize_checkpoints(tmp: str) -> tuple[str, str]:
+    """Full-size random weights (seed ``DIARIZE_SEED``) in the released key
+    layouts: PyanNet as pyannote/segmentation-3.0 ships it (a Lightning
+    checkpoint's ``state_dict``) and WeSpeaker ResNet34 as
+    wespeaker-voxceleb-resnet34-LM (BatchNorm running statistics moved off
+    identity, so the folding is exercised)."""
+    import os
+
+    import torch
+
+    from open_speech_tpu_torch.models.segmentation import SegmentationConfig, _default_sinc_init
+    from open_speech_tpu_torch.models.wespeaker import WeSpeakerConfig
+
+    gen = torch.Generator().manual_seed(DIARIZE_SEED)
+
+    def normal(*shape, std: float):
+        return torch.randn(shape, generator=gen) * std
+
+    cfg = SegmentationConfig()
+    h, pairs = cfg.lstm_hidden, cfg.n_sinc // 2
+    low, band = _default_sinc_init(pairs)
+    seg = {"sincnet.wav_norm1d.weight": torch.ones(1), "sincnet.wav_norm1d.bias": torch.zeros(1),
+           "sincnet.conv1d.0.filterbank.low_hz_": torch.tensor(low, dtype=torch.float32) + normal(pairs, 1, std=5.0),
+           "sincnet.conv1d.0.filterbank.band_hz_": torch.tensor(band, dtype=torch.float32) + normal(pairs, 1, std=5.0)}
+    for i, c_in in ((1, cfg.n_sinc), (2, cfg.conv_hidden)):
+        seg[f"sincnet.conv1d.{i}.weight"] = normal(cfg.conv_hidden, c_in, 5, std=(5 * c_in) ** -0.5)
+        seg[f"sincnet.conv1d.{i}.bias"] = normal(cfg.conv_hidden, std=0.05)
+    for i, c in enumerate((cfg.n_sinc, cfg.conv_hidden, cfg.conv_hidden)):
+        seg[f"sincnet.norm1d.{i}.weight"] = 1 + normal(c, std=0.1)
+        seg[f"sincnet.norm1d.{i}.bias"] = normal(c, std=0.1)
+    for k in range(cfg.lstm_layers):
+        d_in = cfg.conv_hidden if k == 0 else 2 * h
+        for sfx in (f"l{k}", f"l{k}_reverse"):
+            seg[f"lstm.weight_ih_{sfx}"] = normal(4 * h, d_in, std=d_in**-0.5)
+            seg[f"lstm.weight_hh_{sfx}"] = normal(4 * h, h, std=h**-0.5)
+            seg[f"lstm.bias_ih_{sfx}"] = normal(4 * h, std=0.05)
+            seg[f"lstm.bias_hh_{sfx}"] = normal(4 * h, std=0.05)
+    for name, (d_out, d_in) in (("linear.0", (cfg.linear_hidden, 2 * h)),
+                                ("linear.1", (cfg.linear_hidden, cfg.linear_hidden)),
+                                ("classifier", (cfg.n_classes, cfg.linear_hidden))):
+        seg[f"{name}.weight"] = normal(d_out, d_in, std=d_in**-0.5)
+        seg[f"{name}.bias"] = normal(d_out, std=0.05)
+    seg_path = os.path.join(tmp, "segmentation-3.0.bin")
+    torch.save({"state_dict": seg, "hyper_parameters": {"sample_rate": SR}}, seg_path)
+
+    wcfg = WeSpeakerConfig()
+    ws = {}
+
+    def bn(prefix: str, c: int) -> None:
+        ws[f"{prefix}.weight"], ws[f"{prefix}.bias"] = 1 + normal(c, std=0.1), normal(c, std=0.1)
+        ws[f"{prefix}.running_mean"] = normal(c, std=0.1)
+        ws[f"{prefix}.running_var"] = 1 + 0.2 * torch.rand(c, generator=gen)
+        ws[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+    m = wcfg.m_channels
+    ws["conv1.weight"] = normal(m, 1, 3, 3, std=9**-0.5)
+    bn("bn1", m)
+    for li, n_blocks in enumerate(wcfg.num_blocks):
+        cout = m << li
+        for bi in range(n_blocks):
+            cin = (m if li == 0 else cout // 2) if bi == 0 else cout
+            p = f"layer{li + 1}.{bi}"
+            ws[f"{p}.conv1.weight"] = normal(cout, cin, 3, 3, std=(9 * cin) ** -0.5)
+            bn(f"{p}.bn1", cout)
+            ws[f"{p}.conv2.weight"] = normal(cout, cout, 3, 3, std=(9 * cout) ** -0.5)
+            bn(f"{p}.bn2", cout)
+            if bi == 0 and li > 0:
+                ws[f"{p}.shortcut.0.weight"] = normal(cout, cin, 1, 1, std=cin**-0.5)
+                bn(f"{p}.shortcut.1", cout)
+    ws["seg_1.weight"] = normal(wcfg.embed_dim, wcfg.stats_dim, std=wcfg.stats_dim**-0.5)
+    ws["seg_1.bias"] = torch.zeros(wcfg.embed_dim)
+    ws_path = os.path.join(tmp, "wespeaker-resnet34.bin")
+    torch.save(ws, ws_path)
+    return seg_path, ws_path
+
+
+def _diarizers():
+    """(card, host) segmented diarizers converted from the released-layout
+    checkpoints through ``OS_SEGMENTATION_CKPT_PATH`` and
+    ``OS_WESPEAKER_CKPT_PATH``, and (card, host) energy-gated ones (no
+    checkpoint: the conv embedder, seed 23)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from open_speech_tpu_torch.models.diarize import DiarizerConfig, TorchDiarizer
+    from open_speech_tpu_torch.models.segmentation import SegmentationConfig
+    from open_speech_tpu_torch.models.wespeaker import WeSpeakerConfig
+
+    saved = {v: os.environ.pop(v, None) for v in DIARIZE_VARS}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            seg_path, ws_path = _diarize_checkpoints(tmp)
+            os.environ["OS_SEGMENTATION_CKPT_PATH"], os.environ["OS_WESPEAKER_CKPT_PATH"] = seg_path, ws_path
+            t0 = time.perf_counter()
+            card = TorchDiarizer(device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            host = TorchDiarizer(device="cpu")
+        for v in DIARIZE_VARS[:2]:
+            del os.environ[v]
+        plain_card, plain_host = TorchDiarizer(device="cuda"), TorchDiarizer(device="cpu")
+    finally:
+        for v, value in saved.items():
+            if value is not None:
+                os.environ[v] = value
+    for d in (card, host):  # a failed conversion must not fall back quietly
+        if d.seg is None or d.wespeaker is None or d.seg[1] != SegmentationConfig() \
+                or d.wespeaker[1] != WeSpeakerConfig():
+            raise AssertionError(f"diarize 16: the checkpoints did not convert at full width on {d.device}")
+    if card.seg[0].device.type != "cuda" or card.wespeaker[0].seg.weight.device.type != "cuda":
+        raise AssertionError("diarize 16: the converted models are not on the card")
+    for d in (plain_card, plain_host):
+        if d.seg is not None or d.wespeaker is not None or d.ge2e is not None or d.cfg != DiarizerConfig():
+            raise AssertionError("diarize 16: the energy-gated diarizer found a checkpoint")
+    count = lambda m: sum(t.numel() for k, t in m.state_dict().items() if ".bias_hh_" not in k)  # noqa: E731
+    log(f"diarize 16: released-layout checkpoints (random, seed {DIARIZE_SEED}) converted on the card in "
+        f"{load_s:.3f} s: PyanNet segmentation-3.0 ({count(card.seg[0])} tensors' elements: sinc 80 x 251, "
+        f"4 BiLSTM x 128) and WeSpeaker ResNet34 (m_channels 32, blocks 3/4/6/3, {count(card.wespeaker[0])} "
+        f"elements with the BatchNorms folded); conv embedder {count(plain_card.params)} elements (seed 23); "
+        f"float32, TF32 off")
+    return card, host, plain_card, plain_host
+
+
+def phase_diarize(router) -> dict:
+    """16: speaker diarization (``models/{segmentation,wespeaker,ge2e,
+    diarize}.py``, ``diarization.py``) at full width on the card. 16a card
+    against CPU: segmentation log-probs of a 60 s recording's 10 s chunks
+    (relative L2, least argmax margin, decisions), kaldi fbank and WeSpeaker
+    embeddings of 16 windows, GE2E's mels and embeddings, the conv
+    embedder, then the whole segmented and energy-gated diarizations of the
+    60 s (turns equal). 16b on the card for 60 s and 10 min: wall and RTFx
+    of both pipelines, ms per segmentation call and per embed dispatch,
+    host ms of gathering and clustering, peak memory; a segmentation batch
+    of 8 chunks and a 512-window dispatch alone; one segmentation batch
+    under torch.profiler. Fails if a flash kernel is launched in 16a-16b.
+    16c ``POST /v1/audio/transcriptions?diarize=true`` on phase 4's router
+    through ``create_app``, with the segmented and then the energy-gated
+    diarizer shared: each body equals the direct transcription plus
+    ``Diarizer().diarize`` and ``attach_text_to_speakers``, K1 launches equal
+    the plain transcription's, and with the setting off the route answers
+    400. Returns 16c's launches."""
+    import gc
+
+    from open_speech_tpu_torch.ops import attention as A
+
+    before = dict(A.launches)
+    card, host, plain_card, plain_host = _diarizers()
+    _diarize_stages(card, host, plain_card, plain_host)
+    _diarize_whole(card, host, plain_card, plain_host)
+    del host, plain_host
+    gc.collect()
+    _diarize_speed(card, plain_card)
+    if dict(A.launches) != before:
+        raise AssertionError(f"diarize 16: flash launches moved: {before} -> {dict(A.launches)}")
+    log(f"diarize 16: flash launch counts unchanged through 16a and 16b: {before}")
+    return _diarize_served(router, card, plain_card)
+
+
+def _diarize_windows(audio, n: int):
+    """The first ``n`` 1.5 s windows, 0.75 s apart, as [n, 24000]."""
+    import numpy as np
+
+    from open_speech_tpu_torch.models.diarize import HOP_S, WINDOW_S
+
+    win, hop = int(WINDOW_S * SR), int(HOP_S * SR)
+    return np.stack([audio[i * hop : i * hop + win] for i in range(n)])
+
+
+def _diarize_stages(card, host, plain_card, plain_host) -> None:
+    """16a, stage by stage: each card stage on the same inputs as the CPU's."""
+    import numpy as np
+    import torch
+
+    from open_speech_tpu_torch.models import diarize as D
+    from open_speech_tpu_torch.models import ge2e as G
+    from open_speech_tpu_torch.models import wespeaker as W
+    from open_speech_tpu_torch.models.segmentation import CHUNK_SAMPLES
+    from open_speech_tpu_torch.ops.mel import log_mel_spectrogram
+
+    audio, _ = _meeting(DIARIZE_SECONDS[0], DIARIZE_SEED)
+    chunks = np.stack([audio[s : s + CHUNK_SAMPLES]
+                       for s in range(0, len(audio) - CHUNK_SAMPLES + 1, CHUNK_SAMPLES // 2)])
+    want, got = host._segment(chunks), card._segment(chunks)
+    rel = _rel_l2("diarize 16a segmentation log-probs", got, want, DIARIZE_TOL["logp"])
+    top = np.sort(want, axis=-1)
+    margin = top[..., -1] - top[..., -2]
+    decided = margin > DIARIZE_MARGIN
+    flips = int((got.argmax(-1) != want.argmax(-1))[decided].sum())
+    if flips:
+        raise AssertionError(f"diarize 16a segmentation: {flips} decided powerset frames differ")
+    classes = np.bincount(want.argmax(-1).ravel(), minlength=want.shape[-1]).tolist()
+    log(f"diarize 16a segmentation {len(chunks)} x 10 s chunks -> {list(want.shape)} log-probs: relative L2 "
+        f"{rel:.3e} (bound {DIARIZE_TOL['logp']}), max |diff| {np.abs(got - want).max():.3e}; least CPU top-2 "
+        f"margin {margin.min():.3e}, {int((~decided).sum())} of {margin.size} frames within {DIARIZE_MARGIN}, "
+        f"every other decision equal; CPU classes per frame {classes}")
+
+    windows = _diarize_windows(audio, DIARIZE_WINDOWS)
+    x_host = torch.from_numpy(windows)
+    x_card = x_host.cuda()
+    fb_host, fb_card = W.kaldi_fbank(x_host), W.kaldi_fbank(x_card)
+    rels = {"fbank": _rel_l2("diarize 16a kaldi fbank", fb_card, fb_host, DIARIZE_TOL["fbank"])}
+    rels["wespeaker"] = _rel_l2("diarize 16a WeSpeaker embeddings", W.wespeaker_embed(card.wespeaker[0], fb_card),
+                                W.wespeaker_embed(host.wespeaker[0], fb_host), DIARIZE_TOL["wespeaker"])
+    g_host = G.init_ge2e_params(torch.Generator().manual_seed(DIARIZE_SEED), device="cpu")
+    g_card = G.init_ge2e_params(torch.Generator().manual_seed(DIARIZE_SEED), device="cuda")
+    mel_host, mel_card = G.ge2e_mel(x_host), G.ge2e_mel(x_card)
+    rels["ge2e_mel"] = _rel_l2("diarize 16a GE2E mels", mel_card, mel_host, DIARIZE_TOL["ge2e_mel"])
+    rels["ge2e"] = _rel_l2("diarize 16a GE2E embeddings", G.ge2e_embed(g_card, mel_card),
+                           G.ge2e_embed(g_host, mel_host), DIARIZE_TOL["ge2e"])
+    lm_host = log_mel_spectrogram(x_host, n_mels=plain_host.cfg.n_mels)[..., :150]
+    lm_card = log_mel_spectrogram(x_card, n_mels=plain_card.cfg.n_mels)[..., :150]
+    rels["conv"] = _rel_l2("diarize 16a conv embedder", D.embed_windows(plain_card.params, lm_card),
+                           D.embed_windows(plain_host.params, lm_host), DIARIZE_TOL["conv"])
+    log(f"diarize 16a {DIARIZE_WINDOWS} windows of 1.5 s, card against CPU, relative L2: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+        + f" (bound 1e-4 each; WeSpeaker 256-d, GE2E 3 x LSTM 256 full width, seed {DIARIZE_SEED})")
+
+
+def _capture_embeddings(d, into: list) -> None:
+    """Keep each ``_embed_bucketed`` result of diarizer ``d`` in ``into``."""
+    real = d._embed_bucketed
+
+    def embed(flat):
+        out = real(flat)
+        into.append(out)
+        return out
+
+    d._embed_bucketed = embed
+
+
+def _diarize_whole(card, host, plain_card, plain_host) -> None:
+    """16a, whole: both pipelines on the 60 s recording, turns equal. Where
+    a powerset frame within ``DIARIZE_MARGIN`` decides differently on the
+    card (16a's stage check holds every other frame equal), the card runs
+    again on the CPU's log-probs and must then give the CPU's turns."""
+    import numpy as np
+    import torch
+
+    from open_speech_tpu_torch.models.diarize import diarization_error_rate
+
+    audio, ref = _meeting(DIARIZE_SECONDS[0], DIARIZE_SEED)
+    embs: dict = {}
+    _capture_embeddings(host, embs.setdefault("cpu", []))
+    _capture_embeddings(plain_host, embs.setdefault("cpu-plain", []))
+    try:
+        t0 = time.perf_counter()
+        wants = {"segmented": host.diarize_audio(audio)}
+        cpu_s = {"segmented": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        wants["energy-gated"] = plain_host.diarize_audio(audio)
+        cpu_s["energy-gated"] = time.perf_counter() - t0
+    finally:
+        del host._embed_bucketed, plain_host._embed_bucketed
+    for name, c, cpu_key in (("segmented", card, "cpu"), ("energy-gated", plain_card, "cpu-plain")):
+        want, note = wants[name], ""
+        card_embs: list = []
+        _capture_embeddings(c, card_embs)
+        try:
+            t0 = time.perf_counter()
+            got = c.diarize_audio(audio)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            if got != want and name == "segmented":
+                note = (f"; the card's own log-probs gave {len(got)} turns (DER to the CPU's "
+                        f"{diarization_error_rate(want, got):.4f}) through frames within {DIARIZE_MARGIN}, and on "
+                        f"the CPU's log-probs its turns are the CPU's")
+                card_embs.clear()
+                c._segment = host._segment
+                got = c.diarize_audio(audio)
+        finally:
+            c.__dict__.pop("_segment", None)
+            del c._embed_bucketed
+        if got != want or not want:
+            raise AssertionError(f"diarize 16a {name}: card turns {got} vs CPU {want}")
+        rel = _rel_l2(f"diarize 16a {name} embeddings", np.concatenate(card_embs),
+                      np.concatenate(embs[cpu_key]), DIARIZE_TOL["embeddings"])
+        log(f"diarize 16a {name} {DIARIZE_SECONDS[0]:.0f} s (three synthetic speakers, {len(ref)} reference turns "
+            f"with overlaps): {len(got)} turns of {len({t['speaker'] for t in got})} speakers, equal to the CPU's"
+            f"{note}; {len(card_embs[0])} windows embedded, relative L2 {rel:.3e}; DER against the script's "
+            f"reference {diarization_error_rate(ref, got):.4f} (random weights); wall card {card_s:.3f} s, CPU "
+            f"{cpu_s[name]:.3f} s")
+
+
+def _median_s(fn, repeats: int = 5) -> float:
+    """Median wall of ``fn()`` (which reads its result back, so it ends
+    synchronised) after one warm call."""
+    import statistics
+
+    fn()
+    walls = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    return statistics.median(walls)
+
+
+def _wespeaker_flops(cfg, frames: int) -> float:
+    """Multiply-adds x 2 of one window through the ResNet (convolutions,
+    shortcuts and the embedding layer), from the shapes."""
+    f, t, c_in, total = cfg.n_mels, frames, 1, 0
+    total += 9 * c_in * cfg.m_channels * f * t
+    c_in = cfg.m_channels
+    for li, n_blocks in enumerate(cfg.num_blocks):
+        cout = cfg.m_channels << li
+        for bi in range(n_blocks):
+            if bi == 0 and li > 0:
+                f, t = (f + 1) // 2, (t + 1) // 2
+                total += c_in * cout * f * t  # the 1x1 shortcut
+            total += 9 * (c_in if bi == 0 else cout) * cout * f * t + 9 * cout * cout * f * t
+        c_in = cout
+    return 2.0 * (total + cfg.stats_dim * cfg.embed_dim)
+
+
+def _segmentation_flops(cfg, n_samples: int) -> float:
+    """Multiply-adds x 2 of one chunk (sinc and Conv1d stages, the BiLSTM,
+    the linears), from the shapes."""
+    t0 = (n_samples - cfg.sinc_kernel) // cfg.sinc_stride + 1
+    t1 = (t0 - 3) // 3 + 1 - 4
+    t2 = (t1 - 3) // 3 + 1 - 4
+    t = (t2 - 3) // 3 + 1
+    h = cfg.lstm_hidden
+    total = t0 * cfg.n_sinc * cfg.sinc_kernel + t1 * cfg.conv_hidden * cfg.n_sinc * 5 \
+        + t2 * cfg.conv_hidden * cfg.conv_hidden * 5
+    for k in range(cfg.lstm_layers):
+        d_in = cfg.conv_hidden if k == 0 else 2 * h
+        total += 2 * t * 4 * h * (d_in + h)
+    total += t * (2 * h * cfg.linear_hidden + cfg.linear_hidden ** 2 + cfg.linear_hidden * cfg.n_classes)
+    return 2.0 * total
+
+
+def _diarize_speed(card, plain_card) -> None:
+    """16b: both pipelines on 60 s and 10 min recordings, the steady costs
+    of one segmentation batch and one 512-window dispatch, and a profiled
+    segmentation batch."""
+    import numpy as np
+    import torch
+
+    from open_speech_tpu_torch.models.diarize import EMBED_ROWS, SEG_BATCH
+    from open_speech_tpu_torch.models.segmentation import CHUNK_SAMPLES
+
+    dev = torch.cuda.get_device_name(0)
+    for seconds in DIARIZE_SECONDS:
+        audio, ref = _meeting(seconds, DIARIZE_SEED + 1)
+        for name, d in (("segmented", card), ("energy-gated", plain_card)):
+            spans = {"_segment": [], "_embed": []}
+            for attr, into in spans.items():
+                real = getattr(d, attr)
+
+                def timed(arg, real=real, into=into):
+                    t0 = time.perf_counter()
+                    out = real(arg)  # numpy: read back, so synchronised
+                    into.append((time.perf_counter() - t0, len(arg)))
+                    return out
+
+                setattr(d, attr, timed)
+            try:
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                turns = d.diarize_audio(audio)
+                wall = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated() - base
+            finally:
+                for attr in spans:
+                    delattr(d, attr)
+            seg_s = sum(s for s, _ in spans["_segment"])
+            emb_s = sum(s for s, _ in spans["_embed"])
+            n_chunks = sum(n for _, n in spans["_segment"])
+            seg_part = (f"{n_chunks} chunks in {-(-n_chunks // SEG_BATCH)} segmentation batches "
+                        f"({1e3 * seg_s:.1f} ms), " if spans["_segment"] else "")
+            log(f"diarize 16b {name} {seconds:.0f} s on {dev}: wall {wall:.4f} s, RTFx {seconds / wall:.1f}; "
+                f"{seg_part}{sum(n for _, n in spans['_embed'])} windows in {len(spans['_embed'])} embed dispatches "
+                f"({1e3 * emb_s:.1f} ms); host gathering + clustering {1e3 * (wall - seg_s - emb_s):.1f} ms; "
+                f"{len(turns)} turns of {len({t['speaker'] for t in turns})} speakers ({len(ref)} reference "
+                f"turns); peak card memory {peak / 2**20:.1f} MiB over the {base / 2**20:.1f} MiB held")
+
+    audio, _ = _meeting(DIARIZE_SECONDS[0], DIARIZE_SEED)
+    chunks = np.stack([audio[s : s + CHUNK_SAMPLES] for s in range(0, SEG_BATCH * 80000, 80000)])
+    windows = np.resize(_diarize_windows(audio, 64), (EMBED_ROWS, 24000))
+    seg_cfg, ws_cfg = card.seg[1], card.wespeaker[1]
+    seg_ms = 1e3 * _median_s(lambda: card._segment(chunks))
+    emb_ms = 1e3 * _median_s(lambda: card._embed(windows))
+    seg_tf = SEG_BATCH * _segmentation_flops(seg_cfg, CHUNK_SAMPLES) / 1e12
+    emb_tf = EMBED_ROWS * _wespeaker_flops(ws_cfg, 148) / 1e12
+    log(f"diarize 16b steady on {dev}: a segmentation batch of {SEG_BATCH} x 10 s chunks {seg_ms:.3f} ms "
+        f"({seg_tf:.4f} TFLOP, {seg_tf / seg_ms * 1e3:.2f} TFLOP/s; f32 bound {seg_tf / H100_F32_FLOPS * 1e15:.3f} ms), "
+        f"a {EMBED_ROWS}-window WeSpeaker dispatch {emb_ms:.3f} ms ({emb_tf:.3f} TFLOP, "
+        f"{emb_tf / emb_ms * 1e3:.2f} TFLOP/s; f32 bound {emb_tf / H100_F32_FLOPS * 1e15:.3f} ms); both read back "
+        f"to the host")
+    _diarize_profile(card, chunks)
+
+
+def _diarize_profile(card, chunks) -> None:
+    """One segmentation batch under torch.profiler: launches, idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    card._segment(chunks)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        card._segment(chunks)
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    if busy <= 0:
+        raise AssertionError("diarize 16b profile: no device time in the trace")
+    log(f"diarize 16b profiled segmentation batch ({len(chunks)} chunks): wall_s {wall:.4f} device_busy_s "
+        f"{busy:.4f} idle_share {1 - busy / wall:.4f} kernel launches {sum(e.count for e in kernels)}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} x  {e.key[:90]}")
+
+
+def _diarize_served(router, card, plain_card) -> dict:
+    """16c: a diarized transcription through ``create_app`` against the
+    direct calls, with the segmented diarizer shared and then the
+    energy-gated one; the route's 400 with the setting off."""
+    import torch
+
+    from open_speech_tpu_torch import diarization as TDS
+    from open_speech_tpu_torch.config import settings
+    from open_speech_tpu_torch.ops import attention as A
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.runtime.router import prepare_upload, transcription_response
+    from open_speech_tpu_torch.tts.router import TTSRouter
+
+    audio, _ = _meeting(SERVED_DIARIZE_SECONDS, DIARIZE_SEED + 2)
+    wav = codec.write_wav(audio, SR)
+    body, headers = _multipart({"model": MAIN_MODEL}, wav)
+    route = "/v1/audio/transcriptions?diarize=true"
+    entry = router.get_backend(MAIN_MODEL)._ensure_model(MAIN_MODEL)
+    real_tok, saved = entry["tok"], (TDS._shared, settings.stt_diarize_enabled)
+    entry["tok"] = _WordTokenizer(real_tok)  # the words that attach_text_to_speakers spreads
+    settings.stt_diarize_enabled = True
+    lines, launches = [], {}
+    try:
+        with _Served(router, TTSRouter()) as served:
+            for key in A.launches:
+                A.launches[key] = 0
+            t0 = time.perf_counter()
+            text = transcription_response(router, wav, model=MAIN_MODEL, response_format="json")["text"]
+            torch.cuda.synchronize()
+            stt_s, k1_plain = time.perf_counter() - t0, A.launches["flash_attention"]
+            prepared = prepare_upload(router, MAIN_MODEL, wav, "audio/wav")
+            for name, shared in (("segmented", card), ("energy-gated", plain_card)):
+                TDS._shared = shared
+                t0 = time.perf_counter()
+                turns = TDS.Diarizer().diarize(prepared)
+                diarize_s = time.perf_counter() - t0
+                want = {"text": text, "segments": TDS.attach_text_to_speakers(text, turns)}
+                for key in A.launches:
+                    A.launches[key] = 0  # the served request's launches only
+                t0 = time.perf_counter()
+                status, rheaders, rbody = _http(served.port, "POST", route, body, headers)
+                served_s = time.perf_counter() - t0
+                if status != 200 or json.loads(rbody) != want:
+                    raise AssertionError(f"diarize 16c {name}: {status} {rbody[:300]!r} vs direct {want}")
+                if A.launches["flash_attention"] != k1_plain or k1_plain <= 0:
+                    raise AssertionError(f"diarize 16c {name}: K1 launches served {dict(A.launches)} vs plain "
+                                         f"{k1_plain}")
+                for key, n in A.launches.items():
+                    launches[key] = launches.get(key, 0) + n
+                lines.append(f"{name}: {len(want['segments'])} turns of {len({t['speaker'] for t in turns})} "
+                             f"speakers, served wall {served_s:.3f} s, direct diarization {diarize_s:.3f} s")
+            settings.stt_diarize_enabled = False
+            off, _, off_body = _http(served.port, "POST", route, body, headers)
+            if off != 400 or b"STT_DIARIZE_ENABLED" not in off_body:
+                raise AssertionError(f"diarize 16c with the setting off: {off} {off_body[:200]!r}")
+    finally:
+        entry["tok"] = real_tok
+        TDS._shared, settings.stt_diarize_enabled = saved
+    log(f"diarize 16c POST {route} ({SERVED_DIARIZE_SECONDS:.0f} s, three speakers, model {MAIN_MODEL}, "
+        f"{len(text.split())} words): 200 {rheaders.get('Content-Type')}, body = the direct transcription + "
+        f"Diarizer().diarize + attach_text_to_speakers, K1 launches {k1_plain} per request = the plain "
+        f"transcription's (direct transcription {stt_s:.3f} s); " + "; ".join(lines) + "; setting off: 400")
+    return launches
 
 
 if __name__ == "__main__":

@@ -59,18 +59,28 @@ def mel_filterbank(n_mels: int, n_fft: int = N_FFT, sr: int = SAMPLE_RATE) -> np
 
 
 @lru_cache(maxsize=4)
-def _dft_bases(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
-    """Window-folded real-DFT bases: cos/sin matrices [n_fft, n_fft//2+1]."""
+def _dft_bases_raw(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
+    """Plain real-DFT bases (no window): cos/sin [n_fft, n_fft//2+1].
+
+    For callers that window frames themselves: kaldi fbank applies a povey
+    window before the FFT (``models/wespeaker.py:kaldi_fbank``)."""
     n = np.arange(n_fft)[:, None]
     k = np.arange(n_fft // 2 + 1)[None, :]
     angle = 2.0 * np.pi * n * k / n_fft
+    return (
+        np.cos(angle).astype(np.float32),
+        (-np.sin(angle)).astype(np.float32),
+    )
+
+
+@lru_cache(maxsize=4)
+def _dft_bases(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
+    """Window-folded real-DFT bases: cos/sin matrices [n_fft, n_fft//2+1]."""
     # periodic Hann (torch.hann_window default)
     window = 0.5 * (1.0 - np.cos(2.0 * np.pi * np.arange(n_fft) / n_fft))
+    cos_r, sin_r = _dft_bases_raw(n_fft)
     window = window[:, None].astype(np.float32)
-    return (
-        np.cos(angle).astype(np.float32) * window,
-        (-np.sin(angle)).astype(np.float32) * window,
-    )
+    return cos_r * window, sin_r * window
 
 
 def _frame(audio: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:

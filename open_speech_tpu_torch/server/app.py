@@ -37,11 +37,15 @@ lifecycle (``runtime/lifecycle.py``) over them; with
 ``OS_WYOMING_ENABLED`` it also opens the Wyoming TCP server
 (``server/wyoming/``) on the same routers. The cleanup stops both.
 
+A transcription with ``diarize=true`` (and ``STT_DIARIZE_ENABLED``) also
+runs the shared diarizer (``diarization.py``) on the preprocessed upload
+and answers ``{"text", "segments"}`` with the words spread over the
+speaker turns, whatever the ``response_format``.
+
 Left out, each an item of ``ROADMAP.md``: the other routes of the JAX app
-(an unknown path answers 404), history logging, diarization
-(``diarize=true`` with ``STT_DIARIZE_ENABLED`` raises a named error) and
-the voice library (a clone request that names ``voice_library_ref``
-without a ``reference_audio`` part raises a named error).
+(an unknown path answers 404), history logging and the voice library (a
+clone request that names ``voice_library_ref`` without a
+``reference_audio`` part raises a named error).
 """
 
 from __future__ import annotations
@@ -176,9 +180,6 @@ async def transcribe(request: Request) -> Response:
     _check_size(audio_bytes)
     if diarize and not settings.stt_diarize_enabled:
         raise ApiError(400, "Diarization is disabled. Set STT_DIARIZE_ENABLED=true")
-    if diarize:
-        raise NotImplementedError(
-            "speaker diarization is not ported yet: ROADMAP.md module item 1")
 
     router: BackendRouter = request.app["stt_router"]
     audio = await _in_executor(prepare_upload, router, model, audio_bytes, content_type)
@@ -208,6 +209,18 @@ async def transcribe(request: Request) -> Response:
         audio_seconds=float(result.get("duration", 0.0) or 0.0),
         wall_seconds=time.monotonic() - t_start,
     )
+    if diarize:
+        from open_speech_tpu_torch.diarization import Diarizer, attach_text_to_speakers
+
+        try:
+            diarizer = Diarizer()
+            dsegs = await _in_executor(diarizer.diarize, audio)
+        except RuntimeError as e:
+            raise ApiError(400, str(e))
+        except Exception as e:  # noqa: BLE001 — as the JAX route answers it
+            raise ApiError(500, f"Diarization failed: {e}")
+        text = result.get("text", "")
+        return json_response({"text": text, "segments": attach_text_to_speakers(text, dsegs)})
     return _body_response(*transcription_body(result, response_format))
 
 
@@ -816,7 +829,7 @@ async def clone_speech(request: Request) -> Response:
     speed = _form_float(form, "speed", 1.0)
     response_format = str(form.get("response_format") or "mp3")
     if form.get("voice_library_ref") and "reference_audio" not in form:
-        raise NotImplementedError("the voice library is not ported yet: ROADMAP.md module item 2")
+        raise NotImplementedError("the voice library is not ported yet: ROADMAP.md module item 1")
     ref = form.get("reference_audio")
     ref_bytes = ref[0] if isinstance(ref, tuple) else None
     router = request.app["tts_router"]

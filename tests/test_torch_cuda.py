@@ -1,6 +1,6 @@
 """The port's flash kernels (K1, K2) and the streaming block encode on a
-Hopper card against their plain versions; Kokoro, Piper and the effects
-chain (no hand kernel) on the card against the CPU.
+Hopper card against their plain versions; Kokoro, Piper, the effects
+chain and the diarizer (no hand kernel) on the card against the CPU.
 
 These tests need an NVIDIA Hopper card and skip without one. On the card's
 machine, which has no JAX, run them without the suite's conftest (it sets
@@ -508,3 +508,80 @@ def test_effects_on_the_card_match_the_cpu(card, effect):
     got = apply_chain(x, 24000, effect, device=card)
     tol = 1e-4 if any(e["type"] == "pitch" for e in effect) else 1e-5
     assert got.shape == want.shape and np.abs(got - want).max() <= tol
+
+
+# ── the diarizer (no hand kernel) ───────────────────────────────────────
+
+DIARIZE_FIXTURES = "tests/fixtures/diarize/"
+
+
+def _speakers() -> "np.ndarray":
+    """25 s of three harmonic 'speakers' (220, 520, 340 Hz), two at once
+    for 3 s."""
+    import numpy as np
+
+    def voice(freq: float, seconds: float, seed: int):
+        t = np.arange(int(16000 * seconds)) / 16000
+        sig = sum((0.3 / k) * np.sin(2 * np.pi * freq * k * t) for k in range(1, 4))
+        return sig + 0.02 * np.random.default_rng(seed).standard_normal(t.size)
+
+    return np.concatenate([voice(220, 6, 1), voice(520, 6, 2), voice(220, 3, 7) + voice(520, 3, 8),
+                           voice(340, 6, 5), voice(220, 4, 9)]).astype(np.float32)
+
+
+def test_diarizer_stages_on_the_card_match_the_cpu(card):
+    """The committed PyanNet and WeSpeaker fixtures, a small GE2E and the
+    conv embedder on the card against the CPU: log-probs, fbank and
+    embeddings within relative L2 1e-4. The process's cuDNN TF32 flag is
+    left as it was found."""
+    from open_speech_tpu_torch.models import diarize as D
+    from open_speech_tpu_torch.models import ge2e as G
+    from open_speech_tpu_torch.models import segmentation as S
+    from open_speech_tpu_torch.models import wespeaker as W
+    from open_speech_tpu_torch.ops.mel import log_mel_spectrogram
+
+    def rel(got, want):
+        return ((got.cpu() - want).norm() / want.norm()).item()
+
+    audio = torch.from_numpy(_speakers())
+    flag = torch.backends.cudnn.allow_tf32
+    chunks = torch.stack([audio[:160000], audio[80000:240000]])
+    host, _ = S.convert_segmentation(DIARIZE_FIXTURES + "segmentation.bin", device="cpu")
+    dev, _ = S.convert_segmentation(DIARIZE_FIXTURES + "segmentation.bin", device=card)
+    assert rel(S.segment_chunks(dev, chunks), S.segment_chunks(host, chunks)) <= 1e-4
+    windows = torch.stack([audio[i * 12000 : i * 12000 + 24000] for i in range(8)])
+    fb = W.kaldi_fbank(windows)
+    assert rel(W.kaldi_fbank(windows.to(card)), fb) <= 1e-4
+    host, _ = W.convert_wespeaker(DIARIZE_FIXTURES + "wespeaker.bin", device="cpu")
+    dev, _ = W.convert_wespeaker(DIARIZE_FIXTURES + "wespeaker.bin", device=card)
+    assert rel(W.wespeaker_embed(dev, fb.to(card)), W.wespeaker_embed(host, fb)) <= 1e-4
+    cfg = G.GE2EConfig(hidden=64, embed_dim=32)
+    mels = G.ge2e_mel(windows)
+    host = G.init_ge2e_params(torch.Generator().manual_seed(1), cfg, device="cpu")
+    dev = G.init_ge2e_params(torch.Generator().manual_seed(1), cfg, device=card)
+    assert rel(G.ge2e_embed(dev, mels.to(card)), G.ge2e_embed(host, mels)) <= 1e-4
+    lm = log_mel_spectrogram(windows, n_mels=80)[..., :150]
+    host, dev = D.init_diarizer_params(device="cpu"), D.init_diarizer_params(device=card)
+    assert rel(D.embed_windows(dev, lm.to(card)), D.embed_windows(host, lm)) <= 1e-4
+    assert torch.backends.cudnn.allow_tf32 == flag
+
+
+@pytest.mark.parametrize("pipeline", ["segmented", "energy-gated"])
+def test_diarized_turns_on_the_card_equal_the_cpu(card, monkeypatch, tmp_path, pipeline):
+    """The whole diarization on the card: the fixtures' segmented path
+    (least powerset margin on this clip ~0.08) and the energy-gated conv
+    embedder give the CPU's turns."""
+    from open_speech_tpu_torch.models.diarize import TorchDiarizer
+
+    for var in ("OS_SEGMENTATION_CKPT_PATH", "OS_WESPEAKER_CKPT_PATH", "OS_DIARIZER_CKPT_PATH"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("HF_HOME", str(tmp_path))
+    monkeypatch.setenv("HOME", str(tmp_path))
+    if pipeline == "segmented":
+        monkeypatch.setenv("OS_SEGMENTATION_CKPT_PATH", DIARIZE_FIXTURES + "segmentation.bin")
+        monkeypatch.setenv("OS_WESPEAKER_CKPT_PATH", DIARIZE_FIXTURES + "wespeaker.bin")
+    audio = _speakers()
+    dev, host = TorchDiarizer(device=card), TorchDiarizer(device="cpu")
+    assert (dev.seg is not None) == (pipeline == "segmented")
+    want = host.diarize_audio(audio)
+    assert want and dev.diarize_audio(audio) == want

@@ -10,8 +10,9 @@ chain, the spectral report, Kokoro serving (the TTS router,
 backend and batcher, G2P, and the speech handler's body), and the server
 (the app, its HTTP/multipart/WebSocket shell, errors, middleware, TLS
 bootstrap and ``__main__``), the realtime socket, the Wyoming server, the
-model catalog, the model manager, its lifecycle and the serving metrics
-included) must pull in neither ``jax``,
+model catalog, the model manager, its lifecycle and the serving metrics,
+the diarizer (segmentation, WeSpeaker, GE2E, the conv embedder, the
+service and its checkpoint loader) included) must pull in neither ``jax``,
 ``aiohttp``, ``pydantic`` nor any module of the JAX package. The check runs
 in a fresh interpreter, because this test process already imported them.
 """
@@ -50,7 +51,8 @@ want = ("server.streaming", "runtime.batcher", "runtime.batcher_pool", "models.w
         "server.realtime.audio_buffer", "server.wyoming", "server.wyoming.server",
         "server.wyoming.protocol", "runtime.registry", "server.metrics", "runtime.model_manager",
         "runtime.lifecycle", "models.piper.model", "tts.backends.piper_torch", "ops.effects",
-        "audio.effects", "audio.spectral")
+        "audio.effects", "audio.spectral", "models.ckptutil", "models.segmentation",
+        "models.wespeaker", "models.ge2e", "models.diarize", "diarization")
 print(len(names), ",".join(bad), int(all("open_speech_tpu_torch." + w in names for w in want)))
 """
 
@@ -65,7 +67,8 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
     assert n_modules >= 30, "walk_packages should find every submodule"
     assert named == "1", ("the streaming session, the batchers, batched long-form, "
                           "Kokoro's model and serving modules, the server, the realtime socket, "
-                          "Wyoming, model management, Piper and the effects must be among them")
+                          "Wyoming, model management, Piper, the effects and the diarizer must be "
+                          "among them")
     assert bad == "", f"port imported: {bad}"
 
 
@@ -146,6 +149,20 @@ def test_copies_equal_their_jax_originals(rel):
     copy = (PKG / rel).read_text(encoding="utf-8")
     normalised = copy.replace("open_speech_tpu_torch", "open_speech_tpu")
     assert normalised.replace("backends/piper_torch.py", "backends/piper_jax.py") == original
+
+
+# host modules the port keeps as copies of the JAX package's below their
+# module docstring (the original's docstring cites a path outside the repo)
+_CODE_COPIES = ["models/ckptutil.py"]
+
+
+@pytest.mark.parametrize("rel", _CODE_COPIES)
+def test_code_copies_equal_their_jax_originals(rel):
+    """Everything after the module docstring is the original's."""
+    original = (ROOT / "open_speech_tpu" / rel).read_text(encoding="utf-8")
+    copy = (PKG / rel).read_text(encoding="utf-8")
+    assert copy.startswith('"""') and original.startswith('"""')
+    assert copy.split('"""', 2)[2] == original.split('"""', 2)[2]
 
 
 # the server's settings: the JAX package's names, env variables and defaults

@@ -54,3 +54,12 @@ def test_tables_and_pad_or_trim_match_jax():
             tmel.pad_or_trim(torch.from_numpy(x), length).numpy(),
             np.asarray(jmel.pad_or_trim(jnp.asarray(x), length)),
         )
+
+
+@pytest.mark.parametrize("n_fft", [400, 512])
+def test_dft_bases_equal_jax(n_fft):
+    """The window-folded bases (whisper, GE2E) and the plain ones (kaldi
+    fbank) are JAX's, array for array."""
+    for port, jax_ in ((tmel._dft_bases, jmel._dft_bases), (tmel._dft_bases_raw, jmel._dft_bases_raw)):
+        for got, want in zip(port(n_fft), jax_(n_fft)):
+            assert got.dtype == want.dtype and np.array_equal(got, want)

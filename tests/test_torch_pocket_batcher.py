@@ -439,4 +439,4 @@ def test_clone_with_a_voice_library_ref_names_its_queue_item(served):
 
     [(_, port)] = _ask_both(BackendRouter(device="cpu"), [_clone(voice_library_ref="narrator")], tts_router=served)
     assert port[0] == 500
-    assert json.loads(port[2])["error"]["message"] == "the voice library is not ported yet: ROADMAP.md module item 2"
+    assert json.loads(port[2])["error"]["message"] == "the voice library is not ported yet: ROADMAP.md module item 1"

@@ -21,7 +21,11 @@ without its ``[type=...]`` tails, as ``test_torch_tts.py`` compares it);
 the CORS and rate-limit headers; the WebSocket refusals' close codes and
 reasons; a streaming session's event list (every interim awaited before
 the next frame, as ``tests/test_torch_streaming.py:_run_both`` does in
-process). Two tests need no JAX: ``/health`` answers while a slow
+process). A diarized transcription (``?diarize=true`` and the form field,
+json, text and verbose_json) answers the JAX app's ``{"text", "segments"}``
+body with each package's shared conv-embedder diarizer on one set of
+weights (JAX's ``PRNGKey(23)`` tree carried over), and a failed
+diarization the same 500. Two tests need no JAX: ``/health`` answers while a slow
 transcription is in flight, and a streamed speech request whose client
 leaves stops the synthesis. A last one starts ``python -m
 open_speech_tpu_torch.server`` with TLS, as it starts by default.
@@ -322,24 +326,70 @@ def test_backend_failure_is_a_500_on_both(both, backends, monkeypatch):
     assert port[0] == 500 and json.loads(port[2]) == {"error": {"message": "device lost", "code": "http_error"}}
 
 
-def test_diarize_enabled_names_its_later_item(backends, monkeypatch):
-    monkeypatch.setattr(torch_settings, "stt_diarize_enabled", True)
+@pytest.fixture
+def diarizers(both, monkeypatch, tmp_path):
+    """``STT_DIARIZE_ENABLED`` on both packages, each package's shared
+    diarizer on the conv embedder (no checkpoint is found): JAX's from
+    ``PRNGKey(23)``, the port's on the CPU with those weights carried over.
+    Returns the (JAX, port) diarizers."""
+    import jax
 
-    async def main():
-        app = TAPP.create_app(stt_router=backends[1], tts_router=TTSRouter(device="cpu"))
-        server = await serve_app(app, "127.0.0.1", 0)
-        try:
-            async with aiohttp.ClientSession() as session:
-                return await _request(session, f"127.0.0.1:{server.port}", "POST", T + "?diarize=true",
-                                      _form(_wav("beeps1"), model=MODEL))
-        finally:
-            await server.close()
+    from open_speech_tpu import diarization as JDS
+    from open_speech_tpu.models.diarize import JaxDiarizer
+    from open_speech_tpu_torch import diarization as TDS
+    from open_speech_tpu_torch.models.diarize import TorchDiarizer, diarizer_params_from_jax
 
-    status, _, body = asyncio.run(main())
-    assert status == 500
-    assert json.loads(body)["error"] == {
-        "message": "speaker diarization is not ported yet: ROADMAP.md module item 1",
-        "code": "internal_error"}
+    for var in ("OS_SEGMENTATION_CKPT_PATH", "OS_WESPEAKER_CKPT_PATH", "OS_DIARIZER_CKPT_PATH"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("HF_HOME", str(tmp_path))
+    monkeypatch.setenv("HOME", str(tmp_path))
+    both(stt_diarize_enabled=True)
+    jd = JaxDiarizer()
+    params = diarizer_params_from_jax(jax.tree_util.tree_map(np.asarray, jd.params), jd.cfg, device="cpu")
+    td = TorchDiarizer(params=params, device="cpu")
+    monkeypatch.setattr(JDS, "_shared", jd)
+    monkeypatch.setattr(TDS, "_shared", td)
+    return jd, td
+
+
+def _two_speakers() -> bytes:
+    from tests.test_diarize import _speaker_audio
+
+    return codec.write_wav(np.concatenate([_speaker_audio(220, 4, 1), _speaker_audio(520, 4, 2)]), SR)
+
+
+def test_diarize_enabled_names_its_later_item(both, backends, diarizers, monkeypatch):
+    """Once a named 500 of the unported route: ``?diarize=true`` (and the
+    form field) now answers the JAX app's ``{"text", "segments"}`` body
+    whatever the ``response_format``, and with the setting off both
+    answer 400."""
+    wav = _two_speakers()
+    calls = [("POST", T + "?diarize=true", _form(wav, model=MODEL), {}),
+             ("POST", T, _form(wav, model=MODEL, diarize="true", response_format="text"), {}),
+             ("POST", T + "?diarize=true", _form(wav, model=MODEL, response_format="verbose_json"), {})]
+    answers = _ask_both(backends[1], calls)
+    for jax, port in answers:
+        _same(jax, port)
+        body = json.loads(port[2])
+        assert port[0] == 200 and set(body) == {"text", "segments"}, body
+        assert len({s["speaker"] for s in body["segments"]}) == 2
+        assert all(set(s) == {"speaker", "start", "end", "text"} for s in body["segments"])
+    both(stt_diarize_enabled=False)
+    [(jax, port)] = _ask_both(backends[1], calls[:1])
+    _same(jax, port)
+    assert port[0] == 400 and "STT_DIARIZE_ENABLED" in json.loads(port[2])["error"]["message"]
+
+
+def test_a_failed_diarization_is_a_500_on_both(both, backends, diarizers, monkeypatch):
+    def boom(audio):
+        raise ValueError("no speakers here")
+
+    for d in diarizers:
+        monkeypatch.setattr(d, "diarize_audio", boom)
+    [(jax, port)] = _ask_both(backends[1], [("POST", T + "?diarize=true", _form(_two_speakers(), model=MODEL), {})])
+    _same(jax, port)
+    assert port[0] == 500
+    assert json.loads(port[2])["error"]["message"] == "Diarization failed: no speakers here"
 
 
 # ── models, health, auth, CORS, rate limits, routing ────────────────────
