@@ -147,7 +147,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
      and RTFx, and a profiled frame (launches, idle share); 15b the slot
      pool at 1, 4 and 16 sessions (each row's frames and PCM against its
      solo run, TTFA, wall, peak memory) and the host syncs of its groups
-     (at most one each); 15c ``pocket-tts`` behind ``create_app``: speech
+     (at most one each); 15c ``pocket-tts`` behind ``create_app`` (17d runs
+     there): speech
      with a speaker, a base64 reference clip and a voice design, whole and
      streamed, and the clone route, each equal to the direct backend call;
      capabilities, voices and Wyoming describe; the load and unload routes
@@ -170,6 +171,29 @@ Phases, each of which raises on failure (exit code 1, no result line):
      equals the direct transcription plus the direct diarization, with the
      plain transcription's K1 launches; 400 with the setting off. Fails if
      a flash kernel is launched in 16a or 16b.
+ 17. the Studio (``studio/``, ``cache/tts_cache.py``, the web UI) behind
+     ``create_app`` on phase 4's turbo router and phase 11's kokoro-82M
+     ``TTSRouter``, with a Piper-medium voice loaded beside it; run after
+     phase 16. Every app of the script keeps its studio paths in one
+     temporary directory (``studio_dirs``). 17a: request a with history on
+     (body and K1 launches = the direct call's, one history row), short
+     speech requests with ``OS_HISTORY_ENABLED`` on and off in turns (served
+     wall p50) and one history row's host cost, then a speech request twice
+     with ``TTS_CACHE_ENABLED`` (MISS, then ``X-Cache: HIT`` with the same
+     bytes and no synthesis). 17b: a three-turn conversation (two Kokoro
+     voices, one Piper turn resampled 22.05 -> 24 kHz on the card, effects
+     on one turn) rendered through the route: each turn WAV = a direct
+     ``ConversationManager.render`` on the card; each turn against the
+     same render on the CPU (host-drawn noise on both), Piper within
+     relative L2 1e-5, Kokoro within phase 7's whole-synthesis bound, the
+     effects chain within 1e-5; the render wall and its synthesis share.
+     17c: the composer mixing the turn WAVs and a 22.05 kHz track with
+     effects, card = CPU within relative L2 1e-5. 17d runs in phase 15c on
+     its pocket-tts app: a voice-library upload, then the clone route with
+     ``voice_library_ref``, byte-equal to the same request with a
+     ``reference_audio`` part; an unknown entry 404. 17e: ``/web`` and
+     ``/static/app.js`` = the package's files. Fails if a flash kernel is
+     launched in 17b-17e; 17a's launches join the kernels line.
 
 Each phase's seconds, and the whole script's, are printed on lines of
 their own.
@@ -621,6 +645,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     t_script = time.perf_counter()
+    studio_dirs()
 
     def timed(name: str, fn, *args):
         t0 = time.perf_counter()
@@ -651,7 +676,8 @@ def main() -> int:
     # 11-13: the same kernels through the sockets, each counted from 0
     phases = [timed("11 (server)", phase_server, router, tts),
               timed("12 (realtime and Wyoming)", phase_realtime, router, tts),
-              timed("16 (diarization)", phase_diarize, router)]  # here: 16c serves phase 4's router
+              timed("16 (diarization)", phase_diarize, router),  # here: 16c serves phase 4's router
+              timed("17 (studio)", phase_studio, router, tts)]
     del router  # phase 13 loads turbo on a router of its own
     phases.append(timed("13 (model management)", phase_management, tts))
     timed("14 (piper and effects)", phase_piper)
@@ -2428,6 +2454,7 @@ class _Served:
     def __init__(self, stt_router, tts_router) -> None:
         from open_speech_tpu_torch.server.app import create_app
 
+        studio_dirs()  # no app of this script writes the default studio paths
         self.app = create_app(stt_router=stt_router, tts_router=tts_router)
 
     def __enter__(self):
@@ -2468,15 +2495,18 @@ def _http(port: int, method: str, path: str, body: bytes = b"", headers=None):
         conn.close()
 
 
-def _multipart(fields: dict, audio: bytes) -> tuple[bytes, dict]:
-    """A multipart/form-data body with ``fields`` and ``audio`` as ``file``."""
+def _multipart(fields: dict, audio: bytes | None = None, part: str = "file",
+               filename: str = "clip.wav") -> tuple[bytes, dict]:
+    """A multipart/form-data body with ``fields`` and ``audio`` (when
+    given) as the WAV file part ``part``."""
     import os
 
     boundary = "chipsmoke" + os.urandom(8).hex()
     parts = [f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'.encode()
              for k, v in fields.items()]
-    parts.append(f'--{boundary}\r\nContent-Disposition: form-data; name="file"; filename="clip.wav"'
-                 f"\r\nContent-Type: audio/wav\r\n\r\n".encode() + audio + b"\r\n")
+    if audio is not None:
+        parts.append(f'--{boundary}\r\nContent-Disposition: form-data; name="{part}"; filename="{filename}"'
+                     f"\r\nContent-Type: audio/wav\r\n\r\n".encode() + audio + b"\r\n")
     parts.append(f"--{boundary}--\r\n".encode())
     return b"".join(parts), {"Content-Type": f"multipart/form-data; boundary={boundary}"}
 
@@ -4693,19 +4723,6 @@ def _pocket_sync_probe(card, jobs) -> None:
         f"{sorted({x for s in syncs for x in s})}; group ms " + " ".join(f"{1e3 * t:.3f}" for t in times))
 
 
-def _pocket_multipart(fields: dict, ref: bytes) -> tuple[bytes, dict]:
-    """A multipart body: ``fields`` and ``ref`` as the ``reference_audio`` file."""
-    import os
-
-    boundary = "chipsmoke" + os.urandom(8).hex()
-    parts = [f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'.encode()
-             for k, v in fields.items()]
-    parts.append(f'--{boundary}\r\nContent-Disposition: form-data; name="reference_audio"; filename="ref.wav"'
-                 f"\r\nContent-Type: audio/wav\r\n\r\n".encode() + ref + b"\r\n")
-    parts.append(f"--{boundary}--\r\n".encode())
-    return b"".join(parts), {"Content-Type": f"multipart/form-data; boundary={boundary}"}
-
-
 def _pocket_served() -> None:
     """15c: pocket-tts at full width behind ``create_app`` on the card."""
     import base64
@@ -4770,8 +4787,9 @@ def _pocket_served() -> None:
                 log(f"pocket 15c POST /v1/audio/speech {name}: WAV {got.size / rate:.3f} s = the direct backend call's "
                     f"samples, wall {wall:.4f} s; streamed PCM = the direct call's bytes, TTFA {1e3 * ttfa:.3f} ms")
             _pocket_served_batched(port, backend, direct, want_solo=direct(False))
-            payload, headers = _pocket_multipart(
-                {"input": POCKET_TEXT, "model": model, "response_format": "wav", "transcript": "a tone"}, ref)
+            payload, headers = _multipart(
+                {"input": POCKET_TEXT, "model": model, "response_format": "wav", "transcript": "a tone"}, ref,
+                "reference_audio", "ref.wav")
             t0 = time.perf_counter()
             status, _, wav = _http(port, "POST", "/v1/audio/speech/clone", payload, headers)
             wall = time.perf_counter() - t0
@@ -4781,6 +4799,7 @@ def _pocket_served() -> None:
                 raise AssertionError(f"pocket 15c clone route: {status} {wav[:200]!r}")
             log(f"pocket 15c POST /v1/audio/speech/clone (multipart, 16 kHz reference): 200, WAV = the direct call's "
                 f"samples, wall {wall:.4f} s")
+            _studio_clone(port, ref, wav)
             _pocket_listings(served, tts, backend)
             t0 = time.perf_counter()
             done = _json_call(port, "DELETE", f"/api/models/{model}", 200)
@@ -5410,6 +5429,406 @@ def _diarize_served(router, card, plain_card) -> dict:
         f"Diarizer().diarize + attach_text_to_speakers, K1 launches {k1_plain} per request = the plain "
         f"transcription's (direct transcription {stt_s:.3f} s); " + "; ".join(lines) + "; setting off: 400")
     return launches
+
+
+# ── phase 17: the Studio ────────────────────────────────────────────────
+
+_STUDIO_ROOT: list[str] = []  # the temporary directory of studio_dirs(), once made
+STUDIO_SPEECH = "Thanks for calling. We will ring you back tomorrow."
+STUDIO_REPEATS = 5  # the history on/off speech requests of each kind, in turns
+STUDIO_TURNS = [  # (speaker, text, profile, effects): two Kokoro voices and a Piper voice
+    ("Host", "Welcome back to the studio. Today we talk about the weather.", None, None),
+    ("Guest", "Thank you, it is good to be here on such a clear morning.", "Guest",
+     [{"type": "normalize"}, {"type": "reverb"}]),
+    ("Reader", "The forecast calls for sun through the weekend.", "Reader", None),
+]
+STUDIO_REL_L2 = {"piper": 1e-5, "effects": 1e-5, "composer": 1e-5}
+
+
+def studio_dirs() -> str:
+    """The Studio's five paths (its database, voice library, conversation
+    and composer renders, TTS cache) in one temporary directory, set in the
+    port's settings and in the environment (for ``python -m`` children)
+    before any app is made; removed at exit. Idempotent."""
+    if not _STUDIO_ROOT:
+        import atexit
+        import os
+        import shutil
+        import tempfile
+
+        from open_speech_tpu_torch.config import settings
+
+        root = tempfile.mkdtemp(prefix="chip_smoke_studio_")
+        atexit.register(shutil.rmtree, root, True)
+        for name, leaf in (("os_studio_db_path", "studio.db"), ("os_voice_library_path", "voices"),
+                           ("os_conversations_dir", "conversations"), ("os_composer_dir", "composer"),
+                           ("tts_cache_dir", "cache")):
+            setattr(settings, name, f"{root}/{leaf}")
+            os.environ[name.upper()] = f"{root}/{leaf}"
+        _STUDIO_ROOT.append(root)
+    return _STUDIO_ROOT[0]
+
+
+def _studio_call(port: int, method: str, path: str, want: int, body=None):
+    """One Studio request: the JSON body (or the raw bytes of audio)."""
+    payload = b"" if body is None else json.dumps(body).encode()
+    status, headers, raw = _http(port, method, path, payload,
+                                 {"Content-Type": "application/json"} if body is not None else {})
+    if status != want:
+        raise AssertionError(f"studio 17: {method} {path}: {status} {raw[:300]!r} (want {want})")
+    return json.loads(raw) if headers.get("Content-Type", "").startswith("application/json") else raw
+
+
+def phase_studio(router, tts) -> dict:
+    """17: the Studio behind ``create_app`` on phase 4's turbo router and
+    phase 11's kokoro-82M ``TTSRouter`` (a Piper-medium voice loaded beside
+    it for 17b), its paths in ``studio_dirs()``. 17a: request a with
+    history on, against the direct call (body, K1), its history row;
+    short speech requests with ``OS_HISTORY_ENABLED`` on and off in turns
+    (served wall p50) and the host cost of one history row; a speech
+    request twice with ``TTS_CACHE_ENABLED``, MISS then a HIT with the
+    same bytes and no synthesis. 17b: a three-turn conversation (two
+    Kokoro voices, one Piper turn resampled 22.05 -> 24 kHz on the card,
+    effects on one turn) rendered through the route, each turn's WAV equal
+    to a direct ``ConversationManager.render`` on the card, and each
+    turn's samples against the same turn rendered on the CPU. 17c: the
+    composer mixing the turn WAVs and a 22.05 kHz track with effects,
+    card against CPU. 17e: ``/web`` and ``/static`` against the package's
+    files. 17d runs inside phase 15c, on its Pocket router. Fails if a
+    flash kernel is launched in 17b-17e. Returns 17a's launches."""
+    from open_speech_tpu_torch.config import settings
+    from open_speech_tpu_torch.ops import attention as A
+
+    import torch
+
+    if torch.device(tts._device).type != "cuda":
+        raise AssertionError(f"studio 17: the TTS router is on {tts._device}, not the card")
+    studio_dirs()
+    saved = {k: getattr(settings, k) for k in ("tts_cache_enabled", "os_history_enabled")}
+    settings.tts_cache_enabled = True  # the app's cache is made enabled; the route reads the setting
+    t0 = time.perf_counter()
+    tts.load_model(PIPER_VOICE)
+    log(f"studio 17: {PIPER_VOICE} loaded beside kokoro-82M on the card in {time.perf_counter() - t0:.3f} s; "
+        f"studio paths under {studio_dirs()}")
+    try:
+        with _Served(router, tts) as served:
+            launches = _studio_history_and_cache(router, tts, served)
+            before = dict(A.launches)
+            turn_wavs = _studio_conversation(tts, served)
+            _studio_composer(served, turn_wavs)
+            _studio_web(served.port)
+            if dict(A.launches) != before:
+                raise AssertionError(f"studio 17b-17e: flash launches moved: {before} -> {dict(A.launches)}")
+            log(f"studio 17b-17e: flash launch counts unchanged: {before}")
+    finally:
+        for key, value in saved.items():
+            setattr(settings, key, value)
+        tts.unload_model(PIPER_VOICE)
+    return launches
+
+
+def _studio_history_and_cache(router, tts, served) -> dict:
+    """17a."""
+    import statistics
+
+    import torch
+
+    from open_speech_tpu_torch.config import settings
+    from open_speech_tpu_torch.ops import attention as A
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.runtime.router import transcription_response
+
+    port = served.port
+    wav = codec.write_wav(_speechlike(5.0, 1), SR)  # phase 4's request a
+    for key in A.launches:
+        A.launches[key] = 0
+    t0 = time.perf_counter()
+    want = transcription_response(router, wav, model=MAIN_MODEL, response_format="json")
+    torch.cuda.synchronize()
+    direct_s, k1_direct = time.perf_counter() - t0, A.launches["flash_attention"]
+    rows_before = _studio_call(port, "GET", "/api/history?type=stt&limit=1", 200)["total"]
+    for key in A.launches:
+        A.launches[key] = 0
+    body, headers = _multipart({"model": MAIN_MODEL}, wav)
+    t0 = time.perf_counter()
+    status, _, raw = _http(port, "POST", "/v1/audio/transcriptions", body, headers)
+    served_s, launches = time.perf_counter() - t0, dict(A.launches)
+    if status != 200 or json.loads(raw) != want:
+        raise AssertionError(f"studio 17a: {status} {raw[:300]!r} vs direct {want}")
+    if launches["flash_attention"] != k1_direct or k1_direct <= 0:
+        raise AssertionError(f"studio 17a: K1 launches served {launches} vs direct {k1_direct}")
+    rows = _studio_call(port, "GET", "/api/history?type=stt&limit=1", 200)
+    row = rows["items"][0]
+    if rows["total"] != rows_before + 1 or row["model"] != MAIN_MODEL or row["full_text"] != want["text"] \
+            or row["input_filename"] != "clip.wav":
+        raise AssertionError(f"studio 17a: history {rows_before} -> {rows['total']} rows, newest {row}")
+    log(f"studio 17a POST /v1/audio/transcriptions (request a, history on): body = the direct call's, K1 launches "
+        f"{k1_direct} = the direct call's; one history row (stt, {MAIN_MODEL}, the body's text); served wall "
+        f"{served_s:.3f} s, direct {direct_s:.3f} s")
+
+    speech = json.dumps({"model": "kokoro", "input": STUDIO_SPEECH, "voice": "af_heart",
+                         "response_format": "wav"}).encode()
+    json_headers = {"Content-Type": "application/json"}
+    walls = {True: [], False: []}
+    _http(port, "POST", "/v1/audio/speech?cache=false", speech, json_headers)  # a warm-up turn
+    for _ in range(STUDIO_REPEATS):
+        for on in (True, False):
+            settings.os_history_enabled = on
+            t0 = time.perf_counter()
+            status, _, audio = _http(port, "POST", "/v1/audio/speech?cache=false", speech, json_headers)
+            walls[on].append(time.perf_counter() - t0)
+            if status != 200:
+                raise AssertionError(f"studio 17a speech (history {on}): {status} {audio[:200]!r}")
+    settings.os_history_enabled = True
+    history = served.app["history"]
+    costs = []
+    for i in range(20):
+        t0 = time.perf_counter()
+        history.log_tts("kokoro", "af_heart", 1.0, "wav", STUDIO_SPEECH, None, len(audio), streamed=False)
+        costs.append(time.perf_counter() - t0)
+    p50 = {on: 1e3 * statistics.median(w) for on, w in walls.items()}
+    log(f"studio 17a speech ({len(audio)} bytes of WAV, cache off) x{STUDIO_REPEATS} in turns: served wall p50 "
+        f"history on {p50[True]:.3f} ms, off {p50[False]:.3f} ms (each "
+        f"{[round(1e3 * w, 3) for w in walls[True]]} / {[round(1e3 * w, 3) for w in walls[False]]}); one history "
+        f"row's insert, commit and prune on the host p50 {1e3 * statistics.median(costs):.3f} ms over 20")
+
+    backend = tts.get_backend("kokoro")
+    calls = []
+    real = backend.synthesize
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    backend.synthesize = counted
+    try:
+        cached = json.dumps({"model": "kokoro", "input": STUDIO_SPEECH, "voice": "am_puck",
+                             "response_format": "wav"}).encode()
+        answers = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            status, rheaders, audio = _http(port, "POST", "/v1/audio/speech", cached, json_headers)
+            answers.append((status, rheaders.get("X-Cache"), audio, time.perf_counter() - t0, len(calls)))
+    finally:
+        del backend.synthesize
+    (s1, x1, a1, w1, c1), (s2, x2, a2, w2, c2) = answers
+    if (s1, x1, s2, x2) != (200, None, 200, "HIT") or a1 != a2 or (c1, c2) != (1, 1):
+        raise AssertionError(f"studio 17a cache: {s1} {x1} then {s2} {x2}, bytes equal {a1 == a2}, "
+                             f"syntheses {c1} then {c2}")
+    log(f"studio 17a POST /v1/audio/speech with TTS_CACHE_ENABLED: MISS {1e3 * w1:.3f} ms (one synthesis), then "
+        f"X-Cache: HIT {1e3 * w2:.3f} ms, the same {len(a2)} bytes, no synthesis")
+    return launches
+
+
+def _studio_renders(mgr, cid: str) -> list:
+    """Each turn of conversation ``cid`` rendered by ``mgr`` as float
+    samples (its synthesis and effects), without writing files."""
+    turns = mgr.get(cid)["turns"]
+    db = mgr._store.connection()
+    try:
+        return [mgr._render_turn(db, turn, i, None, 24000, False) for i, turn in enumerate(turns, start=1)]
+    finally:
+        db.rollback()  # the turns' duration updates: this thread holds no write lock after
+
+
+def _studio_conversation(tts, served) -> list[str]:
+    """17b; returns the turn WAVs' paths."""
+    import functools
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from open_speech_tpu_torch.config import settings
+    from open_speech_tpu_torch.models.kokoro import model as K
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.server.app import _synthesize_array
+    from open_speech_tpu_torch.studio.conversation import ConversationManager
+    from open_speech_tpu_torch.studio.profiles import ProfileManager
+    from open_speech_tpu_torch.studio.storage import Store
+    from open_speech_tpu_torch.tts.router import TTSRouter
+
+    port = served.port
+    profiles = {"Guest": _studio_call(port, "POST", "/api/profiles", 201, {
+                    "name": "Guest", "backend": "kokoro", "model": "kokoro", "voice": "am_puck", "speed": 1.1}),
+                "Reader": _studio_call(port, "POST", "/api/profiles", 201, {
+                    "name": "Reader", "backend": "piper", "model": PIPER_VOICE, "voice": PIPER_VOICE})}
+    turns = [{"speaker": sp, "text": text, "profile_id": profiles[p]["id"] if p else None, "effects": fx}
+             for sp, text, p, fx in STUDIO_TURNS]
+    conv = _studio_call(port, "POST", "/api/conversations", 201, {"name": "studio 17b", "turns": turns})
+    cid = conv["id"]
+    synth_s = []
+    real_synth = served.app["conversations"].synthesize_fn
+
+    def timed(**kw):
+        t0 = time.perf_counter()
+        out = real_synth(**kw)
+        synth_s.append(time.perf_counter() - t0)
+        return out
+
+    served.app["conversations"].synthesize_fn = timed
+    try:
+        t0 = time.perf_counter()
+        result = _studio_call(port, "POST", f"/api/conversations/{cid}/render", 200, {"format": "wav"})
+        render_s = time.perf_counter() - t0
+    finally:
+        served.app["conversations"].synthesize_fn = real_synth
+    audio = _studio_call(port, "GET", f"/api/conversations/{cid}/audio", 200)
+    got, rate = codec.read_wav(audio)
+    turn_dir = Path(settings.os_conversations_dir) / cid
+    served_turns = [(turn_dir / f"turn_{i}.wav").read_bytes() for i in range(1, 4)]
+    if result["turn_count"] != 3 or rate != 24000 or abs(got.size / rate * 1000 - result["duration_ms"]) > 1:
+        raise AssertionError(f"studio 17b render: {result}, {got.size} samples at {rate} Hz")
+    if codec.read_wav(served_turns[2])[1] != 24000:
+        raise AssertionError("studio 17b: the Piper turn is not at 24 kHz")
+
+    # the same conversation through a direct manager on the card
+    store = Store(settings.os_studio_db_path)
+    direct = ConversationManager(store, output_dir=Path(studio_dirs()) / "direct", default_model=settings.tts_model,
+                                 default_voice=settings.tts_voice, device=tts._device,
+                                 profile_manager=ProfileManager(store),
+                                 synthesize_fn=functools.partial(_synthesize_array, tts))
+    dconv = direct.create("studio 17b direct", turns)
+    direct.render(dconv["id"], format="wav")
+    direct_turns = [(Path(studio_dirs()) / "direct" / dconv["id"] / f"turn_{i}.wav").read_bytes()
+                    for i in range(1, 4)]
+    if direct_turns != served_turns:
+        raise AssertionError(f"studio 17b: served turn WAVs differ from the direct render's: "
+                             f"{[a == b for a, b in zip(served_turns, direct_turns)]}")
+
+    # card against CPU: the same weights and host-drawn noise on both
+    cpu = TTSRouter(device="cpu")
+    card_kokoro, cpu_kokoro = tts.get_backend("kokoro"), cpu.get_backend("kokoro")
+    cpu_kokoro._model = K.KModel.empty(card_kokoro._cfg, "cpu")
+    cpu_kokoro._model.load_state_dict(card_kokoro._model.state_dict())
+    cpu_kokoro._cfg, cpu_kokoro._loaded_at = card_kokoro._cfg, time.time()
+    cpu.load_model(PIPER_VOICE)  # its random weights come from a host generator: the card's
+    host_mgr = ConversationManager(store, output_dir=Path(studio_dirs()) / "cpu", default_model=settings.tts_model,
+                                   default_voice=settings.tts_voice, device="cpu",
+                                   profile_manager=ProfileManager(store),
+                                   synthesize_fn=functools.partial(_synthesize_array, cpu))
+    real_rng = K._default_rng
+    K._default_rng = lambda rng, device: rng if rng is not None else torch.Generator().manual_seed(0)
+    try:
+        card_samples = _studio_renders(direct, dconv["id"])
+        host_samples = _studio_renders(host_mgr, dconv["id"])
+    finally:
+        K._default_rng = real_rng
+    rels = []
+    for (speaker, _, p, fx), a, b in zip(STUDIO_TURNS, card_samples, host_samples):
+        kind = "piper" if p == "Reader" else "kokoro"
+        rel = float(np.linalg.norm(a - b) / np.linalg.norm(b)) if a.shape == b.shape else float("inf")
+        bound = STUDIO_REL_L2["piper"] if kind == "piper" else KOKORO_OWN_FEATURES_REL_L2
+        if not rel <= bound:
+            raise AssertionError(f"studio 17b {speaker} ({kind}{', effects' if fx else ''}): card vs CPU relative "
+                                 f"L2 {rel:.3e} over {bound}, shapes {a.shape} {b.shape}")
+        rels.append(f"{speaker} ({kind}{' + ' + '/'.join(e['type'] for e in fx) if fx else ''}, {a.size} samples) "
+                    f"{rel:.3e}")
+    from open_speech_tpu_torch.audio.effects import apply_chain
+
+    fx_in = _synthesize_array(tts, text=STUDIO_TURNS[1][1], model="kokoro", voice="am_puck", speed=1.1)
+    fx_host = apply_chain(fx_in, 24000, STUDIO_TURNS[1][3], device="cpu")
+    fx_rel = float(np.linalg.norm(apply_chain(fx_in, 24000, STUDIO_TURNS[1][3], device=tts._device) - fx_host)
+                   / np.linalg.norm(fx_host))
+    if not fx_rel <= STUDIO_REL_L2["effects"]:
+        raise AssertionError(f"studio 17b: the effects turn's chain card vs CPU relative L2 {fx_rel:.3e}")
+    cpu.unload_model(PIPER_VOICE)
+    log(f"studio 17b POST /api/conversations/{{id}}/render (3 turns: kokoro af_heart, kokoro am_puck + normalize/"
+        f"reverb, {PIPER_VOICE} 22.05 -> 24 kHz on the card): 200, turn_count 3, duration_ms "
+        f"{result['duration_ms']}, render wall {render_s:.3f} s of which synthesis {sum(synth_s):.3f} s "
+        f"({100 * sum(synth_s) / render_s:.1f}%; per turn {[round(x, 3) for x in synth_s]} s); each turn WAV = the "
+        f"direct ConversationManager.render's on the card; card vs CPU per turn, relative L2: {'; '.join(rels)} "
+        f"(bounds: Piper {STUDIO_REL_L2['piper']}, Kokoro phase 7's whole-synthesis {KOKORO_OWN_FEATURES_REL_L2}); "
+        f"the effects chain alone on the same input card vs CPU {fx_rel:.3e}")
+    return [str(turn_dir / f"turn_{i}.wav") for i in range(1, 4)]
+
+
+def _studio_composer(served, turn_wavs: list[str]) -> None:
+    """17c."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from open_speech_tpu_torch.config import settings
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.studio.composer import MultiTrackComposer
+    from open_speech_tpu_torch.studio.storage import Store
+
+    extra = Path(settings.os_conversations_dir) / "bed_22k.wav"
+    extra.write_bytes(codec.write_wav(_speechlike(6.0, 71, 22050), 22050))
+    tracks = [{"source_path": p, "offset_s": 0.6 * i, "volume": 0.8} for i, p in enumerate(turn_wavs)]
+    tracks.append({"source_path": str(extra), "volume": 0.5,
+                   "effects": [{"type": "podcast_eq"}, {"type": "reverb", "room": "large"}]})
+    t0 = time.perf_counter()
+    result = _studio_call(served.port, "POST", "/api/composer/render", 200,
+                          {"tracks": tracks, "format": "wav", "name": "studio 17c"})
+    wall = time.perf_counter() - t0
+    card = _studio_call(served.port, "GET", f"/api/composer/render/{result['composition_id']}/audio", 200)
+    host = MultiTrackComposer(Store(settings.os_studio_db_path), output_dir=Path(studio_dirs()) / "composer_cpu",
+                              conversations_dir=settings.os_conversations_dir,
+                              voice_library_path=settings.voice_library_path, device="cpu")
+    t0 = time.perf_counter()
+    host_result = host.render(tracks, format="wav", name="studio 17c cpu")
+    host_wall = time.perf_counter() - t0
+    a, rate = codec.read_wav(card)
+    b, _ = codec.read_wav(Path(host_result["output_path"]).read_bytes())
+    rel = float(np.linalg.norm(a - b) / np.linalg.norm(b)) if a.shape == b.shape else float("inf")
+    card = torch.device(served.app["tts_router"]._device)
+    if served.app["composer"].device != card or rate != 24000 or not rel <= STUDIO_REL_L2["composer"]:
+        raise AssertionError(f"studio 17c: {served.app['composer'].device}, {rate} Hz, card vs CPU relative L2 "
+                             f"{rel:.3e}")
+    log(f"studio 17c POST /api/composer/render (the 3 turn WAVs at offsets 0/0.6/1.2 s + a 6 s 22.05 kHz bed with "
+        f"podcast_eq and a large reverb, resampled on the card): 200, {result['duration_ms']} ms at 24 kHz; card vs "
+        f"CPU relative L2 {rel:.3e} (bound {STUDIO_REL_L2['composer']}); wall served {wall:.3f} s, the CPU's "
+        f"{host_wall:.3f} s")
+
+
+def _studio_web(port: int) -> None:
+    """17e."""
+    from pathlib import Path
+
+    static = Path(__file__).resolve().parent / "open_speech_tpu_torch" / "static"
+    status, headers, body = _http(port, "GET", "/web")
+    if status != 200 or body != (static / "index.html").read_bytes():
+        raise AssertionError(f"studio 17e /web: {status} {body[:100]!r}")
+    status, _, js = _http(port, "GET", "/static/app.js")
+    if status != 200 or js != (static / "app.js").read_bytes():
+        raise AssertionError(f"studio 17e /static/app.js: {status} {len(js)} bytes")
+    refused = _http(port, "GET", "/static/%2e%2e/server/app.py")[0]
+    if refused != 404:
+        raise AssertionError(f"studio 17e: an encoded traversal answered {refused}")
+    log(f"studio 17e GET /web ({len(body)} bytes, {headers.get('Content-Type')}) and /static/app.js ({len(js)} "
+        f"bytes) = the package's files; /static/%2e%2e/server/app.py: 404")
+
+
+def _studio_clone(port: int, ref: bytes, want: bytes) -> None:
+    """17d, on phase 15c's app: a voice-library upload, then the clone route
+    with ``voice_library_ref`` on pocket-tts, byte-equal to ``want`` (the
+    same request with ``reference_audio``); an unknown entry is 404."""
+    from open_speech_tpu_torch.ops import attention as A
+
+    before = dict(A.launches)
+    body, headers = _multipart({"name": "Studio Voice"}, ref, "audio", "studio.wav")
+    status, _, raw = _http(port, "POST", "/api/voices/library", body, headers)
+    if status != 201 or json.loads(raw)["name"] != "studio_voice":
+        raise AssertionError(f"studio 17d upload: {status} {raw[:200]!r}")
+    fields = {"input": POCKET_TEXT, "model": "pocket-tts", "response_format": "wav", "transcript": "a tone"}
+    body, headers = _multipart({**fields, "voice_library_ref": "studio_voice"})
+    t0 = time.perf_counter()
+    status, _, wav = _http(port, "POST", "/v1/audio/speech/clone", body, headers)
+    wall = time.perf_counter() - t0
+    if status != 200 or wav != want:
+        raise AssertionError(f"studio 17d clone by voice_library_ref: {status}, {len(wav)} bytes vs {len(want)}")
+    body, headers = _multipart({**fields, "voice_library_ref": "nobody"})
+    status, _, raw = _http(port, "POST", "/v1/audio/speech/clone", body, headers)
+    if status != 404:
+        raise AssertionError(f"studio 17d unknown entry: {status} {raw[:200]!r}")
+    if dict(A.launches) != before:
+        raise AssertionError(f"studio 17d: flash launches moved: {before} -> {dict(A.launches)}")
+    log(f"studio 17d POST /api/voices/library then /v1/audio/speech/clone voice_library_ref=studio_voice on "
+        f"pocket-tts: 200, {len(wav)} bytes = the same request with reference_audio, wall {wall:.4f} s; an unknown "
+        f"entry: 404; no flash launch")
 
 
 if __name__ == "__main__":

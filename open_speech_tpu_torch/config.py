@@ -8,7 +8,9 @@ the continuous batcher, Kokoro serving (``POST /v1/audio/speech``'s
 body, the backend and the TTS batcher), the HTTP server (``server/``:
 binding, TLS, auth, CORS, rate limits, upload size, preloads), the
 realtime socket, the Wyoming server, model management and its TTL/LRU
-lifecycle, the profiler routes and Pocket's slot-pool batcher read. ``os_vad_device``
+lifecycle, the profiler routes, Pocket's slot-pool batcher, the Studio
+(voice library, profiles, history, conversations, composer) and the TTS
+cache read. ``os_vad_device``
 (``OS_VAD_DEVICE``, which the JAX package reads from the environment
 directly) names the VAD's device; its default is the STT device. ``stt_device`` defaults to ``cuda``; ``tts_device`` defaults to
 ``stt_device``.
@@ -112,6 +114,23 @@ _DEFAULTS: dict[str, object] = {
     # group advances every session (one host sync, one Mimi block)
     "os_pocket_batch_slots": 16,
     "os_pocket_block_frames": 2,
+    # the Studio: voice library, SQLite store, history, renders
+    "os_voice_library_path": "/home/openspeech/data/voices",
+    "os_voice_library_max_count": 100,
+    "os_studio_db_path": "/home/openspeech/data/studio.db",
+    "os_history_enabled": True,
+    "os_history_max_entries": 1000,
+    "os_history_retain_audio": True,
+    "os_history_max_mb": 2000,
+    "os_conversations_dir": "/home/openspeech/data/conversations",
+    "os_composer_dir": "/home/openspeech/data/composer",
+    # GET /api/voice-presets reads TTS_VOICES_CONFIG from the environment
+    # per request, as the JAX app does; the field mirrors it
+    "tts_voices_config": "",
+    # the disk cache of whole /v1/audio/speech bodies
+    "tts_cache_enabled": False,
+    "tts_cache_max_mb": 500,
+    "tts_cache_dir": "/var/lib/open-speech/cache",
 }
 
 _OPTIONAL_STR = {"stt_model_dir", "tts_device"}
@@ -167,6 +186,8 @@ class Settings:
     stt_max_loaded_models = property(lambda self: self.os_max_loaded_models)
     stt_stream_chunk_ms = property(lambda self: self.os_stream_chunk_ms)
     stt_stream_max_connections = property(lambda self: self.os_stream_max_connections)
+    voice_library_path = property(lambda self: self.os_voice_library_path)
+    voice_library_max_count = property(lambda self: self.os_voice_library_max_count)
     stt_default_model = property(lambda self: self.stt_model)
     tts_default_model = property(lambda self: self.tts_model)
     tts_default_voice = property(lambda self: self.tts_voice)

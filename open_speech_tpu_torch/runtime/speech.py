@@ -26,19 +26,29 @@ the JAX server applies them: a whole body gets them under
 ``OS_EFFECTS_ENABLED`` (on by default); a streamed response always gets
 them, and then synthesizes and post-processes the whole utterance first
 (the effects are whole-signal DSP: a global level, a phase-vocoder pitch,
-reverb tails) and sends the processed audio as one chunk. Left out, each a
-later item of ``ROADMAP.md``: the TTS cache (off by default in the JAX
-package) and history.
+reverb tails) and sends the processed audio as one chunk.
+
+``cache``, the app's ``TTSCache`` when the caller lets the request use
+it (the route's ``?cache`` flag and ``TTS_CACHE_ENABLED``), serves a
+whole body from disk when its key (the text after SSML and the
+dictionary, voice, speed, format, model) is stored, and stores what it
+synthesizes; a request with effects, a voice design or reference audio
+bypasses it both ways, as in the JAX route. ``history``, the app's
+``HistoryManager`` when ``OS_HISTORY_ENABLED``, gets a row for a streamed
+request before its synthesis starts and for a whole one after it; a
+failure to log is logged and swallowed. A cache hit logs nothing.
 
 ``timing``, a dict the caller passes, receives what the server's metrics
 need: the native ``rate`` and the ``format``, and for a whole body
 ``first_chunk`` (``time.monotonic()`` at the first synthesized chunk, the
-JAX server's time to first audio) and ``audio_seconds``.
+JAX server's time to first audio) and ``audio_seconds``; a cache hit
+sets ``cache`` to ``"HIT"`` and nothing else.
 """
 
 from __future__ import annotations
 
 import base64
+import logging
 import time
 from functools import lru_cache
 from typing import Iterator
@@ -53,6 +63,9 @@ from open_speech_tpu_torch.schemas import TTSSpeechRequest
 from open_speech_tpu_torch.text.pronunciation import PronunciationDictionary, parse_ssml
 from open_speech_tpu_torch.tts.backends.base import backend_sample_rate
 from open_speech_tpu_torch.tts.router import TTSRouter
+
+logger = logging.getLogger(__name__)
+
 
 class SpeechError(Exception):
     """A rejected speech request: the HTTP status, message and error code
@@ -104,8 +117,20 @@ def _extended_kwargs(backend, req: TTSSpeechRequest, text: str) -> dict:
     return kwargs
 
 
+def _log_tts(history, req: TTSSpeechRequest, text: str, output_bytes: int | None) -> None:
+    if history is None:
+        return
+    streamed = output_bytes is None
+    try:
+        history.log_tts(model=req.model, voice=req.voice, speed=req.speed, format=req.response_format,
+                        text=text, output_path=None, output_bytes=output_bytes, streamed=streamed)
+    except Exception:  # noqa: BLE001 — as the JAX route: history never fails a request
+        logger.exception("Failed to log %sTTS history entry", "streamed " if streamed else "")
+
+
 def speech_response(
-    router: TTSRouter, body, *, stream: bool = False, timing: dict | None = None
+    router: TTSRouter, body, *, stream: bool = False, timing: dict | None = None,
+    cache=None, history=None,
 ) -> tuple[str, bytes] | tuple[str, Iterator[bytes]]:
     """(content type, audio bytes), or with ``stream`` (content type,
     iterator of encoded chunks)."""
@@ -147,8 +172,20 @@ def speech_response(
         return apply_chain(samples, rate, req.effects, device=getattr(backend, "device", None))
 
     if stream:
+        _log_tts(history, req, text, None)
         return content_type, _stream(synthesize, rate, req.response_format,
                                      effects if req.effects else None)
+
+    # effects, a design and a reference change the audio but are not part
+    # of the key: such requests neither read nor write the cache
+    key = dict(text=text, voice=req.voice, speed=req.speed, fmt=req.response_format, model=req.model)
+    if req.effects or req.voice_design or req.reference_audio:
+        cache = None
+    if cache is not None:
+        cached = cache.get_for(**key)
+        if cached is not None:
+            timing["cache"] = "HIT"
+            return content_type, cached
 
     def timed() -> Iterator[np.ndarray]:
         for chunk in synthesize():
@@ -162,9 +199,13 @@ def speech_response(
         if settings.os_effects_enabled and req.effects:
             samples = effects(samples)
         timing["audio_seconds"] = len(samples) / rate
-        return content_type, encode_audio(samples, rate, req.response_format)
+        audio = encode_audio(samples, rate, req.response_format)
+        if cache is not None:
+            cache.set_for(**key, audio=audio)
     except Exception as e:  # noqa: BLE001 — every synthesis failure is a 500, as in the JAX server
         raise SpeechError(500, str(e)) from e
+    _log_tts(history, req, text, len(audio))
+    return content_type, audio
 
 
 def _stream(synthesize, rate: int, fmt: str, effects=None) -> Iterator[bytes]:

@@ -1,8 +1,8 @@
 """The application and its routes.
 
-Counterpart of ``open_speech_tpu/server/app.py`` for the routes the port
-serves, on the port's own HTTP shell (``server/http.py``; the card's
-machine has no aiohttp and no pydantic):
+Counterpart of ``open_speech_tpu/server/app.py``, all 58 of its routes, on
+the port's own HTTP shell (``server/http.py``; the card's machine has no
+aiohttp and no pydantic):
 
 - ``POST /v1/audio/transcriptions`` and ``/v1/audio/translations``;
 - ``GET /v1/models``, ``GET /v1/models/{model}`` and ``GET /health``;
@@ -11,7 +11,7 @@ machine has no aiohttp and no pydantic):
 - ``POST /v1/audio/speech``, whole or with ``?stream=true`` in chunked
   transfer whose headers wait for the first chunk, and ``POST
   /v1/audio/speech/clone`` (multipart: the text, the model and a
-  ``reference_audio`` file part);
+  ``reference_audio`` file part or a ``voice_library_ref``);
 - model management: the legacy ``/api/ps`` routes, ``/api/models`` and its
   per-model ``status``, ``progress``, ``load``, ``download``, ``prefetch``,
   ``artifacts`` and unload, ``/api/pull/{model}``,
@@ -23,29 +23,39 @@ machine has no aiohttp and no pydantic):
 - ``POST /api/profiler/start`` and ``/api/profiler/stop``: a
   ``torch.profiler`` trace of the whole process, CUDA kernels included when
   the routers are on the card, written as a Chrome trace into ``dir`` (or
-  ``OS_PROFILE_DIR``).
+  ``OS_PROFILE_DIR``);
+- the Studio (``studio/``): the voice library (``/api/voices/library``),
+  ``/api/voice-presets`` (``TTS_VOICES_CONFIG``'s YAML or the defaults),
+  profiles, history, conversations (rendered turn by turn through the
+  app's ``TTSRouter`` by ``_synthesize_array``, on the loop's executor) and
+  the composer, and the web UI (``/web``, ``/static``).
 
 Each handler keeps the JAX handler's order of checks, status codes,
-messages and content types. Model calls, an upload's ingest, and each pull
-of a speech stream run in the loop's executor, so a transcription never
-blocks the loop that answers ``/health`` or a socket. The routers are the
-app's (``create_app(stt_router=, tts_router=)``; by default new ones on
-the settings' devices, the card unless the settings say ``cpu``), and so
-are the model manager, the lock that model operations take, the download
-progress and the profiler's state. The startup starts the TTL/LRU
-lifecycle (``runtime/lifecycle.py``) over them; with
+messages and content types. Model calls, an upload's ingest, renders and
+each pull of a speech stream run in the loop's executor, so a
+transcription never blocks the loop that answers ``/health`` or a socket.
+The routers are the app's (``create_app(stt_router=, tts_router=)``; by
+default new ones on the settings' devices, the card unless the settings
+say ``cpu``), and so are the model manager, the lock that model operations
+take, the download progress, the profiler's state and the Studio's state:
+its SQLite store, managers, voice library and TTS cache, made from the
+settings of the moment ``create_app`` runs. The startup creates the
+Studio's tables and starts the TTL/LRU lifecycle
+(``runtime/lifecycle.py``) over the routers, and with
+``TTS_CACHE_ENABLED`` the cache's 30 s size sweep; with
 ``OS_WYOMING_ENABLED`` it also opens the Wyoming TCP server
-(``server/wyoming/``) on the same routers. The cleanup stops both.
+(``server/wyoming/``) on the same routers. The cleanup stops them.
+
+With ``OS_HISTORY_ENABLED`` (on by default) a transcription (not a
+translation) and a speech request, whole or streamed, each write a history
+row; a failure to log is logged and swallowed. ``POST /v1/audio/speech``
+serves a stored whole body with ``X-Cache: HIT`` under
+``TTS_CACHE_ENABLED`` unless ``?cache=false`` (``runtime/speech.py``).
 
 A transcription with ``diarize=true`` (and ``STT_DIARIZE_ENABLED``) also
 runs the shared diarizer (``diarization.py``) on the preprocessed upload
 and answers ``{"text", "segments"}`` with the words spread over the
 speaker turns, whatever the ``response_format``.
-
-Left out, each an item of ``ROADMAP.md``: the other routes of the JAX app
-(an unknown path answers 404), history logging and the voice library (a
-clone request that names ``voice_library_ref`` without a
-``reference_audio`` part raises a named error).
 """
 
 from __future__ import annotations
@@ -58,12 +68,14 @@ import inspect
 import logging
 import os
 import time
+from pathlib import Path
 
 import numpy as np
 
 from open_speech_tpu_torch import __version__
 from open_speech_tpu_torch.audio.encode import encode_audio
 from open_speech_tpu_torch.audio.postprocessing import process_tts_chunks
+from open_speech_tpu_torch.cache.tts_cache import TTSCache
 from open_speech_tpu_torch.config import settings
 from open_speech_tpu_torch.runtime.batcher_pool import pool_stats, shutdown_batchers
 from open_speech_tpu_torch.runtime.lifecycle import ModelLifecycleManager
@@ -102,10 +114,18 @@ from open_speech_tpu_torch.server.middleware import (
 from open_speech_tpu_torch.server.realtime.server import realtime_endpoint
 from open_speech_tpu_torch.server.streaming import _active_sessions, streaming_endpoint
 from open_speech_tpu_torch.server.websocket import WebSocketResponse
+from open_speech_tpu_torch.studio.composer import MultiTrackComposer
+from open_speech_tpu_torch.studio.conversation import ConversationManager
+from open_speech_tpu_torch.studio.history import HistoryManager
+from open_speech_tpu_torch.studio.profiles import ProfileManager
+from open_speech_tpu_torch.studio.storage import Store
+from open_speech_tpu_torch.studio.voice_library import VoiceLibraryManager, VoiceNotFoundError
 from open_speech_tpu_torch.tts.backends.base import backend_sample_rate
 from open_speech_tpu_torch.tts.router import TTSRouter
 
 logger = logging.getLogger(__name__)
+
+STATIC_DIR = Path(__file__).parent.parent / "static"
 
 
 async def _in_executor(fn, *args, **kwargs):
@@ -141,6 +161,16 @@ def _form_float(form: dict, name: str, default: float) -> float:
                        "validation_error")
 
 
+async def _json_body(request: Request) -> dict:
+    try:
+        body = await request.json()
+    except Exception:  # noqa: BLE001 — as the JAX app: any unreadable body (413 included) is a 422
+        raise ApiError(422, "Invalid JSON body", "validation_error")
+    if not isinstance(body, dict):
+        raise ApiError(422, "Body must be a JSON object", "validation_error")
+    return body
+
+
 def _upload(form: dict) -> tuple[bytes, str, str]:
     """The ``file`` part of the form; 422 without one."""
     if "file" not in form or not isinstance(form["file"], tuple):
@@ -167,7 +197,7 @@ def _body_response(body, content_type: str) -> Response:
 
 async def transcribe(request: Request) -> Response:
     form = await request.post()
-    audio_bytes, _filename, content_type = _upload(form)
+    audio_bytes, filename, content_type = _upload(form)
     model = str(form.get("model") or settings.stt_model)
     language = form.get("language") or None
     prompt = form.get("prompt") or None
@@ -209,6 +239,12 @@ async def transcribe(request: Request) -> Response:
         audio_seconds=float(result.get("duration", 0.0) or 0.0),
         wall_seconds=time.monotonic() - t_start,
     )
+    if settings.os_history_enabled:
+        try:
+            request.app["history"].log_stt(model=model, input_filename=filename or "",
+                                           result_text=result.get("text", ""))
+        except Exception:  # noqa: BLE001 — as the JAX route: history never fails a request
+            logger.exception("Failed to log STT history entry")
     if diarize:
         from open_speech_tpu_torch.diarization import Diarizer, attach_text_to_speakers
 
@@ -742,13 +778,19 @@ async def synthesize_speech(request: Request):
     except Exception:  # noqa: BLE001 — as the JAX route: any unreadable body (413 included) is a 422
         raise ApiError(422, "Invalid JSON body", "validation_error")
     stream = _q(request, "stream", False, bool)
+    cache = _q(request, "cache", True, bool) and settings.tts_cache_enabled
+    app = request.app
     timing: dict = {}
     t_start = time.monotonic()
     try:
         content_type, audio = await _in_executor(
-            speech_response, request.app["tts_router"], body, stream=stream, timing=timing)
+            speech_response, app["tts_router"], body, stream=stream, timing=timing,
+            cache=app["tts_cache"] if cache else None,
+            history=app["history"] if settings.os_history_enabled else None)
     except SpeechError as e:
         raise ApiError(e.status, e.message, e.code)
+    if timing.get("cache") == "HIT":
+        return Response(body=audio, content_type=content_type, headers={"X-Cache": "HIT"})
     if not stream:
         now = time.monotonic()
         # time to first audio: the first synthesized chunk, as the JAX route times it
@@ -828,10 +870,16 @@ async def clone_speech(request: Request) -> Response:
     voice = str(form.get("voice") or "Ryan")
     speed = _form_float(form, "speed", 1.0)
     response_format = str(form.get("response_format") or "mp3")
-    if form.get("voice_library_ref") and "reference_audio" not in form:
-        raise NotImplementedError("the voice library is not ported yet: ROADMAP.md module item 1")
+    voice_library_ref = form.get("voice_library_ref") or None
+    ref_bytes = None
+    if voice_library_ref and "reference_audio" not in form:
+        try:
+            ref_bytes, _meta = request.app["voice_library"].get(str(voice_library_ref))
+        except VoiceNotFoundError:
+            raise ApiError(404, f"Voice library entry '{voice_library_ref}' not found")
     ref = form.get("reference_audio")
-    ref_bytes = ref[0] if isinstance(ref, tuple) else None
+    if isinstance(ref, tuple):
+        ref_bytes = ref[0]
     router = request.app["tts_router"]
     if ref_bytes is not None:
         rejected = feature_error(router, model, reference_audio=b"provided")
@@ -852,6 +900,363 @@ async def clone_speech(request: Request) -> Response:
     return Response(body=body, content_type=content_type)
 
 
+# ── the Studio's synthesis ─────────────────────────────────────────────
+
+
+def _synthesize_array(router: TTSRouter, *, text, model, voice, speed, sample_rate=24000,
+                      language=None) -> np.ndarray:
+    """Synthesize to a float array AT ``sample_rate``: callers (the
+    conversation render) encode the result at that rate, so the backend's
+    native rate (Kokoro 24 kHz, Piper 22.05 kHz) is resampled, on the
+    backend's device, not relabelled."""
+    from open_speech_tpu_torch.ops.resample import resample_poly
+
+    chunks = list(process_tts_chunks(
+        router.synthesize(text=text, model=model, voice=voice, speed=speed, lang_code=language),
+        trim=settings.tts_trim_silence, normalize=settings.tts_normalize_output))
+    if not chunks:
+        return np.zeros(0, dtype=np.float32)
+    audio = np.concatenate(chunks).astype(np.float32, copy=False)
+    backend = router.get_backend(model)
+    native = backend_sample_rate(backend, model)
+    if native != sample_rate and audio.size:
+        import torch
+
+        device = getattr(backend, "device", router._device)
+        with torch.inference_mode():
+            audio = resample_poly(torch.from_numpy(audio).to(device), sample_rate, native).cpu().numpy()
+    return audio
+
+
+# ── voice library ──────────────────────────────────────────────────────
+
+
+async def upload_voice(request: Request) -> Response:
+    form = await request.post()
+    if "name" not in form or "audio" not in form or not isinstance(form["audio"], tuple):
+        raise ApiError(422, "Fields 'name' and 'audio' are required", "validation_error")
+    audio_bytes, _fn, content_type = form["audio"]
+    if len(audio_bytes) > settings.os_max_upload_mb * 1024 * 1024:
+        raise ApiError(413, f"Voice file too large. Max: {settings.os_max_upload_mb}MB")
+    try:
+        meta = request.app["voice_library"].save(str(form["name"]), audio_bytes,
+                                                 content_type or "audio/wav")
+    except ValueError as e:
+        raise ApiError(422, str(e))
+    return json_response(meta, status=201)
+
+
+async def list_library_voices(request: Request) -> Response:
+    return json_response(request.app["voice_library"].list_voices())
+
+
+async def get_library_voice_meta(request: Request) -> Response:
+    name = request.match_info["name"]
+    try:
+        _, meta = request.app["voice_library"].get(name)
+    except VoiceNotFoundError:
+        raise ApiError(404, f"Voice '{name}' not found")
+    return json_response(meta)
+
+
+async def delete_library_voice(request: Request) -> Response:
+    name = request.match_info["name"]
+    try:
+        request.app["voice_library"].delete(name)
+    except VoiceNotFoundError:
+        raise ApiError(404, f"Voice '{name}' not found")
+    return Response(status=204)
+
+
+# ── voice presets ──────────────────────────────────────────────────────
+
+DEFAULT_VOICE_PRESETS = [
+    {
+        "name": "Will",
+        "voice": "am_puck(1)+am_liam(1)+am_onyx(0.5)",
+        "speed": 1.2,
+        "description": "Dry wit genius blend — Puck + Liam + Onyx",
+    },
+    {
+        "name": "Female",
+        "voice": "af_jessica(1)+af_heart(1)",
+        "speed": 1.2,
+        "description": "Warm female blend — Jessica + Heart",
+    },
+    {
+        "name": "British Butler",
+        "voice": "bm_george",
+        "speed": 0.9,
+        "description": "Refined British male",
+    },
+]
+
+
+def _load_voice_presets() -> list[dict]:
+    """The presets of the YAML file that ``TTS_VOICES_CONFIG`` names (read
+    from the environment per request, as the JAX app reads it), or the
+    defaults when it is unset, absent or unreadable."""
+    import yaml  # outside the try: a missing PyYAML is an error, not the defaults
+
+    config_path = os.environ.get("TTS_VOICES_CONFIG")
+    if config_path and Path(config_path).exists():
+        try:
+            with open(config_path) as f:
+                data = yaml.safe_load(f)
+            if isinstance(data, dict) and "presets" in data:
+                return data["presets"]
+            if isinstance(data, list):
+                return data
+        except Exception as e:  # noqa: BLE001 — as the JAX app: a bad file serves the defaults
+            logger.warning("Failed to load voice presets from %s: %s", config_path, e)
+    return DEFAULT_VOICE_PRESETS
+
+
+async def get_voice_presets(request: Request) -> Response:
+    return json_response({"presets": _load_voice_presets()})
+
+
+# ── studio: profiles ───────────────────────────────────────────────────
+
+
+def _profile_payload(body: dict) -> dict:
+    if "name" not in body or "backend" not in body or "voice" not in body:
+        raise ApiError(422, "Fields 'name', 'backend', 'voice' are required", "validation_error")
+    return {
+        "name": body["name"],
+        "backend": body["backend"],
+        "model": body.get("model"),
+        "voice": body["voice"],
+        "speed": float(body.get("speed", 1.0)),
+        "format": body.get("format", "mp3"),
+        "blend": body.get("blend"),
+        "reference_audio_id": body.get("reference_audio_id"),
+        "effects": body.get("effects") or [],
+    }
+
+
+async def create_profile(request: Request) -> Response:
+    payload = _profile_payload(await _json_body(request))
+    try:
+        return json_response(request.app["profiles"].create(**payload), status=201)
+    except ValueError as e:
+        raise ApiError(409, str(e))
+
+
+async def list_profiles(request: Request) -> Response:
+    profiles = request.app["profiles"]
+    default_profile = profiles.get_default()
+    return json_response({
+        "profiles": profiles.list_all(),
+        "default_profile_id": default_profile["id"] if default_profile else None,
+    })
+
+
+async def get_profile(request: Request) -> Response:
+    profile = request.app["profiles"].get(request.match_info["profile_id"])
+    if not profile:
+        raise ApiError(404, "Profile not found")
+    return json_response(profile)
+
+
+async def update_profile(request: Request) -> Response:
+    payload = _profile_payload(await _json_body(request))
+    try:
+        return json_response(request.app["profiles"].update(request.match_info["profile_id"], **payload))
+    except KeyError:
+        raise ApiError(404, "Profile not found")
+    except ValueError as e:
+        raise ApiError(409, str(e))
+
+
+async def delete_profile(request: Request) -> Response:
+    if not request.app["profiles"].delete(request.match_info["profile_id"]):
+        raise ApiError(404, "Profile not found")
+    return Response(status=204)
+
+
+async def set_profile_default(request: Request) -> Response:
+    profile_id = request.match_info["profile_id"]
+    profiles = request.app["profiles"]
+    try:
+        profiles.set_default(profile_id)
+    except KeyError:
+        raise ApiError(404, "Profile not found")
+    return json_response({"profiles": profiles.list_all(), "default_profile_id": profile_id})
+
+
+# ── studio: history ────────────────────────────────────────────────────
+
+
+async def list_history(request: Request) -> Response:
+    return json_response(request.app["history"].list_entries(
+        type_filter=request.query.get("type"),
+        limit=_q(request, "limit", 50, int),
+        offset=_q(request, "offset", 0, int),
+    ))
+
+
+async def delete_history_entry(request: Request) -> Response:
+    if not request.app["history"].delete_entry(request.match_info["entry_id"]):
+        raise ApiError(404, "History entry not found")
+    return Response(status=204)
+
+
+async def clear_history(request: Request) -> Response:
+    return json_response({"deleted": request.app["history"].clear_all()})
+
+
+# ── studio: conversations ──────────────────────────────────────────────
+
+
+async def create_conversation(request: Request) -> Response:
+    body = await _json_body(request)
+    if "name" not in body:
+        raise ApiError(422, "Field 'name' is required", "validation_error")
+    return json_response(request.app["conversations"].create(body["name"], body.get("turns") or []),
+                         status=201)
+
+
+async def list_conversations(request: Request) -> Response:
+    return json_response(request.app["conversations"].list_all(
+        limit=_q(request, "limit", 50, int),
+        offset=_q(request, "offset", 0, int),
+    ))
+
+
+async def get_conversation(request: Request) -> Response:
+    item = request.app["conversations"].get(request.match_info["conversation_id"])
+    if not item:
+        raise ApiError(404, "Conversation not found")
+    return json_response(item)
+
+
+async def add_conversation_turn(request: Request) -> Response:
+    body = await _json_body(request)
+    if "speaker" not in body or "text" not in body:
+        raise ApiError(422, "Fields 'speaker' and 'text' are required", "validation_error")
+    try:
+        return json_response(request.app["conversations"].add_turn(
+            conversation_id=request.match_info["conversation_id"],
+            speaker=body["speaker"],
+            text=body["text"],
+            profile_id=body.get("profile_id"),
+            effects=body.get("effects"),
+        ), status=201)
+    except KeyError:
+        raise ApiError(404, "Conversation not found")
+
+
+async def delete_conversation_turn(request: Request) -> Response:
+    ok = request.app["conversations"].delete_turn(request.match_info["conversation_id"],
+                                                  request.match_info["turn_id"])
+    if not ok:
+        raise ApiError(404, "Turn not found")
+    return Response(status=204)
+
+
+async def render_conversation(request: Request) -> Response:
+    body = await _json_body(request)
+    conversations = request.app["conversations"]
+    try:
+        # the arguments are read in the executor too: a bad sample_rate is a 400
+        result = await _in_executor(lambda: conversations.render(
+            conversation_id=request.match_info["conversation_id"],
+            format=body.get("format", "wav"),
+            sample_rate=int(body.get("sample_rate", 24000)),
+            save_turn_audio=bool(body.get("save_turn_audio", True)),
+        ))
+        return json_response(result)
+    except KeyError:
+        raise ApiError(404, "Conversation not found")
+    except ValueError as e:
+        raise ApiError(400, str(e))
+
+
+def _audio_file(path: Path) -> Response:
+    suffix = path.suffix.lower().lstrip(".")
+    return Response(body=path.read_bytes(), content_type=get_content_type(suffix or "wav"))
+
+
+async def get_conversation_audio(request: Request) -> Response:
+    item = request.app["conversations"].get(request.match_info["conversation_id"])
+    if not item:
+        raise ApiError(404, "Conversation not found")
+    output_path = item.get("render_output_path")
+    if not output_path:
+        raise ApiError(404, "Conversation has no rendered output")
+    p = Path(output_path)
+    if not p.exists():
+        raise ApiError(404, "Rendered audio file not found")
+    return _audio_file(p)
+
+
+async def delete_conversation(request: Request) -> Response:
+    if not request.app["conversations"].delete(request.match_info["conversation_id"]):
+        raise ApiError(404, "Conversation not found")
+    return Response(status=204)
+
+
+# ── studio: composer ───────────────────────────────────────────────────
+
+
+async def render_composer(request: Request) -> Response:
+    body = await _json_body(request)
+    if "tracks" not in body:
+        raise ApiError(422, "Field 'tracks' is required", "validation_error")
+    composer = request.app["composer"]
+    try:
+        result = await _in_executor(lambda: composer.render(
+            tracks=body["tracks"],
+            format=body.get("format", "wav"),
+            sample_rate=int(body.get("sample_rate", 24000)),
+            name=body.get("name"),
+        ))
+        return json_response(result)
+    except PermissionError as e:
+        raise ApiError(403, str(e))
+    except ValueError as e:
+        raise ApiError(400, str(e))
+
+
+async def list_composer_renders(request: Request) -> Response:
+    return json_response(request.app["composer"].list_renders(
+        limit=_q(request, "limit", 100, int),
+        offset=_q(request, "offset", 0, int),
+    ))
+
+
+async def get_composer_audio(request: Request) -> Response:
+    item = request.app["composer"].get_render(request.match_info["composition_id"])
+    if not item:
+        raise ApiError(404, "Composition not found")
+    output_path = item.get("render_output_path")
+    if not output_path:
+        raise ApiError(404, "Composition has no rendered output")
+    p = Path(output_path)
+    if not p.is_absolute():
+        p = (Path.cwd() / p).resolve()
+    if not p.exists():
+        raise ApiError(404, "Rendered audio file not found")
+    return _audio_file(p)
+
+
+async def delete_composer_render(request: Request) -> Response:
+    if not request.app["composer"].delete_render(request.match_info["composition_id"]):
+        raise ApiError(404, "Composition not found")
+    return Response(status=204)
+
+
+# ── web UI ─────────────────────────────────────────────────────────────
+
+
+async def web_ui(request: Request) -> Response:
+    index = STATIC_DIR / "index.html"
+    if index.exists():
+        return Response(text=index.read_text(), content_type="text/html")
+    return Response(text="<h1>Web UI not found</h1>", content_type="text/html", status=404)
+
+
 # ── lifespan ───────────────────────────────────────────────────────────
 
 
@@ -859,12 +1264,24 @@ def _model_ids(raw: str) -> list[str]:
     return [m.strip() for m in raw.split(",") if m.strip()]
 
 
+async def _cache_cleanup_loop(cache: TTSCache) -> None:
+    while True:
+        await asyncio.sleep(30)
+        try:
+            await _in_executor(cache.cleanup)
+        except Exception:  # noqa: BLE001 — the sweep keeps running, as in the JAX app
+            logger.exception("TTS cache cleanup failed")
+
+
 async def _on_startup(app: Application) -> None:
+    app["studio_store"].bootstrap()
     if settings.os_api_key == "" and settings.os_auth_required:
         raise RuntimeError("OS_AUTH_REQUIRED=true but OS_API_KEY is not set")
     lifecycle = ModelLifecycleManager(app["stt_router"], manager=app["model_manager"])
     lifecycle.start()
     app["lifecycle"] = lifecycle
+    if settings.tts_cache_enabled:
+        app["tts_cache_task"] = asyncio.create_task(_cache_cleanup_loop(app["tts_cache"]))
     if settings.os_wyoming_enabled:
         from open_speech_tpu_torch.server.wyoming.server import start_wyoming_server
 
@@ -886,6 +1303,8 @@ async def _on_startup(app: Application) -> None:
 
 
 async def _on_cleanup(app: Application) -> None:
+    if app.get("tts_cache_task") is not None:
+        app["tts_cache_task"].cancel()
     if app.get("wyoming") is not None:
         app["wyoming"].close()
     if app.get("lifecycle") is not None:
@@ -895,6 +1314,7 @@ async def _on_cleanup(app: Application) -> None:
     await shutdown_batchers()
     reset_tts_batchers()
     reset_pocket_batchers()
+    app["studio_store"].close()
 
 
 def create_app(stt_router: BackendRouter | None = None,
@@ -911,6 +1331,26 @@ def create_app(stt_router: BackendRouter | None = None,
     app["download_progress"] = {}
     app["download_progress_lock"] = asyncio.Lock()
     app["profiler"] = {}
+    # the Studio's state, on the paths the settings name now
+    store = app["studio_store"] = Store(settings.os_studio_db_path)
+    app["profiles"] = ProfileManager(store)
+    app["history"] = HistoryManager(store, max_entries=settings.os_history_max_entries,
+                                    max_mb=settings.os_history_max_mb,
+                                    retain_audio=settings.os_history_retain_audio)
+    app["voice_library"] = VoiceLibraryManager(settings.voice_library_path,
+                                               max_count=settings.voice_library_max_count)
+    app["tts_cache"] = TTSCache(settings.tts_cache_dir, settings.tts_cache_max_mb,
+                                settings.tts_cache_enabled)
+    # renders run where the app's TTS router runs (a router without a
+    # device of its own: the settings' TTS device)
+    tts_device = getattr(app["tts_router"], "_device", settings.tts_effective_device)
+    app["conversations"] = ConversationManager(
+        store, output_dir=settings.os_conversations_dir, default_model=settings.tts_model,
+        default_voice=settings.tts_voice, device=tts_device, profile_manager=app["profiles"],
+        synthesize_fn=functools.partial(_synthesize_array, app["tts_router"]))
+    app["composer"] = MultiTrackComposer(
+        store, output_dir=settings.os_composer_dir, conversations_dir=settings.os_conversations_dir,
+        voice_library_path=settings.voice_library_path, device=tts_device)
     r = app.router
     r.add_post("/v1/audio/transcriptions", transcribe)
     r.add_post("/v1/audio/translations", translate)
@@ -944,6 +1384,38 @@ def create_app(stt_router: BackendRouter | None = None,
     r.add_post("/v1/audio/models/unload", unload_tts_model)
     r.add_get("/v1/audio/models", list_tts_models)
     r.add_get("/v1/audio/voices", list_voices)
+    # voice library + presets
+    r.add_post("/api/voices/library", upload_voice)
+    r.add_get("/api/voices/library", list_library_voices)
+    r.add_get("/api/voices/library/{name}", get_library_voice_meta)
+    r.add_delete("/api/voices/library/{name}", delete_library_voice)
+    r.add_get("/api/voice-presets", get_voice_presets)
+    # studio
+    r.add_post("/api/profiles", create_profile)
+    r.add_get("/api/profiles", list_profiles)
+    r.add_get("/api/profiles/{profile_id}", get_profile)
+    r.add_put("/api/profiles/{profile_id}", update_profile)
+    r.add_delete("/api/profiles/{profile_id}", delete_profile)
+    r.add_post("/api/profiles/{profile_id}/default", set_profile_default)
+    r.add_get("/api/history", list_history)
+    r.add_delete("/api/history/{entry_id}", delete_history_entry)
+    r.add_delete("/api/history", clear_history)
+    r.add_post("/api/conversations", create_conversation)
+    r.add_get("/api/conversations", list_conversations)
+    r.add_get("/api/conversations/{conversation_id}/audio", get_conversation_audio)
+    r.add_get("/api/conversations/{conversation_id}", get_conversation)
+    r.add_post("/api/conversations/{conversation_id}/turns", add_conversation_turn)
+    r.add_delete("/api/conversations/{conversation_id}/turns/{turn_id}", delete_conversation_turn)
+    r.add_post("/api/conversations/{conversation_id}/render", render_conversation)
+    r.add_delete("/api/conversations/{conversation_id}", delete_conversation)
+    r.add_post("/api/composer/render", render_composer)
+    r.add_get("/api/composer/renders", list_composer_renders)
+    r.add_get("/api/composer/render/{composition_id}/audio", get_composer_audio)
+    r.add_delete("/api/composer/render/{composition_id}", delete_composer_render)
+    # web UI
+    r.add_get("/web", web_ui)
+    if STATIC_DIR.is_dir():
+        r.add_static("/static", STATIC_DIR)
     app.on_startup.append(_on_startup)
     app.on_cleanup.append(_on_cleanup)
     return app

@@ -17,7 +17,9 @@ aiohttp, so the port serves the same routes on ``asyncio.start_server``:
 - a router with aiohttp's ``{name}`` and ``{name:regex}`` patterns, where
   a ``GET`` route also answers ``HEAD``; an unknown path raises 404 and a
   known path with another method 405 inside the middleware chain, so the
-  app's error middleware renders them;
+  app's error middleware renders them; ``add_static`` serves a directory's
+  files with aiohttp's refusals (a path that resolves outside it, through
+  ``..``, an encoded ``..`` or a symlink, is 404; a directory is 403);
 - ``Application`` (middlewares ``mw(request, handler)``, startup and
   cleanup hooks, item storage) and ``run_app``, which serves until SIGINT
   or SIGTERM, lets requests in flight finish, then runs the cleanup hooks.
@@ -38,11 +40,13 @@ import asyncio
 import email.utils
 import json
 import logging
+import mimetypes
 import re
 import signal
 import ssl
 from collections.abc import Awaitable, Callable, Iterator, MutableMapping
 from http import HTTPStatus
+from pathlib import Path
 from urllib.parse import parse_qsl, unquote
 
 from open_speech_tpu_torch import __version__
@@ -392,10 +396,10 @@ def _compile(pattern: str) -> re.Pattern:
 
 class Router:
     def __init__(self) -> None:
-        self._routes: list[tuple[str, re.Pattern, Handler]] = []
+        self._routes: list[tuple[str, re.Pattern, Handler, str]] = []
 
     def add_route(self, method: str, pattern: str, handler: Handler) -> None:
-        self._routes.append((method.upper(), _compile(pattern), handler))
+        self._routes.append((method.upper(), _compile(pattern), handler, pattern))
 
     def add_get(self, pattern: str, handler: Handler) -> None:
         self.add_route("GET", pattern, handler)
@@ -404,12 +408,33 @@ class Router:
     def add_post(self, pattern: str, handler: Handler) -> None:
         self.add_route("POST", pattern, handler)
 
+    def add_put(self, pattern: str, handler: Handler) -> None:
+        self.add_route("PUT", pattern, handler)
+
     def add_delete(self, pattern: str, handler: Handler) -> None:
         self.add_route("DELETE", pattern, handler)
 
+    def add_static(self, prefix: str, directory: str | Path) -> None:
+        """``GET``/``HEAD`` ``prefix/<filename>``: the files under
+        ``directory``, refused as aiohttp's ``add_static`` refuses them."""
+        root = Path(directory).resolve()
+        prefix = prefix.rstrip("/")
+
+        async def handler(request: Request) -> Response:
+            return await asyncio.get_running_loop().run_in_executor(
+                None, _static_file, root, request.match_info.get("filename") or "")
+
+        regex = re.compile(re.escape(prefix) + r"(?:/(?P<filename>.*))?")
+        for method in ("GET", "HEAD"):
+            self._routes.append((method, regex, handler, prefix))
+
+    def routes(self) -> list[tuple[str, str]]:
+        """(method, pattern) of every route, in the order they were added."""
+        return [(method, pattern) for method, _, _, pattern in self._routes]
+
     def resolve(self, method: str, path: str) -> tuple[Handler, dict[str, str]]:
         allowed: set[str] = set()
-        for route_method, regex, handler in self._routes:
+        for route_method, regex, handler, _ in self._routes:
             m = regex.fullmatch(path)
             if m is None:
                 continue
@@ -419,6 +444,27 @@ class Router:
         if allowed:
             raise HTTPError(405, {"Allow": ",".join(sorted(allowed))})
         raise HTTPError(404)
+
+
+def _static_file(root: Path, filename: str) -> Response:
+    """aiohttp's static lookup with symlinks not followed out: the path
+    resolved (``..``, encoded or not, and symlinks included) must lie under
+    ``root``, else 404; a directory is 403; a file that is not there is
+    aiohttp's empty 404. The content type is guessed from the name."""
+    try:
+        path = root.joinpath(filename).resolve()
+        path.relative_to(root)
+    except (ValueError, RuntimeError):  # outside the root, a NUL byte, a symlink loop
+        raise HTTPError(404)
+    try:
+        if path.is_dir():
+            raise HTTPError(403)
+        body = path.read_bytes()
+    except PermissionError:
+        raise HTTPError(403)
+    except OSError:
+        return Response(status=404, body=b"", content_type="application/octet-stream")
+    return Response(body=body, content_type=mimetypes.guess_type(path.name)[0] or "application/octet-stream")
 
 
 class Application:

@@ -12,7 +12,9 @@ backend and batcher, G2P, and the speech handler's body), and the server
 bootstrap and ``__main__``), the realtime socket, the Wyoming server, the
 model catalog, the model manager, its lifecycle and the serving metrics,
 the diarizer (segmentation, WeSpeaker, GE2E, the conv embedder, the
-service and its checkpoint loader) included) must pull in neither ``jax``,
+service and its checkpoint loader) and the Studio (its SQLite store,
+profiles, history, voice library, conversations, composer, and the TTS
+cache) included) must pull in neither ``jax``,
 ``aiohttp``, ``pydantic`` nor any module of the JAX package. The check runs
 in a fresh interpreter, because this test process already imported them.
 """
@@ -52,7 +54,9 @@ want = ("server.streaming", "runtime.batcher", "runtime.batcher_pool", "models.w
         "server.wyoming.protocol", "runtime.registry", "server.metrics", "runtime.model_manager",
         "runtime.lifecycle", "models.piper.model", "tts.backends.piper_torch", "ops.effects",
         "audio.effects", "audio.spectral", "models.ckptutil", "models.segmentation",
-        "models.wespeaker", "models.ge2e", "models.diarize", "diarization")
+        "models.wespeaker", "models.ge2e", "models.diarize", "diarization", "studio.storage",
+        "studio.profiles", "studio.history", "studio.voice_library", "studio.conversation",
+        "studio.composer", "cache.tts_cache")
 print(len(names), ",".join(bad), int(all("open_speech_tpu_torch." + w in names for w in want)))
 """
 
@@ -67,8 +71,8 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
     assert n_modules >= 30, "walk_packages should find every submodule"
     assert named == "1", ("the streaming session, the batchers, batched long-form, "
                           "Kokoro's model and serving modules, the server, the realtime socket, "
-                          "Wyoming, model management, Piper, the effects and the diarizer must be "
-                          "among them")
+                          "Wyoming, model management, Piper, the effects, the diarizer and the "
+                          "Studio must be among them")
     assert bad == "", f"port imported: {bad}"
 
 
@@ -136,7 +140,8 @@ _COPIES = [
     "server/ssl_utils.py", "server/realtime/__init__.py", "server/realtime/events.py",
     "server/realtime/session.py", "server/realtime/audio_buffer.py", "server/wyoming/__init__.py",
     "server/wyoming/protocol.py", "runtime/registry.py", "server/metrics.py",
-    "runtime/model_manager.py", "runtime/lifecycle.py",
+    "runtime/model_manager.py", "runtime/lifecycle.py", "studio/__init__.py",
+    "studio/voice_library.py", "cache/__init__.py", "cache/tts_cache.py",
 ]
 
 
@@ -149,6 +154,50 @@ def test_copies_equal_their_jax_originals(rel):
     copy = (PKG / rel).read_text(encoding="utf-8")
     normalised = copy.replace("open_speech_tpu_torch", "open_speech_tpu")
     assert normalised.replace("backends/piper_torch.py", "backends/piper_jax.py") == original
+
+
+def test_static_files_are_the_jax_packages_bytes():
+    """The web UI the port serves is the JAX package's, byte for byte."""
+    names = sorted(p.name for p in (ROOT / "open_speech_tpu" / "static").iterdir())
+    assert names == sorted(p.name for p in (PKG / "static").iterdir())
+    for name in names:
+        assert (PKG / "static" / name).read_bytes() == (ROOT / "open_speech_tpu" / "static" / name).read_bytes()
+
+
+# Studio managers that take the app's ``Store`` (and, for history, its
+# caps) where the JAX original reads the module's store and settings: below
+# the module docstring, each equals its original once those lines are
+# mapped back
+_STORE_COPIES = {
+    "studio/profiles.py": [
+        ("from open_speech_tpu_torch.studio.storage import Store\n",
+         "from open_speech_tpu.studio.storage import get_db\n"),
+        ("    def __init__(self, store: Store) -> None:\n        self._store = store\n\n", ""),
+        ("self._store.connection()", "get_db()"),
+    ],
+    "studio/history.py": [
+        ("from open_speech_tpu_torch.studio.storage import Store\n",
+         "from open_speech_tpu.config import settings\nfrom open_speech_tpu.studio.storage import get_db\n"),
+        ("    def __init__(self, store: Store, *, max_entries: int, max_mb: int,\n"
+         "                 retain_audio: bool) -> None:\n        self._store = store\n"
+         "        self.max_entries = max_entries\n        self.max_mb = max_mb\n"
+         "        self.retain_audio = retain_audio\n\n", ""),
+        ("self._store.connection()", "get_db()"),
+        ("self.retain_audio", "settings.os_history_retain_audio"),
+        ("self.max_entries", "settings.os_history_max_entries"),
+        ("self.max_mb", "settings.os_history_max_mb"),
+    ],
+}
+
+
+@pytest.mark.parametrize("rel", sorted(_STORE_COPIES))
+def test_store_copies_equal_their_jax_originals(rel):
+    original = (ROOT / "open_speech_tpu" / rel).read_text(encoding="utf-8").split('"""', 2)[2]
+    copy = (PKG / rel).read_text(encoding="utf-8").split('"""', 2)[2]
+    for port_text, jax_text in _STORE_COPIES[rel]:
+        assert port_text in copy, port_text
+        copy = copy.replace(port_text, jax_text)
+    assert copy == original
 
 
 # host modules the port keeps as copies of the JAX package's below their
@@ -180,6 +229,10 @@ _SERVER_SETTINGS = [
     "os_model_ttl", "os_max_loaded_models", "os_profile_dir", "os_effects_enabled",
     "stt_model_ttl", "stt_max_loaded_models",
     "os_pocket_batch_slots", "os_pocket_block_frames",
+    "os_voice_library_path", "os_voice_library_max_count", "os_studio_db_path",
+    "os_history_enabled", "os_history_max_entries", "os_history_retain_audio", "os_history_max_mb",
+    "os_conversations_dir", "os_composer_dir", "tts_voices_config", "tts_cache_enabled",
+    "tts_cache_max_mb", "tts_cache_dir", "voice_library_path", "voice_library_max_count",
 ]
 
 
@@ -192,7 +245,8 @@ def test_server_settings_match_the_jax_defaults(name):
     from open_speech_tpu_torch.config import Settings
 
     assert getattr(Settings({}), name) == getattr(JaxSettings({}), name)
-    field = name if name in JAX_FIELDS else "os_" + name[4:]  # an alias reads its os_ field
+    # an alias reads its os_ field: stt_port reads os_port, voice_library_path os_voice_library_path
+    field = name if name in JAX_FIELDS else "os_" + (name[4:] if name.startswith("stt_") else name)
     raw = {bool: "true", int: "7", str: "x"}[type(getattr(JaxSettings({}), field))]
     env = {field.upper(): raw}
     assert getattr(Settings(env), name) == getattr(JaxSettings(env), name)

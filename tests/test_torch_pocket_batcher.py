@@ -434,9 +434,45 @@ def test_speech_and_clone_routes_answer_as_the_jax_app(served, monkeypatch):
     assert port_answer[0] == 413
 
 
-def test_clone_with_a_voice_library_ref_names_its_queue_item(served):
+def test_clone_with_a_voice_library_ref_names_its_queue_item(served, monkeypatch, tmp_path):
+    """Once a named error of the unported voice library: a clone request
+    naming ``voice_library_ref`` now reads the entry from each app's own
+    library (uploaded through ``/api/voices/library``) and answers as the
+    JAX app does, with the same audio as the same request carrying the file
+    as a ``reference_audio`` part; a part given beside the name wins; an
+    unknown entry is the JAX app's 404."""
+    from aiohttp import FormData
+
+    from open_speech_tpu.studio.voice_library import VoiceLibraryManager
     from tests.test_torch_server import _ask_both
 
-    [(_, port)] = _ask_both(BackendRouter(device="cpu"), [_clone(voice_library_ref="narrator")], tts_router=served)
-    assert port[0] == 500
-    assert json.loads(port[2])["error"]["message"] == "the voice library is not ported yet: ROADMAP.md module item 1"
+    for side, s in (("jax", jax_settings), ("port", torch_settings)):
+        monkeypatch.setattr(s, "os_voice_library_path", str(tmp_path / side))
+    monkeypatch.setattr(JAPP, "voice_library", VoiceLibraryManager(tmp_path / "jax"))
+    ref, other = _ref_wav(), _ref_wav(300.0)
+
+    def upload():
+        form = FormData()
+        form.add_field("name", "Narrator")
+        form.add_field("audio", ref, filename="narrator.wav", content_type="audio/wav")
+        return form
+
+    calls = [("POST", "/api/voices/library", upload, {}),
+             _clone(voice_library_ref="narrator", transcript="a tone"),
+             _clone(ref=ref, transcript="a tone"),
+             _clone(voice_library_ref="Narrator", ref=other),
+             _clone(ref=other),
+             _clone(voice_library_ref="nobody")]
+    answers = _ask_both(BackendRouter(device="cpu"), calls, tts_router=served)
+    (jax_upload, port_upload), answers = answers[0], answers[1:]
+    uploaded = [{k: v for k, v in json.loads(a[2]).items() if k != "created_at"} for a in (jax_upload, port_upload)]
+    assert (port_upload[0], uploaded[1]) == (jax_upload[0], uploaded[0])
+    for (jax_answer, port_answer), call in zip(answers, calls[1:]):
+        try:
+            _same_answer(jax_answer, port_answer)
+        except AssertionError as e:
+            raise AssertionError(f"{call[:2]}: {e}") from e
+    assert [port_upload[0]] + [port[0] for _, port in answers] == [201, 200, 200, 200, 200, 404]
+    ports = [port for _, port in answers]
+    assert ports[0][2] == ports[1][2] and ports[2][2] == ports[3][2] != ports[0][2]
+    assert json.loads(ports[4][2])["error"]["message"] == "Voice library entry 'nobody' not found"
