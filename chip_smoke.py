@@ -84,7 +84,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
      two-sentence streamed PCM speech request (chunked; TTFA beside the
      direct first chunk), and a ~10 s paced ``/v1/audio/stream`` session
      over a masked-frame client (K2 and combine launches = 32 x block
-     encodes; interim turnaround, final latency). 11b runs ``python -m
+     encodes; interim turnaround, final latency); then the port's
+     ``OpenSpeechClient`` (``client/``, the stdlib alone) against the same
+     app: request a's ``transcribe`` (body and K1 launches = the multipart
+     POST's) and a ~3 s paced ``stream_transcribe`` whose final transcript
+     equals the masked-frame client's on the same frames. 11b runs ``python -m
      open_speech_tpu_torch.server`` with the fixture preloaded on the card:
      the clips' text must equal the CPU's, and SIGTERM must end it with
      exit 0.
@@ -102,7 +106,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
      transcribe (beam 5 with fallback, the VAD on the card) equal to the
      router called with the handler's arguments, a synthesize equal to the
      direct bytes; then ``test-tiny-eot`` on the card behind a second app:
-     a realtime commit and a Wyoming transcribe give the CPU's text. Fails
+     a realtime commit and a Wyoming transcribe give the CPU's text. R-a
+     also runs one commit through the port's ``RealtimeSession``: its
+     transcript and K1 launches equal the socket client's. Fails
      on any warning of the realtime or Wyoming modules (a disabled or
      failed VAD).
  13. model management (``runtime/model_manager.py``, ``runtime/lifecycle.py``,
@@ -194,6 +200,22 @@ Phases, each of which raises on failure (exit code 1, no result line):
      ``reference_audio`` part; an unknown entry 404. 17e: ``/web`` and
      ``/static/app.js`` = the package's files. Fails if a flash kernel is
      launched in 17b-17e; 17a's launches join the kernels line.
+ 18. fine-tuning (``train.py``, ``runtime/checkpoint.py``) through K1's
+     backward (``kernels/csrc/flash_attention_bwd.cu``: three kernels, new
+     work with no TPU counterpart). 18a: the backward against
+     ``flash_attention_backward_reference`` at the turbo encoder
+     [1,20,1500,1500,64] and the decoder's self [2,20,64,64,64] (causal) and
+     cross [2,20,64,1500,64] attention, bf16 (and a bf16-P control the
+     bound must reject) and f32; per call, device (and per kernel, each
+     launched alone), plain and SDPA-backward device times beside the
+     bound. 18b: test-tiny f32 card against CPU (loss, every gradient, one
+     AdamW step's parameters within relative L2 1e-4), and 5 steps reduce
+     the loss. 18c: whisper-large-v3-turbo at full width (random bf16
+     weights from seed 0), AdamW, 2 x 30 s mel and 65 tokens: four steps
+     (walls, peak memory, loss within 2 of log V), 40 K1 forward and 40 of
+     each backward kernel per step; at B = 1 the kernel-routed gradients
+     against a plain-routed bf16 step's over all leaves, and each leaf of
+     both against a plain-routed f32 step's.
 
 Each phase's seconds, and the whole script's, are printed on lines of
 their own.
@@ -682,14 +704,22 @@ def main() -> int:
     phases.append(timed("13 (model management)", phase_management, tts))
     timed("14 (piper and effects)", phase_piper)
     timed("15 (pocket)", phase_pocket)
+    train_kernels, train_launches = timed("18 (training)", phase_train)
+    kernels += train_kernels
+    for key, n in train_launches.items():  # 18c's steps: K1 and its backward
+        launches[key] = launches.get(key, 0) + n
     for phase in phases:
         for key, n in phase.items():
             launches[key] = launches.get(key, 0) + n
     tts.unload_model("kokoro")
-    for entry in kernels:  # K1 from REST (both paths) and S3, K2 and its combine from S1/S2
-        entry["launches"] = launches.get(entry["name"], 0)
-        if entry["launches"] == 0:
-            raise AssertionError(f"{entry['name']} was not launched on its path")
+    for entry in kernels:  # K1 from REST (both paths), S3 and 18c, K2 and its combine from S1/S2,
+        # the backward's three kernels from 18c (the entry counts its calls: one launch of each)
+        for part in entry.get("parts", [entry]):
+            part["launches"] = launches.get(part["name"], 0)
+            if part["launches"] == 0:
+                raise AssertionError(f"{part['name']} was not launched on its path")
+        if "parts" in entry:
+            entry["launches"] = min(part["launches"] for part in entry["parts"])
     log(f"whole script seconds: {time.perf_counter() - t_script:.1f}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2642,9 +2672,10 @@ def phase_server(router, tts=None) -> dict:
     try:
         with _Served(router, tts) as served:
             log(f"server 11a: create_app serving on http://127.0.0.1:{served.port}")
-            _server_rest(router, served.port)
+            served_a = _server_rest(router, served.port)
             _server_speech(tts, served.port)
             _server_stream(router, served.port)
+            _server_client(router, served.port, *served_a)
     finally:
         entry["tok"] = real_tok
         if own:
@@ -2684,9 +2715,10 @@ def _served_post(port: int, route: str, body: bytes, headers: dict, probe_health
     return (*result["answer"], result["wall"], health)
 
 
-def _server_rest(router, port: int) -> None:
+def _server_rest(router, port: int) -> tuple[dict, int]:
     """Requests a and c of phase 4, direct (D) then served (S); /health
-    polled while the served c runs in the server's executor."""
+    polled while the served c runs in the server's executor. Returns
+    request a's served body and K1 launches."""
     import statistics
 
     import torch
@@ -2757,6 +2789,9 @@ def _server_rest(router, port: int) -> None:
             health_ms = sorted(1e3 * h for h in health)
             log(f"server 11a /health during served c: {len(health)} answers while it ran, latency ms "
                 f"p50 {statistics.median(health_ms):.3f} max {health_ms[-1]:.3f}")
+        else:
+            served_a = bodies[0], k1s["S"][0]
+    return served_a
 
 
 def _server_speech(tts, port: int) -> None:
@@ -2915,6 +2950,62 @@ def _server_stream(router, port: int) -> None:
         f"final latency after stop s {finals[0][0] - stop_at:.4f}")
     log(f"server 11a stream: K2 launches {n_k2} = {cfg.n_audio_layer} x ({enc.block_encodes} committed + "
         f"{enc.tail_encodes} tail block encodes), combine launches {n_combine}; close code 1000")
+
+
+CLIENT_STREAM_SECONDS = 3.0  # 11a's stream through the port's client (and the socket client)
+
+
+def _server_client(router, port: int, body_a: dict, k1_a: int) -> None:
+    """11a: the port's ``OpenSpeechClient`` against the served app: request
+    a's ``transcribe`` (= the multipart POST's body and K1 launches), and a
+    ~3 s paced ``stream_transcribe`` whose final transcript equals the
+    socket client's on the same frames. Language detection is pinned to
+    the first second of PCM for both sessions, so the probe does not see
+    however much audio had arrived by the interim pass that ran it."""
+    from open_speech_tpu_torch.client import OpenSpeechClient
+    from open_speech_tpu_torch.ops import attention as A
+    from open_speech_tpu_torch.ops import audio as codec
+
+    client = OpenSpeechClient(f"http://127.0.0.1:{port}")
+    wav = codec.write_wav(_speechlike(5.0, 1), SR)
+    k1 = A.launches["flash_attention"]
+    t0 = time.perf_counter()
+    got = client.transcribe(wav, model=MAIN_MODEL)
+    wall, k1 = time.perf_counter() - t0, A.launches["flash_attention"] - k1
+    if got != body_a or k1 != k1_a:
+        raise AssertionError(f"server 11a client transcribe: {str(got)[:200]} vs {str(body_a)[:200]}, "
+                             f"K1 {k1} vs {k1_a}")
+    frames = _pcm16_frames(CLIENT_STREAM_SECONDS, 9)
+    backend = router.get_backend(MAIN_MODEL)
+    backend.detect_language_pcm = lambda model_id, pcm, detect=backend.detect_language_pcm: detect(
+        model_id, pcm[:SR])
+    try:
+        ws = _SocketClient(port, f"/v1/audio/stream?model={MAIN_MODEL}&sample_rate={SR}&vad=false")
+        t0 = time.perf_counter()
+        for i, frame in enumerate(frames):
+            time.sleep(max(0.0, t0 + i * FRAME_S - time.perf_counter()))
+            ws.send(0x2, frame)
+        ws.send(0x1, json.dumps({"type": "stop"}).encode())
+        ws.reader.join(120)
+        want = [e["text"] for _, e in ws.events if e.get("speech_final")]
+
+        def paced():
+            t1 = time.perf_counter()
+            for i, frame in enumerate(frames):
+                time.sleep(max(0.0, t1 + i * FRAME_S - time.perf_counter()))
+                yield frame
+
+        events = list(client.stream_transcribe(paced(), model=MAIN_MODEL, sample_rate=SR, vad=False))
+    finally:
+        del backend.detect_language_pcm
+    finals = [e["text"] for e in events if e.get("speech_final")]
+    kinds = [e["type"] for e in events]
+    if kinds[0] != "session.begin" or kinds[-1] != "session.end" or finals != want or len(want) != 1:
+        raise AssertionError(f"server 11a client stream: events {kinds[:3]} ... {kinds[-3:]}, finals {finals} "
+                             f"vs the socket client's {want}")
+    log(f"server 11a client (open_speech_tpu_torch.client, stdlib): transcribe of request a = the multipart "
+        f"POST's body, K1 {k1} = {k1_a}, wall {wall:.3f} s; stream_transcribe of {CLIENT_STREAM_SECONDS} s paced "
+        f"pcm16: {len(events)} events, final transcript = the socket client's ({len(want[0])} chars)")
 
 
 def _server_subprocess() -> None:
@@ -3231,7 +3322,44 @@ def _realtime_turns(router, tts, port: int) -> int:
         f"synthesis first chunk {1e3 * direct_first:.3f} ms, wall {direct_tts_s:.4f} s; "
         + "; ".join(lines) + f"; transcripts = direct, K1 served = direct, decoded deltas == direct "
         f"bytes ({len(want)} bytes); close code {ws.close_code}")
+    _realtime_client(port, pcm24, direct["text"], direct_k1)
     return per_chunk
+
+
+def _realtime_client(port: int, pcm24: bytes, want: str, want_k1: int) -> None:
+    """R-a through the port's ``RealtimeSession`` (``client/``): the same
+    appends and one commit; the transcript and its K1 launches must equal
+    the socket client's turns'."""
+    import threading
+
+    from open_speech_tpu_torch.client import OpenSpeechClient
+    from open_speech_tpu_torch.ops import attention as A
+
+    done, got = threading.Event(), []
+
+    def on_transcript(evt: dict) -> None:
+        if evt["type"] == "conversation.item.input_audio_transcription.completed":
+            got.append(evt["transcript"])
+            done.set()
+
+    session = OpenSpeechClient(f"http://127.0.0.1:{port}").realtime_session(model=MAIN_MODEL)
+    try:
+        session.on_transcript(on_transcript)
+        session._send({"type": "session.update", "session": {"turn_detection": None, "voice": RT_VOICE}})
+        for i in range(0, len(pcm24), RT_APPEND):
+            session.send_audio(pcm24[i:i + RT_APPEND])
+        k1 = A.launches["flash_attention"]
+        t0 = time.perf_counter()
+        session.commit()
+        if not done.wait(300):
+            raise AssertionError("realtime R-a client: no transcription.completed")
+        wall, k1 = time.perf_counter() - t0, A.launches["flash_attention"] - k1
+    finally:
+        session.close()
+    if got != [want] or k1 != want_k1:
+        raise AssertionError(f"realtime R-a client: {got} vs {want[:80]!r}, K1 {k1} vs {want_k1}")
+    log(f"realtime 12 R-a through open_speech_tpu_torch.client.RealtimeSession: one commit, transcript = the "
+        f"socket client's, K1 {k1} = {want_k1}; commit -> transcription.completed {wall:.4f} s")
 
 
 def _realtime_cancel(tts, port: int, per_chunk: int) -> None:
@@ -5829,6 +5957,377 @@ def _studio_clone(port: int, ref: bytes, want: bytes) -> None:
     log(f"studio 17d POST /api/voices/library then /v1/audio/speech/clone voice_library_ref=studio_voice on "
         f"pocket-tts: 200, {len(wav)} bytes = the same request with reference_audio, wall {wall:.4f} s; an unknown "
         f"entry: 404; no flash launch")
+
+
+# ── phase 18: fine-tuning through K1's backward ──────────────────────────
+
+# (B, H, Tq, Tk, D, causal): the turbo encoder (one example), then the
+# decoder's self and cross attention at 18c's batch (2 x 64 positions)
+BWD_SHAPES = [
+    (1, 20, 1500, 1500, 64, False),
+    (2, 20, 64, 64, 64, True),
+    (2, 20, 64, 1500, 64, False),
+]
+# the backward against its plain version, computed in f32 from the same
+# inputs. f32: 1e-4 of max(max|ref|, 1) (summation order only, over up to
+# 1500 terms). bf16: the kernel accumulates in f32 and rounds only its
+# outputs, so each element may sit up to half a bf16 ulp of its f32 value
+# away; what it adds beyond that half ulp is f32 noise. The bound holds that
+# excess, over max|ref| per gradient, to 1e-4; a bf16-P control (the plain
+# backward with P and dS rounded to bf16 before their products, as bf16
+# MMAs would take them) must read above it, or the bound could not tell a
+# kernel that rounds inside from one that does not.
+BWD_TOL = {"bfloat16": 1e-4, "float32": 1e-4}
+TRAIN_SEED = 0  # 18c's weights and batch
+TRAIN_TOKENS = 65  # 18c: 64 teacher-forced positions per example
+TRAIN_STEPS = 4  # 18c's steps at B = 2 (the first pays cuBLAS and allocator warmup; the median of the rest)
+TRAIN_TINY_TOL = 1e-4  # 18b: relative L2 of the loss, each gradient and each parameter, card vs CPU
+# 18c at B = 1: the kernel-routed bf16 step's gradients against a plain-
+# routed bf16 step's, relative L2 over all gradients. The two round through
+# bf16 differently (the kernel keeps P and dS in f32; the plain version
+# casts P to bf16 and its backward rounds dP to bf16) across 36 layers.
+TRAIN_ROUTE_TOL = 5e-2
+# ... and each leaf of both bf16 steps against a plain-routed f32 step on
+# the same (bf16-valued) weights, TF32 off: the kernel route's relative L2
+# per leaf, every leaf, the attention's upstream leaves included.
+TRAIN_ROUTE_LEAF_TOL = 5e-2
+
+
+def _bwd_bound_ms(b, h, t_q, t_k, d, causal, itemsize, products, q_like, k_like, stats) -> tuple[float, str]:
+    """Least time of ``products`` [Tq x Tk x D] products over the visible
+    (q, k) pairs at the dense peak for the dtype, or of ``q_like`` [B,H,Tq,D]
+    and ``k_like`` [B,H,Tk,D] tensors read or written once plus ``stats``
+    f32 rows [B,H,Tq]."""
+    visible = sum(min(max(i + t_k - t_q + 1, 0), t_k) for i in range(t_q)) if causal else t_q * t_k
+    flops = products * 2 * b * h * visible * d
+    nbytes = b * h * ((q_like * t_q + k_like * t_k) * d * itemsize + stats * t_q * 4)
+    t_ops = flops / (H100_BF16_FLOPS if itemsize == 2 else H100_F32_FLOPS)
+    t_bytes = nbytes / H100_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _bwd_device_ms(q, k, v, d_out, causal: bool) -> dict[str, float]:
+    """Device ms of each backward kernel alone (``cuda_ms`` with the queue
+    held), launched through ``attention._bwd_stage``: comparison launches,
+    not counted."""
+    import torch
+
+    from open_speech_tpu_torch.ops import attention as A
+
+    tensors = (q, k, v, d_out)
+    grads = tuple(torch.empty_like(t) for t in (q, k, v))
+    stats = torch.empty(2, *q.shape[:3], dtype=torch.float32, device=q.device)
+    scale = q.shape[-1] ** -0.5
+
+    def launch(stage: int) -> None:
+        err = A._bwd_stage(stage, tensors, grads, stats, causal, scale)
+        if err:
+            raise RuntimeError(f"train 18a: backward pass {stage}: cudaError {err}")
+
+    launch(0)  # the lse2 and delta that passes 1 and 2 read
+    return {name: cuda_ms(lambda s=stage: launch(s), held=True)
+            for stage, name in enumerate(A.BWD_STAGES)}
+
+
+def _beyond_bf16_rounding(got, ref) -> float:
+    """max(|got - ref| - half a bf16 ulp of ref) over the elements, over
+    max|ref|: what ``got`` differs from the f32 ``ref`` by beyond rounding
+    it to bf16 once."""
+    import torch
+
+    _, exp = torch.frexp(ref)  # |ref| in [2^(exp-1), 2^exp): bf16's ulp there is 2^(exp-8)
+    half_ulp = torch.ldexp(torch.ones_like(ref), exp - 9) * (ref != 0)
+    excess = ((got.float() - ref).abs() - half_ulp).clamp_min(0).max().item()
+    return excess / max(ref.abs().max().item(), 1e-30)
+
+
+def _bwd_bf16_p_control(q, k, v, d_out, causal: bool):
+    """The plain backward with P and dS rounded to bf16 before the products
+    that take them, outputs in bf16: what a kernel feeding bf16 MMAs would
+    give. 18a's bf16 bound must reject it."""
+    import torch
+
+    from open_speech_tpu_torch.ops import attention as A
+
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, d_out))
+    scale = q.shape[-1] ** -0.5
+    p = A._probs(qf, kf, causal, scale=scale).to(torch.bfloat16).float()
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    ds = (p * (dp - (p * dp).sum(dim=-1, keepdim=True))).to(torch.bfloat16).float()
+    dq, dk = torch.matmul(ds, kf) * scale, torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+def phase_train() -> tuple[list[dict], dict]:
+    """18: K1's backward (new; no TPU kernel) and the training step.
+    Returns the backward's entry and the launches of 18c's steps."""
+    entries = _train_kernels()
+    _train_tiny()
+    return entries, _train_turbo()
+
+
+def _train_kernels() -> list[dict]:
+    """18a: the backward against ``flash_attention_backward_reference`` on
+    the card at ``BWD_SHAPES`` in bf16 and f32, and its times against its
+    bound and SDPA's backward, both in device time."""
+    import torch
+    import torch.nn.functional as F
+
+    from open_speech_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(1818)
+    worst = 0.0
+    entry = None
+    for b, h, t_q, t_k, d, causal in BWD_SHAPES:
+        for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+            q = torch.randn(b, h, t_q, d, generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn(b, h, t_k, d, generator=gen, device="cuda").to(dtype) for _ in range(2))
+            d_out = torch.randn(b, h, t_q, d, generator=gen, device="cuda").to(dtype)
+            got = A.flash_attention_backward(q, k, v, d_out, causal=causal)
+            torch.cuda.synchronize()
+            # the plain formulas in f32 on the same (bf16-valued) inputs
+            want = A.flash_attention_backward_reference(*(t.float() for t in (q, k, v, d_out)), causal=causal)
+            control = _bwd_bf16_p_control(q, k, v, d_out, causal) if name == "bfloat16" else None
+            tag = f"train 18a flash_attention_bwd {name:8s} [{b},{h},{t_q},{t_k},{d}] causal={int(causal)}"
+            errs = []
+            for i, (grad, g, ref) in enumerate(zip("qkv", got, want)):
+                err = (g.float() - ref).abs().max().item()
+                worst = max(worst, err)
+                if not (g.shape == ref.shape and g.dtype == dtype):
+                    raise AssertionError(f"{tag} d{grad}: {tuple(g.shape)} {g.dtype}")
+                if name == "float32":
+                    limit = BWD_TOL[name] * max(ref.abs().max().item(), 1.0)
+                    if not err <= limit:
+                        raise AssertionError(f"{tag} d{grad}: max_abs_err {err:.3e} > {limit:.3e}")
+                    errs.append(f"d{grad} {err:.3e} (tol {limit:.3e})")
+                    continue
+                excess, excess_ctl = _beyond_bf16_rounding(g, ref), _beyond_bf16_rounding(control[i], ref)
+                if not excess <= BWD_TOL[name]:
+                    raise AssertionError(f"{tag} d{grad}: {excess:.3e} of max|ref| beyond bf16 rounding "
+                                         f"> {BWD_TOL[name]}")
+                if not excess_ctl > BWD_TOL[name]:
+                    raise AssertionError(f"{tag} d{grad}: the bf16-P control reads {excess_ctl:.3e}, "
+                                         f"within the bound {BWD_TOL[name]}: the bound does not discriminate")
+                errs.append(f"d{grad} {err:.3e}, beyond bf16 rounding {excess:.3e} of max|ref| "
+                            f"(tol {BWD_TOL[name]}; bf16-P control {excess_ctl:.3e})")
+            itemsize = 2 if dtype == torch.bfloat16 else 4
+            call = lambda: A.flash_attention_backward(q, k, v, d_out, causal=causal)  # noqa: E731
+            ms = cuda_ms(call)
+            device_ms = cuda_ms(call, held=True)
+            plain_ms = cuda_ms(lambda: A.flash_attention_backward_reference(q, k, v, d_out, causal=causal),
+                               iters=3, warmup=1)
+            per_kernel = _bwd_device_ms(q, k, v, d_out, causal)
+            bound_ms, bound_by = _bwd_bound_ms(b, h, t_q, t_k, d, causal, itemsize, 5, 3, 4, 0)
+            # SDPA's backward alone: autograd of one forward, replayed (the graph kept)
+            qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+            o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)  # Tq = Tk where causal
+            sdpa_bwd = lambda: torch.autograd.grad(o_sdpa, (qs, ks, vs), d_out, retain_graph=True)  # noqa: E731
+            library_ms = cuda_ms(sdpa_bwd, held=True)
+            library_call_ms = cuda_ms(sdpa_bwd)
+            stages = " ".join(f"{n.rsplit('_', 1)[1]} {t:.4f}" for n, t in per_kernel.items())
+            log(f"{tag}: {', '.join(errs)}; ms {ms:.4f} device_ms {device_ms:.4f} ({stages}) plain_ms "
+                f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}, 5 products) share_of_bound "
+                f"{bound_ms / device_ms:.4f}; SDPA backward device_ms {library_ms:.4f} per call "
+                f"{library_call_ms:.4f}")
+            if (b, h, t_q, t_k, d, causal) == BWD_SHAPES[0] and name == "bfloat16":
+                # the JSON line's numbers: the encoder shape in bf16, the whole backward
+                # against its 5-product bound; each kernel's device ms under "parts"
+                entry = {
+                    "name": "flash_attention_bwd",
+                    "route": "cuda",
+                    "source": "open_speech_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
+                    "replaces": "none: new, K1's gradient (jax.grad differentiates "
+                                "open_speech_tpu/ops/attention.py:50 mha_reference)",
+                    "launches": 0,
+                    "max_abs_err": 0.0,
+                    "ms": device_ms,
+                    "plain_ms": plain_ms,
+                    "bound_ms": bound_ms,
+                    "bound_by": bound_by,
+                    "library_ms": library_ms,
+                    "parts": [{"name": n, "launches": 0, "ms": t} for n, t in per_kernel.items()],
+                }
+            del qs, ks, vs, o_sdpa, got, want, control
+    entry["max_abs_err"] = worst
+    return [entry]
+
+
+def _train_batch(cfg, b: int, seed: int, device: str) -> dict:
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return {
+        "mel": torch.from_numpy(rng.standard_normal((b, cfg.n_mels, 2 * cfg.n_audio_ctx))
+                                .astype(np.float32)).to(device),
+        "tokens": torch.from_numpy(rng.integers(0, cfg.n_vocab, (b, TRAIN_TOKENS))).to(device),
+        "mask": torch.ones(b, TRAIN_TOKENS, dtype=torch.int32, device=device),
+    }
+
+
+def _grads(leaves: dict) -> dict:
+    return {n: t.grad.detach().float().clone() for n, t in leaves.items()}
+
+
+def _train_tiny() -> None:
+    """18b: test-tiny in float32 (TF32 off), the card against the CPU on the
+    same weights and batch: the loss, every gradient and the parameters
+    after one AdamW step within relative L2 1e-4; then 5 steps at lr 1e-3
+    reduce the loss."""
+    import copy
+
+    import torch
+
+    from open_speech_tpu_torch import train as T
+    from open_speech_tpu_torch.models.whisper.model import PRESETS, init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = PRESETS["test-tiny"]
+    host = init_params(torch.Generator().manual_seed(TRAIN_SEED), cfg)
+    card = copy.deepcopy(host).to("cuda")
+    out = {}
+    for label, model in (("cpu", host), ("card", card)):
+        dev = model.device.type
+        batch = _train_batch(cfg, 2, TRAIN_SEED, dev)
+        batch["tokens"] = batch["tokens"][:, :8]  # 7 teacher-forced positions
+        batch["mask"] = batch["mask"][:, :8]
+        opt = T.make_optimizer(model, lr=1e-3)
+        leaves = {**dict(model.named_parameters()), "encoder.pos": model.encoder.pos}
+        loss = T.train_step(model, opt, batch, cfg)
+        out[label] = (loss.item(), _grads(leaves), {n: t.detach().float().cpu() for n, t in leaves.items()},
+                      opt, batch)
+    (lh, gh, ph, _, _), (lc, gc, pc, opt, batch) = out["cpu"], out["card"]
+    if not abs(lc - lh) <= TRAIN_TINY_TOL * abs(lh):
+        raise AssertionError(f"train 18b: loss card {lc} vs cpu {lh}")
+    worst_g = max(_rel_l2(f"train 18b grad {n}", gc[n], gh[n], TRAIN_TINY_TOL) for n in gh)
+    worst_p = max(_rel_l2(f"train 18b param {n}", pc[n], ph[n], TRAIN_TINY_TOL) for n in ph)
+    losses = [lc] + [T.train_step(card, opt, batch, cfg).item() for _ in range(4)]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train 18b: 5 steps at lr 1e-3 did not reduce the loss: {losses}")
+    log(f"train 18b test-tiny f32 (TF32 off) card vs cpu: loss {lc:.6f} vs {lh:.6f}, worst relative L2 of "
+        f"{len(gh)} gradients {worst_g:.3e} and of the parameters after one AdamW step {worst_p:.3e} "
+        f"(bound {TRAIN_TINY_TOL}); losses over 5 steps at lr 1e-3: {[round(x, 4) for x in losses]}")
+
+
+def _train_turbo() -> dict:
+    """18c: whisper-large-v3-turbo at full width (random bf16 weights from
+    seed 0), AdamW, a batch of 2 x 30 s mel and 65 tokens: every attention
+    runs K1 forward and its backward kernels, 40 of each per step. Then at
+    B = 1 the kernel-routed gradients against a plain-routed step's.
+    Returns the launches of the B = 2 steps."""
+    import math
+    import statistics
+    import threading
+
+    import torch
+
+    import open_speech_tpu_torch.models.whisper.model as M
+    from open_speech_tpu_torch import train as T
+    from open_speech_tpu_torch.ops import attention as A
+
+    cfg = M.PRESETS["large-v3-turbo"]
+    t0 = time.perf_counter()
+    model = M.init_params(torch.Generator(device="cuda").manual_seed(TRAIN_SEED), cfg, torch.bfloat16, "cuda")
+    opt = T.make_optimizer(model)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = _train_batch(cfg, 2, TRAIN_SEED, "cuda")
+    per_step = cfg.n_audio_layer + 2 * cfg.n_text_layer  # encoder self, decoder self and cross
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for key in A.launches:
+        A.launches[key] = 0  # count the steps only
+    walls, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        losses.append(T.train_step(model, opt, batch, cfg).item())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    launches = dict(A.launches)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": per_step * TRAIN_STEPS, "flash_attention_varlen": 0, "flash_combine": 0,
+            **{name: per_step * TRAIN_STEPS for name in A.BWD_STAGES}}
+    if launches != want:
+        raise AssertionError(f"train 18c: launches {launches}, want {want}")
+    if not all(math.isfinite(x) and abs(x - math.log(cfg.n_vocab)) < 2 for x in losses):
+        raise AssertionError(f"train 18c: losses {losses} vs log V {math.log(cfg.n_vocab):.4f}")
+    tokens, steady = 2 * (TRAIN_TOKENS - 1), statistics.median(walls[1:])
+    log(f"train 18c whisper-large-v3-turbo bf16 (random weights from seed {TRAIN_SEED}), AdamW lr 1e-5, batch 2 x "
+        f"30 s mel + {TRAIN_TOKENS} tokens: init {init_s:.3f} s; step walls s {[round(w, 4) for w in walls]} "
+        f"(the first pays warmup); losses {[round(x, 4) for x in losses]} (log V {math.log(cfg.n_vocab):.4f}); "
+        f"steady step (median after the first) {steady:.4f} s: {tokens / steady:.1f} target tokens/s, "
+        f"{60.0 / steady:.1f} audio s/s; max_memory_allocated {peak / 2**30:.3f} GiB; launches per step: K1 "
+        f"{per_step}, backward prep/dkdv/dq {per_step} each; python threads alive {threading.active_count()}")
+    _train_routes(model, cfg, batch)
+    del model, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _train_routes(model, cfg, batch) -> None:
+    """18c at B = 1: the gradients of a bf16 step through the kernels, of a
+    bf16 step whose attention is autograd of the plain version, and of a
+    plain-routed f32 step on the same weights (TF32 off): the kernel route
+    against the plain one over all leaves, and each bf16 route against the
+    f32 step leaf by leaf."""
+    import copy
+
+    import torch
+
+    import open_speech_tpu_torch.models.whisper.model as M
+    from open_speech_tpu_torch import train as T
+    from open_speech_tpu_torch.ops import attention as A
+
+    one = {k: v[:1] for k, v in batch.items()}
+    model.zero_grad(set_to_none=True)
+    model.encoder.pos.grad = None
+    with torch.no_grad():
+        wide = copy.deepcopy(model).float()  # the same bf16 values, in f32
+    T.trainable_params(wide)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    grads, loss = {}, {}
+    for route, net in (("kernel", model), ("plain", model), ("f32", wide)):
+        leaves = {**dict(net.named_parameters()), "encoder.pos": net.encoder.pos}
+        if route != "kernel":
+            M.flash_attention = lambda q, k, v, causal=False: A.flash_attention_reference(q, k, v, causal=causal)
+        try:
+            out = T.loss_fn(net, one, cfg)
+            out.backward()
+        finally:
+            M.flash_attention = A.flash_attention
+        loss[route], grads[route] = out.item(), _grads(leaves)
+        net.zero_grad(set_to_none=True)
+        net.encoder.pos.grad = None
+        torch.cuda.synchronize()
+    del wide
+    torch.cuda.empty_cache()
+
+    def rel(a, b) -> float:
+        return (torch.linalg.norm(a - b) / torch.linalg.norm(b).clamp_min(1e-30)).item()
+
+    flat = {r: torch.cat([g.flatten() for g in grads[r].values()]) for r in grads}
+    whole = rel(flat["kernel"], flat["plain"])
+    per = {r: {n: rel(grads[r][n], grads["f32"][n]) for n in grads["f32"]} for r in ("kernel", "plain")}
+    worst = {r: sorted(per[r], key=per[r].get, reverse=True)[:5] for r in per}
+    for r in per:
+        log(f"train 18c B=1 {r}-routed bf16 vs plain-routed f32, relative L2 per leaf, worst five: "
+            + ", ".join(f"{n} {per[r][n]:.3e} (other route {per['plain' if r == 'kernel' else 'kernel'][n]:.3e})"
+                        for n in worst[r]))
+    if not whole <= TRAIN_ROUTE_TOL:
+        raise AssertionError(f"train 18c B=1: kernel vs plain gradients relative L2 {whole:.3e} > {TRAIN_ROUTE_TOL}")
+    name = worst["kernel"][0]
+    if not per["kernel"][name] <= TRAIN_ROUTE_LEAF_TOL:
+        raise AssertionError(f"train 18c B=1: kernel-routed {name} {per['kernel'][name]:.3e} from the f32 step "
+                             f"> {TRAIN_ROUTE_LEAF_TOL}")
+    log(f"train 18c B=1 losses: kernel {loss['kernel']:.5f}, plain {loss['plain']:.5f}, f32 {loss['f32']:.5f}; "
+        f"kernel vs plain gradients relative L2 over all {len(flat['kernel'])} values {whole:.3e} (bound "
+        f"{TRAIN_ROUTE_TOL}); against the f32 step, worst leaf of {len(per['kernel'])}: kernel route {name} "
+        f"{per['kernel'][name]:.3e} (bound {TRAIN_ROUTE_LEAF_TOL}), plain route {worst['plain'][0]} "
+        f"{per['plain'][worst['plain'][0]]:.3e}; median leaf kernel "
+        f"{sorted(per['kernel'].values())[len(per['kernel']) // 2]:.3e}, plain "
+        f"{sorted(per['plain'].values())[len(per['plain']) // 2]:.3e}")
 
 
 if __name__ == "__main__":

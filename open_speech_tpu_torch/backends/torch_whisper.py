@@ -271,6 +271,7 @@ class TorchWhisperBackend:
         logger.info("STT warmup for %s done in %.1fs (%d of %d stages failed)",
                     model_id, time.time() - t0, len(failed), len(stages))
 
+    @torch.no_grad()
     def _warmup_batched(self, entry: dict[str, Any], window_samples: int) -> None:
         """One batched long-form rung: the largest bucket <= os_stt_batch_windows."""
         cfg = entry["cfg"]
@@ -381,6 +382,7 @@ class TorchWhisperBackend:
 
     # ── protocol: inference ───────────────────────────────────────────
 
+    @torch.no_grad()
     def detect_language_pcm(self, model_id: str, pcm: np.ndarray) -> str:
         """Detect the spoken language of (up to) the first window of 16 kHz
         float PCM. The streaming session calls it once per auto-detect

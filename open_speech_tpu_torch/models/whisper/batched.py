@@ -226,6 +226,7 @@ def _decode_rows_with_fallback(
     return final  # type: ignore[return-value]
 
 
+@torch.no_grad()
 def transcribe_batched(
     model: Whisper,
     cfg: WhisperConfig,

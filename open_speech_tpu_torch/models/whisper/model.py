@@ -305,9 +305,11 @@ def conv_stem(enc: AudioEncoder, mel: torch.Tensor, first_frame: int = 0) -> tor
     return F.gelu(enc.conv2(x)).transpose(1, 2)
 
 
-@torch.no_grad()
 def encode(model: Whisper, mel: torch.Tensor, cfg: WhisperConfig) -> torch.Tensor:
-    """mel [B, n_mels, 3000] -> encoder states [B, 1500, d]."""
+    """mel [B, n_mels, 3000] -> encoder states [B, 1500, d].
+
+    Records a graph only where a weight requires grad (training); a served
+    model's weights are frozen and its callers run under ``no_grad``."""
     enc = model.encoder
     x = conv_stem(enc, mel)  # [B, T, d]
     x = x + enc.pos[: x.shape[1]]
@@ -322,11 +324,11 @@ def encode(model: Whisper, mel: torch.Tensor, cfg: WhisperConfig) -> torch.Tenso
 # ──────────────────────────────────────────────────────────────────────
 
 
-@torch.no_grad()
 def decoder_forward(
     model: Whisper, tokens: torch.Tensor, enc_out: torch.Tensor, cfg: WhisperConfig
 ) -> torch.Tensor:
-    """tokens [B, T] + encoder states -> logits [B, T, vocab] (teacher-forced)."""
+    """tokens [B, T] + encoder states -> logits [B, T, vocab] (teacher-forced;
+    differentiable, as ``encode``)."""
     dec = model.decoder
     n_head = cfg.n_text_head
     t = tokens.shape[1]

@@ -85,6 +85,7 @@ def _bucket_prev(prev: list[int], room: int) -> list[int]:
     return prev[len(prev) - keep :] if keep else []
 
 
+@torch.no_grad()
 def transcribe(
     model: Whisper,
     cfg: WhisperConfig,

@@ -12,6 +12,13 @@ Counterpart of ``open_speech_tpu/ops/attention.py``:
     (``plan_splits``) and ``flash_combine`` merges the splits' partials;
     ``flash_attention_partial_reference`` and ``flash_combine_reference``
     are the plain versions of the two passes.
+  - ``FlashAttentionFn``: K1 with its gradient, which ``flash_attention``
+    takes when a gradient is wanted. On a CUDA tensor the backward is the
+    hand-written sm_90a kernels of ``kernels/csrc/flash_attention_bwd.cu``
+    (``flash_attention_backward``; no TPU kernel: the JAX package
+    differentiates ``mha_reference``); on a CPU tensor both passes are the
+    plain versions (``flash_attention_backward_reference``). K2 has no
+    backward and raises ``FlashAttentionGradError`` under grad.
   - ``decode_attention`` and ``beam_select_attention``: single-position
     attention over a padded KV cache, as plain PyTorch on either device.
 
@@ -29,9 +36,11 @@ import torch
 NEG_INF = -1e30
 LOG2E = math.log2(math.e)
 
-# launches of the flash kernels (K1, K2 and K2's combine pass), counted
-# where each is launched
-launches = {"flash_attention": 0, "flash_attention_varlen": 0, "flash_combine": 0}
+# launches of the flash kernels (K1, K2, K2's combine pass and the three
+# passes of K1's backward), counted where each is launched
+BWD_STAGES = ("flash_attention_bwd_prep", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
+launches = {"flash_attention": 0, "flash_attention_varlen": 0, "flash_combine": 0,
+            **dict.fromkeys(BWD_STAGES, 0)}
 
 # the bf16 kernel's tiles (kBlockN keys, kBlockQ query rows per block in
 # flash_attention.cu) and the card's SM count, which K2's split plan fills
@@ -49,10 +58,21 @@ def mha_reference(
     kv_length: torch.Tensor | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Plain attention. q,k,v: [B, H, T, D]; kv_length: [B] valid kv lengths."""
+    """Plain attention. q,k,v: [B, H, T, D]; kv_length: [B] valid kv lengths.
+
+    Computes in float32 (float64 for float64 inputs)."""
+    acc = torch.promote_types(q.dtype, torch.float32)
+    probs = _probs(q.to(acc), k.to(acc), causal, kv_length, scale)
+    out = torch.matmul(probs.to(v.dtype).to(acc), v.to(acc))
+    return out.to(q.dtype)
+
+
+def _probs(q, k, causal, kv_length=None, scale=None) -> torch.Tensor:
+    """Softmax probabilities [B, H, Tq, Tk] of q, k (in their dtype), zero
+    on the rows with no attendable key (the kernel's semantics)."""
     d = q.shape[-1]
     scale = (d**-0.5) if scale is None else scale
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    logits = torch.matmul(q, k.transpose(-1, -2)) * scale
     t_q, t_k = q.shape[-2], k.shape[-2]
     dev = q.device
     if causal:
@@ -64,11 +84,8 @@ def mha_reference(
         ki = torch.arange(t_k, device=dev)[None, None, None, :]
         logits = torch.where(ki < kv_length[:, None, None, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
-    # rows with no attendable key return zeros (the kernel's semantics)
     any_valid = logits.amax(dim=-1, keepdim=True) > NEG_INF / 2
-    probs = torch.where(any_valid, probs, 0.0)
-    out = torch.matmul(probs.to(v.dtype).float(), v.float())
-    return out.to(q.dtype)
+    return torch.where(any_valid, probs, 0.0)
 
 
 def flash_attention_reference(
@@ -81,6 +98,40 @@ def flash_attention_reference(
 ) -> torch.Tensor:
     """K1's plain version: ``mha_reference`` without kv_length."""
     return mha_reference(q, k, v, causal=causal, scale=scale)
+
+
+def flash_attention_backward_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    d_out: torch.Tensor,
+    *,
+    causal: bool = False,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1's gradient, plain: (dq, dk, dv) of ``flash_attention_reference``
+    at the upstream gradient ``d_out``, from the explicit formulas in
+    float32 (float64 for float64 inputs), each cast to its input's dtype:
+
+        P = softmax(scale * q k^T) (masked; zero rows stay zero)
+        dv = P^T dO,  dP = dO v^T,  delta = rowsum(P * dP)
+        dS = P * (dP - delta),  dq = scale * dS k,  dk = scale * dS^T q
+
+    A row with no visible key has P = 0, so it contributes nothing. delta
+    is rowsum(dO * O) with O = P v at the working precision, not the
+    forward's output: from a bf16 output its rounding would not cancel in
+    rowsum(dS) = 0, and dq would carry it times the keys' common component.
+    """
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qf, kf, vf, gf = (t.to(acc) for t in (q, k, v, d_out))
+    scale = (q.shape[-1] ** -0.5) if scale is None else scale
+    p = _probs(qf, kf, causal, scale=scale)
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_varlen_reference(
@@ -181,7 +232,9 @@ _SIGNATURES = {  # C entry -> argument types after the four tensor pointers
     "os_flash_attention_fwd": [_I] * 6 + [ctypes.c_float, _I, _P],
     "os_flash_attention_varlen_fwd": [_P] * 3 + [_I] * 8 + [ctypes.c_float, _I, _P],
     "os_flash_combine": [_I] * 5 + [_P],
+    "os_flash_attention_bwd": [_P] * 5 + [_I] * 7 + [ctypes.c_float, _I, _P],
 }
+_SOURCE = {"os_flash_attention_bwd": "flash_attention_bwd"}  # else flash_attention.cu
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
 
@@ -190,7 +243,7 @@ def _kernel(entry: str):
     if fn is None:
         from open_speech_tpu_torch.kernels import build
 
-        fn = getattr(build.load("flash_attention"), entry)
+        fn = getattr(build.load(_SOURCE.get(entry, "flash_attention")), entry)
         fn.argtypes = [_P] * 4 + _SIGNATURES[entry]
         fn.restype = ctypes.c_int
         _fns[entry] = fn
@@ -229,7 +282,18 @@ def flash_attention(
     runs ``plan_splits`` kv splits and, when there is more than one, the
     combine pass), or raises on anything the kernel does not take. Rows with
     zero attendable keys return zeros on both paths.
+
+    When a gradient is wanted (grad mode on and an input that requires it),
+    K1 goes through ``FlashAttentionFn`` and K2 raises
+    ``FlashAttentionGradError``; otherwise no graph is recorded.
     """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if kv_length is not None:
+            raise FlashAttentionGradError(
+                "flash_attention: a gradient was asked of K2 (kv_length), which has no "
+                "backward; nothing trains through it"
+            )
+        return FlashAttentionFn.apply(q, k, v, causal, scale)
     if not q.is_cuda:
         if kv_length is not None:
             return flash_attention_varlen_reference(
@@ -308,6 +372,96 @@ def flash_attention(
     _launched("flash_attention_varlen", err)
     _combine(o_part, m_part, l_part, out, (b, splits, h, t_q, d), stream)
     return out
+
+
+class FlashAttentionGradError(RuntimeError):
+    """A gradient was asked of K2 (``flash_attention`` with ``kv_length``)."""
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K1 with its gradient: ``FlashAttentionFn.apply(q, k, v, causal, scale)``.
+
+    Forward is ``flash_attention`` (the K1 kernel on a CUDA tensor, its
+    plain version on a CPU tensor); backward is ``flash_attention_backward``
+    (the three backward kernels, or ``flash_attention_backward_reference``).
+    The upstream gradient is made contiguous first: the one ``_merge_heads``
+    hands back is a transposed view.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float | None):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        return flash_attention(q, k, v, causal=causal, scale=scale)  # grad mode is off here
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, d_out.contiguous(), causal=ctx.causal, scale=ctx.scale
+        )
+        return dq, dk, dv, None, None
+
+
+def flash_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    d_out: torch.Tensor,
+    *,
+    causal: bool = False,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of K1(q, k, v) at the gradient ``d_out`` of its output.
+
+    A CPU tensor runs ``flash_attention_backward_reference``. A CUDA tensor
+    launches the three kernels of ``flash_attention_bwd.cu`` on the current
+    stream (per-row log-sum-exp and delta, then dK/dV, then dQ), each
+    counted in ``launches``, or raises on anything they do not take.
+    """
+    if not q.is_cuda:
+        return flash_attention_backward_reference(q, k, v, d_out, causal=causal, scale=scale)
+    tensors = (q, k, v, d_out)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("flash_attention_backward: all tensors must be on one CUDA device")
+    if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in tensors):
+        raise ValueError("flash_attention_backward: float32 or bfloat16, all the same dtype")
+    shapes_ok = q.dim() == 4 and k.dim() == 4
+    if shapes_ok:
+        b, h, t_q, d = q.shape
+        t_k = k.shape[2]
+        shapes_ok = (k.shape == (b, h, t_k, d) and v.shape == k.shape and d_out.shape == q.shape
+                     and d in (32, 64))
+    if not shapes_ok:
+        raise ValueError(
+            f"flash_attention_backward: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)}, d_out {tuple(d_out.shape)}; want q = d_out [B,H,Tq,D], "
+            "k = v [B,H,Tk,D], D 32 or 64"
+        )
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("flash_attention_backward: all tensors must be contiguous")
+    _check_hopper(q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if t_q == 0 or t_k == 0 or b * h == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    scale = (d**-0.5) if scale is None else float(scale)
+    stats = torch.empty(2, b, h, t_q, dtype=torch.float32, device=q.device)  # lse2, delta
+    for stage, name in enumerate(BWD_STAGES):
+        _launched(name, _bwd_stage(stage, tensors, (dq, dk, dv), stats, causal, scale))
+    return dq, dk, dv
+
+
+def _bwd_stage(stage: int, tensors, grads, stats: torch.Tensor, causal: bool, scale: float) -> int:
+    """Launches pass ``stage`` of K1's backward on tensors that
+    ``flash_attention_backward`` checked: 0 writes lse2 and delta into
+    ``stats`` [2,B,H,Tq], 1 dk and dv, 2 dq (``grads``). Returns its
+    cudaError."""
+    q, k = tensors[0], tensors[1]
+    b, h, t_q, d = q.shape
+    ptrs = [t.data_ptr() for t in (*tensors, *grads)] + [stats[0].data_ptr(), stats[1].data_ptr()]
+    return _kernel("os_flash_attention_bwd")(
+        *ptrs, stage, b, h, t_q, k.shape[2], d, _DTYPE_CODES[q.dtype], scale, int(causal),
+        torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def _launched(name: str, err: int) -> None:

@@ -151,13 +151,16 @@ def test_flash_varlen_plain_matches_jax_kernel_and_reference(b, h, t_q, t_k, d, 
 
 
 def test_flash_launch_counters_name_both_kernels():
-    """K1, K2 and K2's combine pass each have a counter; the plain versions
-    on the CPU launch nothing."""
-    assert set(TA.launches) == {"flash_attention", "flash_attention_varlen", "flash_combine"}
+    """K1, K2, K2's combine pass and the three passes of K1's backward each
+    have a counter; the plain versions on the CPU launch nothing."""
+    assert set(TA.launches) == {"flash_attention", "flash_attention_varlen", "flash_combine",
+                                "flash_attention_bwd_prep", "flash_attention_bwd_dkdv",
+                                "flash_attention_bwd_dq"}
     q = torch.zeros(1, 1, 4, 32)
     before = dict(TA.launches)
     TA.flash_attention(q, q, q, kv_length=torch.tensor([2]))
     TA.flash_combine(torch.zeros(1, 2, 1, 4, 32), torch.zeros(1, 2, 1, 4), torch.ones(1, 2, 1, 4))
+    TA.flash_attention_backward(q, q, q, q, causal=True)
     assert TA.launches == before, "the plain version on the CPU launches nothing"
 
 

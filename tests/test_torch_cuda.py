@@ -1,5 +1,5 @@
-"""The port's flash kernels (K1, K2) and the streaming block encode on a
-Hopper card against their plain versions; Kokoro, Piper, the effects
+"""The port's flash kernels (K1, K1's backward, K2) and the streaming block
+encode on a Hopper card against their plain versions; Kokoro, Piper, the effects
 chain and the diarizer (no hand kernel) on the card against the CPU.
 
 These tests need an NVIDIA Hopper card and skip without one. On the card's
@@ -223,6 +223,99 @@ def test_combine_launches_are_counted(card):
         torch.cuda.synchronize()
         assert A.launches["flash_combine"] == before["flash_combine"] + n_combine
         before = dict(A.launches)
+
+
+# K1's backward: the turbo encoder's head count at 1500 rows, ragged tiles
+# both ways, causal end-aligned rectangles (Tq > Tk has rows with no key),
+# the decoder's self and cross attention of a training batch, D 32
+BWD_CASES = [
+    (1, 2, 1500, 1500, 64, False),
+    (2, 3, 37, 100, 64, True),
+    (2, 3, 100, 37, 64, True),
+    (1, 2, 65, 129, 64, False),
+    (2, 4, 64, 64, 64, True),
+    (2, 4, 64, 1500, 64, False),
+    (1, 2, 60, 60, 32, True),
+    (1, 2, 7, 60, 32, False),
+]
+
+
+def _grad_close(got: torch.Tensor, ref: torch.Tensor) -> bool:
+    """``got`` against the plain version in f32 on the same inputs. f32:
+    within 1e-4 of max(max|ref|, 1) (summation order over up to Tq or Tk
+    terms). bf16: the kernel accumulates in f32 and rounds only its
+    outputs, so within half a bf16 ulp of ref plus 1e-4 of max|ref| (a
+    kernel that rounded P or dS to bf16 inside reads about 1e-3 there)."""
+    err = (got.float() - ref).abs()
+    if got.dtype == torch.float32:
+        return err.max().item() <= TOL[torch.float32] * max(ref.abs().max().item(), 1.0)
+    _, exp = torch.frexp(ref)  # |ref| in [2^(exp-1), 2^exp): bf16's ulp there is 2^(exp-8)
+    half_ulp = torch.ldexp(torch.ones_like(ref), exp - 9) * (ref != 0)
+    return (err - half_ulp).max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,t_q,t_k,d,causal", BWD_CASES)
+def test_backward_kernels_match_plain_version(card, b, h, t_q, t_k, d, causal, dtype):
+    q, k, v = _qkv(card, b, h, t_q, t_k, d, dtype, seed=7)
+    d_out = torch.randn(b, h, t_q, d, generator=torch.Generator(device=card).manual_seed(8),
+                        device=card).to(dtype)
+    before = dict(A.launches)
+    got = A.flash_attention_backward(q, k, v, d_out, causal=causal)
+    torch.cuda.synchronize()
+    assert all(A.launches[n] == before[n] + 1 for n in A.BWD_STAGES)
+    want = A.flash_attention_backward_reference(*(t.float() for t in (q, k, v, d_out)), causal=causal)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        assert _grad_close(g, w)
+    if causal and t_q > t_k:
+        assert got[0][:, :, : t_q - t_k].abs().max().item() == 0.0
+
+
+def test_backward_refuses_what_it_does_not_take(card):
+    q, k, v = _qkv(card, 1, 2, 8, 8, 64, torch.bfloat16)
+    out = A.flash_attention(q, k, v)
+    before = dict(A.launches)
+    with pytest.raises(ValueError, match="contiguous"):
+        A.flash_attention_backward(q, k, v, out.transpose(2, 3).contiguous().transpose(2, 3))
+    with pytest.raises(ValueError, match="dtype"):
+        A.flash_attention_backward(q, k, v, out.float())
+    with pytest.raises(ValueError, match="D 32 or 64"):
+        A.flash_attention_backward(q, k, v[:, :, :4].contiguous(), out)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        A.flash_attention_backward(q, k.cpu(), v, out)
+    assert A.launches == before
+
+
+def test_gradients_route_through_the_backward_kernels(card):
+    """Under grad, K1 goes through ``FlashAttentionFn`` (the upstream
+    gradient arrives transposed, as ``_merge_heads`` hands it back) and K2
+    raises; without grad no graph is recorded and no backward runs; the
+    backward is deterministic."""
+    q, k, v = (t.requires_grad_(True) for t in _qkv(card, 2, 4, 64, 64, 64, torch.bfloat16, seed=9))
+    before = dict(A.launches)
+    out = A.flash_attention(q, k, v, causal=True)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    merged = out.transpose(1, 2).reshape(2, 64, 256)
+    grad = torch.randn_like(merged)
+    merged.backward(grad)
+    first = [t.grad.clone() for t in (q, k, v)]
+    want = A.flash_attention_backward_reference(
+        *(t.detach().float() for t in (q, k, v)),
+        grad.reshape(2, 64, 4, 64).transpose(1, 2).float().contiguous(), causal=True)
+    for g, w in zip(first, want):
+        assert _grad_close(g, w)
+    for t in (q, k, v):
+        t.grad = None
+    A.flash_attention(q, k, v, causal=True).transpose(1, 2).reshape(2, 64, 256).backward(grad)
+    assert all(torch.equal(t.grad, f) for t, f in zip((q, k, v), first))
+    assert A.launches["flash_attention"] == before["flash_attention"] + 2
+    assert all(A.launches[n] == before[n] + 2 for n in A.BWD_STAGES)
+    with pytest.raises(A.FlashAttentionGradError):
+        A.flash_attention(q, k, v, kv_length=torch.tensor([3, 64], device=card))
+    with torch.no_grad():
+        assert A.flash_attention(q, k, v).grad_fn is None
+    assert all(A.launches[n] == before[n] + 2 for n in A.BWD_STAGES)
 
 
 def test_combine_kernel_matches_plain_version(card):

@@ -14,7 +14,8 @@ model catalog, the model manager, its lifecycle and the serving metrics,
 the diarizer (segmentation, WeSpeaker, GE2E, the conv embedder, the
 service and its checkpoint loader) and the Studio (its SQLite store,
 profiles, history, voice library, conversations, composer, and the TTS
-cache) included) must pull in neither ``jax``,
+cache), the client SDK, fine-tuning and its checkpoints included) must pull
+in neither ``jax``,
 ``aiohttp``, ``pydantic`` nor any module of the JAX package. The check runs
 in a fresh interpreter, because this test process already imported them.
 """
@@ -56,7 +57,7 @@ want = ("server.streaming", "runtime.batcher", "runtime.batcher_pool", "models.w
         "audio.effects", "audio.spectral", "models.ckptutil", "models.segmentation",
         "models.wespeaker", "models.ge2e", "models.diarize", "diarization", "studio.storage",
         "studio.profiles", "studio.history", "studio.voice_library", "studio.conversation",
-        "studio.composer", "cache.tts_cache")
+        "studio.composer", "cache.tts_cache", "client", "train", "runtime.checkpoint")
 print(len(names), ",".join(bad), int(all("open_speech_tpu_torch." + w in names for w in want)))
 """
 
@@ -71,8 +72,8 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
     assert n_modules >= 30, "walk_packages should find every submodule"
     assert named == "1", ("the streaming session, the batchers, batched long-form, "
                           "Kokoro's model and serving modules, the server, the realtime socket, "
-                          "Wyoming, model management, Piper, the effects, the diarizer and the "
-                          "Studio must be among them")
+                          "Wyoming, model management, Piper, the effects, the diarizer, the "
+                          "Studio, the client SDK, training and checkpoints must be among them")
     assert bad == "", f"port imported: {bad}"
 
 
