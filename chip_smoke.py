@@ -202,14 +202,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
      launched in 17b-17e; 17a's launches join the kernels line.
  18. fine-tuning (``train.py``, ``runtime/checkpoint.py``) through K1's
      backward (``kernels/csrc/flash_attention_bwd.cu``: three kernels, new
-     work with no TPU counterpart). 18a: the backward against
-     ``flash_attention_backward_reference`` at the turbo encoder
-     [1,20,1500,1500,64] and the decoder's self [2,20,64,64,64] (causal) and
-     cross [2,20,64,1500,64] attention, bf16 (and a bf16-P control the
-     bound must reject) and f32; per call, device (and per kernel, each
-     launched alone), plain and SDPA-backward device times beside the
-     bound. 18b: test-tiny f32 card against CPU (loss, every gradient, one
-     AdamW step's parameters within relative L2 1e-4), and 5 steps reduce
+     work with no TPU counterpart; bf16 on wgmma with P and dS split into
+     two bf16 operands, 12 tensor-core products; f32 scalar). 18a: the
+     backward against ``flash_attention_backward_reference`` at the turbo
+     encoder [1,20,1500,1500,64] and the decoder's self [2,20,64,64,64]
+     (causal) and cross [2,20,64,1500,64] attention, bf16 (and a bf16-P
+     control the bound must reject) and f32; per call, device (and per
+     kernel, each launched alone), plain and SDPA-backward device times
+     beside the 5-product bound, and the rate over the products run. 18b:
+     test-tiny f32 card against CPU (loss, every gradient, one AdamW
+     step's parameters within relative L2 1e-4), and 5 steps reduce
      the loss. 18c: whisper-large-v3-turbo at full width (random bf16
      weights from seed 0), AdamW, 2 x 30 s mel and 65 tokens: four steps
      (walls, peak memory, loss within 2 of log V), 40 K1 forward and 40 of
@@ -248,7 +250,8 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3, *, held: bool = False) -> floa
     between launches where the card waits for it, so a call whose host side
     outlasts its kernels reads its host time. With ``held`` a sleep kernel
     holds the card while the host queues the calls, so the span is the
-    kernels' device time only."""
+    kernels' device time only; where the host took longer to queue them
+    than the sleep lasted, the sleep is doubled and the span taken again."""
     import torch
 
     for _ in range(warmup):
@@ -256,14 +259,22 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3, *, held: bool = False) -> floa
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    if held:
-        torch.cuda._sleep(20_000_000)  # ~10 ms at the H100's clocks
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    slept = torch.cuda.Event(enable_timing=True)
+    cycles = 20_000_000  # ~10 ms at the H100's clocks
+    while True:
+        if held:
+            slept.record()
+            torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        queued_ms = 1e3 * (time.perf_counter() - t0)
+        end.record()
+        torch.cuda.synchronize()
+        if not held or queued_ms < slept.elapsed_time(start) or cycles >= 2**31:
+            return start.elapsed_time(end) / iters
+        cycles *= 2
 
 
 def host_us(fn, calls: int = 1000, rounds: int = 5) -> tuple[float, float]:
@@ -5970,14 +5981,18 @@ BWD_SHAPES = [
 ]
 # the backward against its plain version, computed in f32 from the same
 # inputs. f32: 1e-4 of max(max|ref|, 1) (summation order only, over up to
-# 1500 terms). bf16: the kernel accumulates in f32 and rounds only its
-# outputs, so each element may sit up to half a bf16 ulp of its f32 value
-# away; what it adds beyond that half ulp is f32 noise. The bound holds that
+# 1500 terms). bf16: the kernel accumulates in f32, takes P and dS as two
+# bf16 halves each (exact to about 2^-17) and rounds only its outputs, so
+# each element may sit up to half a bf16 ulp of its f32 value away; what it
+# adds beyond that half ulp is near f32 noise. The bound holds that
 # excess, over max|ref| per gradient, to 1e-4; a bf16-P control (the plain
 # backward with P and dS rounded to bf16 before their products, as bf16
 # MMAs would take them) must read above it, or the bound could not tell a
 # kernel that rounds inside from one that does not.
 BWD_TOL = {"bfloat16": 1e-4, "float32": 1e-4}
+# [Tq x Tk x D] products each route runs (the bound counts 5): bf16 12 on
+# the tensor cores (P and dS each go in as a hi and a lo bf16 operand), f32 9
+BWD_PRODUCTS = {"bfloat16": 12, "float32": 9}
 TRAIN_SEED = 0  # 18c's weights and batch
 TRAIN_TOKENS = 65  # 18c: 64 teacher-forced positions per example
 TRAIN_STEPS = 4  # 18c's steps at B = 2 (the first pays cuBLAS and allocator warmup; the median of the rest)
@@ -6126,10 +6141,14 @@ def _train_kernels() -> list[dict]:
             library_ms = cuda_ms(sdpa_bwd, held=True)
             library_call_ms = cuda_ms(sdpa_bwd)
             stages = " ".join(f"{n.rsplit('_', 1)[1]} {t:.4f}" for n, t in per_kernel.items())
+            runs = BWD_PRODUCTS[name]
+            flops = runs * 2 * b * h * d * (t_q * t_k if not causal else
+                                            sum(min(max(i + t_k - t_q + 1, 0), t_k) for i in range(t_q)))
             log(f"{tag}: {', '.join(errs)}; ms {ms:.4f} device_ms {device_ms:.4f} ({stages}) plain_ms "
                 f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}, 5 products) share_of_bound "
-                f"{bound_ms / device_ms:.4f}; SDPA backward device_ms {library_ms:.4f} per call "
-                f"{library_call_ms:.4f}")
+                f"{bound_ms / device_ms:.4f}; runs {runs} {'tensor-core' if itemsize == 2 else 'scalar f32'} "
+                f"products, {flops / device_ms / 1e9:.1f} TFLOP/s over them; SDPA backward device_ms "
+                f"{library_ms:.4f} per call {library_call_ms:.4f}")
             if (b, h, t_q, t_k, d, causal) == BWD_SHAPES[0] and name == "bfloat16":
                 # the JSON line's numbers: the encoder shape in bf16, the whole backward
                 # against its 5-product bound; each kernel's device ms under "parts"

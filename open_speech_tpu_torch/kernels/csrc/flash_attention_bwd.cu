@@ -12,23 +12,24 @@
 // f32.
 //
 // The forward kernel (flash_attention.cu) is left as it is and keeps no
-// log-sum-exp, so the backward recomputes what it needs. Three kernels,
-// one launch each, no atomics (the result does not depend on the order the
-// blocks run in):
-//   0 `flash_bwd_prep`: one block per (b, h, 64 query rows), one pass
-//     over the row's live kv tiles with an online max. lse2 = the row's
-//     log2-sum-exp2 of scale * log2(e) * (q . k) over its visible keys
-//     (+inf for a row with no key, so its probabilities come out 0), and
-//     delta = sum_j P_j dP_j with dP = dO V^T, all in f32. That is
-//     rowsum(dO * O) with O in f32: from the forward's bf16 O, delta's
-//     rounding would not cancel in sum_j dS_j = 0, and dQ = dS K would
-//     carry it times the keys' common component, which is large in a
-//     cross-attention over layer-normed encoder states.
-//   1 `flash_bwd_dkdv`: one block per (b, h, 64 keys), looping over the
-//     query tiles that see any of its keys. With P = exp2(S' - lse2):
+// log-sum-exp: delta = sum_j P_j dP_j needs S and dP in a pass of its own
+// whatever the forward writes, so a forward-side lse would save no
+// product. Three kernels, one launch each, no atomics (the result does not
+// depend on the order the blocks run in):
+//   0 prep: one block per (b, h, 64 query rows), one pass over the row's
+//     live kv tiles with an online max. lse2 = the row's log2-sum-exp2 of
+//     scale * log2(e) * (q . k) over its visible keys (+inf for a row with
+//     no key, so its probabilities come out 0), and delta = sum_j P_j dP_j
+//     with dP = dO V^T, both in f32. That is rowsum(dO * O) with O in f32:
+//     from the forward's bf16 O, delta's rounding would not cancel in
+//     sum_j dS_j = 0, and dQ = dS K would carry it times the keys' common
+//     component, which is large in a cross-attention over layer-normed
+//     encoder states.
+//   1 dkdv: one block per (b, h, 64 keys), looping over the query tiles
+//     that see any of its keys. With P = exp2(S' - lse2):
 //     dV += P^T dO, dP = dO V^T, dS = P * (dP - delta), dK += dS^T Q.
-//   2 `flash_bwd_dq`: one block per (b, h, 64 query rows), looping over
-//     its live kv tiles: dQ += dS K.
+//   2 dq: one block per (b, h, 64 query rows), looping over its live kv
+//     tiles: dQ += dS K.
 //   dQ and dK take the softmax scale at the end. Causal tiles with no
 //   visible pair are skipped in both loops.
 //
@@ -38,14 +39,61 @@
 // against 26.9 MB of q, k, v, dO in and dq, dk, dv out: operations bound it
 // (0.029 ms of tensor-core work vs 0.0080 ms of bytes in bf16).
 //
-// This first version is scalar f32 FMA: no tensor cores, 9 products instead
-// of 5 (S and dP are recomputed in each kernel). Each block is 256
-// threads over a 16 x 16 grid; a thread owns a 4 x 4 micro tile of each
-// [64, 64] score tile (rows ty + 16 i, keys tx + 16 j) and a 4 x D/16 tile
-// of each [64, D] product, so every shared-memory read is a broadcast or
-// one word per bank. Tiles are held in shared memory as f32, rows padded
-// by one word. wgmma and TMA are later work (PERF.md).
+// bf16 (`flash_bwd_{prep,dkdv,dq}_bf16<D>`), built as the forward is.
+//   - A block is one consumer warpgroup over a fixed 64-row pair of tiles
+//     and one producer warp; two blocks share an SM (three in prep). The
+//     producer issues TMA loads (3-D maps over (D, T, B*H), rows past T
+//     zero-filled inside the head): the fixed pair once (Q and dO in prep
+//     and dq, K and V in dkdv), then the streamed pair (K and V, or Q and
+//     dO) 64 rows at a time into a ring of kStages stages with a full and
+//     an empty mbarrier per stage. In dkdv the producer's lanes also stage
+//     the streamed rows' lse2 and delta (+inf and 0 past Tq) and arrive on
+//     the full barrier.
+//   - Every step's two score products have one form: fixed x streamed^T,
+//     S = Q K^T and dP = dO V^T in prep and dq, S^T = K Q^T and
+//     dP^T = V dO^T in dkdv (so dkdv's accumulators already have keys as
+//     rows). Each is wgmma m64nNk16 with both operands K-major in 128B-
+//     (D = 64) or 64B-swizzled (D = 32) shared memory, as TMA wrote them.
+//   - The products that take P or dS, dV += P^T dO, dK += dS^T Q and
+//     dQ += dS K, are wgmma with the register A operand: the f32
+//     accumulator fragment of the scores is the A fragment of the next
+//     product (as P is in the forward), and the streamed tile is the B
+//     operand as stored (MN-major, the transpose bit, which bf16 has).
+//   - Split operand. A plain bf16 P or dS (what FA2/FA3 feed their MMAs)
+//     rounds each probability by up to 2^-9: 1.1e-3 to 3.3e-3 of max|ref|
+//     on the gradients, above the bound this kernel is held to (half a bf16
+//     ulp of the f32 gradient plus 1e-4 of max|ref|). So each of P and dS
+//     goes in as two bf16 fragments, hi = rn(x) and lo = rn(x - hi), and
+//     each such product runs twice, accumulating in f32: the operand is
+//     then exact to about 2^-17 relative, and q, k, v and dO are exact in
+//     bf16 already. 12 products of [64 x 64 x D] per tile pair in all
+//     (prep 2, dkdv 2 + 2 x 2, dq 2 + 2) against the 5 of the bound.
+//   - Each step issues its products, commits and waits before any branch
+//     (a group in flight across a branch makes ptxas serialise every wgmma,
+//     C7520); masks are applied after the wait, and only on the tiles that
+//     need them: the ragged last kv tile and the causal diagonal in prep
+//     and dq (dq masks the ragged tile too: past Tk the zero-filled K gives
+//     P = 2^-lse2, which may overflow, times a zero row), the causal
+//     diagonal in dkdv (there rows past Tk are never stored and columns
+//     past Tq read lse2 = +inf, so P = 0).
+//   - Registers bound the design: two blocks per SM leave 168 a thread,
+//     and dkdv holds dK and dV (2 x D/2 f32) beside the scores and their
+//     splits. So dkdv takes each 64-row query tile in two halves of 32
+//     columns (m64n32 score products), and issues dV's products before it
+//     splits dS^T, so they run while it does. Two blocks per SM overlap
+//     one block's products with the other's exponentials and splits;
+//     prep and dq run one 64 x 64 step at a time.
+//
+// f32 (`flash_bwd_{prep,dkdv,dq}_f32<D>`): scalar f32 FMA, so the result
+// stays f32-exact (tensor cores would round inputs to TF32, and the bf16
+// transpose bit does not exist for tf32). It recomputes S and dP in each
+// kernel (9 products). Each block is 256 threads over a 16 x 16 grid; a
+// thread owns a 4 x 4 micro tile of each [64, 64] score tile (rows
+// ty + 16 i, keys tx + 16 j) and a 4 x D/16 tile of each [64, D] product,
+// so every shared-memory read is a broadcast or one word per bank. Tiles
+// are held in shared memory rows padded by one word.
 
+#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -55,22 +103,8 @@
 
 namespace {
 
-constexpr int kBM = 64;        // query rows per tile
-constexpr int kBN = 64;        // keys per tile
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kR = 4;          // rows (and keys) of a tile per thread: 64 / 16
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+constexpr int kBM = 64;  // query rows per tile
+constexpr int kBN = 64;  // keys per tile
 
 struct BwdArgs {
   const void* q;
@@ -87,9 +121,626 @@ struct BwdArgs {
   float scale_log2;  // scale * log2(e)
 };
 
+// keys [0, end) that some row of the query tile starting at q0 sees
+__device__ __forceinline__ int kv_end(int q0, const BwdArgs& a) {
+  const int last = min(q0 + kBM, a.Tq) - 1;
+  return a.causal ? min(max(last + a.Tk - a.Tq + 1, 0), a.Tk) : a.Tk;
+}
+
+// keys [0, n) that query row r sees
+__device__ __forceinline__ int row_keys(int r, const BwdArgs& a) {
+  return a.causal ? min(max(r + a.Tk - a.Tq + 1, 0), a.Tk) : a.Tk;
+}
+
+// the first query row that sees key k0 (causal), rounded down to its tile
+__device__ __forceinline__ int first_q_tile(int k0, const BwdArgs& a) {
+  return (a.causal ? max(k0 - (a.Tk - a.Tq), 0) : 0) / kBM * kBM;
+}
+
+// ── bf16: wgmma + TMA ───────────────────────────────────────────────────
+
+constexpr int kStages = 2;     // streamed tile pairs in flight
+constexpr int kThreads = 160;  // one consumer warpgroup, one producer warp
+// dkdv works through each 64-row query tile in halves of 32 columns, so
+// that dK, dV, the half's scores and their splits fit the 168 registers
+// of two blocks per SM (10 warps, three on one SM sub-partition); whole
+// 64-column steps need 184-200 and run at one block per SM, or spill
+constexpr int kHalf = 32;
+
+template <int D>
+struct SmemBf16 {  // every tile starts on a 1024-byte boundary (the swizzle's period)
+  __nv_bfloat16 fa[kBM * D];           // fixed: Q (prep, dq) or K (dkdv)
+  __nv_bfloat16 fb[kBM * D];           // fixed: dO or V
+  __nv_bfloat16 sa[kStages][kBN * D];  // streamed: K or Q
+  __nv_bfloat16 sb[kStages][kBN * D];  // streamed: V or dO
+  float lse2[kStages][kBM];            // dkdv: the streamed query rows' lse2 and delta
+  float delta[kStages][kBM];
+  uint64_t full[kStages];   // the pair has landed (TMA transaction bytes; dkdv: + 31 lanes' stats)
+  uint64_t empty[kStages];  // every consumer warp is done with the pair
+  uint64_t fixed_full;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// wait until the barrier's phase `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of the 3-D map at (0, row, slice), completing on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int row,
+                                         int slice) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(row), "r"(slice)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor for a tile of D*2-byte rows written
+// by TMA: start address, leading and stride byte offsets (16-byte units),
+// swizzle 128B (D = 64) or 64B (D = 32). The stride offset is one 8-row
+// group (16*D bytes); the leading offset is unused by these layouts. The
+// same descriptor reads the tile K-major (rows are M or N, D is the k
+// axis) or MN-major (rows are the k axis, D is N).
+template <int D>
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  constexpr uint64_t kSwizzle = D == 64 ? 1 : 2;
+  constexpr uint64_t kLeading = 1, kStride = 16 * D / 16;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | kLeading << 16 | kStride << 32 |
+         kSwizzle << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving accumulator reads or writes across a wgmma
+// issue or wait
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64]: A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64]: A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D[64 x 32] += A[64 x 16] B[16 x 32]: A in registers, B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32]: A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// The split operand of a [64 x 16K] score tile held as accumulator
+// fragments (element i: row g (i%4 < 2) or g + 8, column 8*(i/4) + 2t +
+// i%2): per k-step c of 16 columns, the A fragments of hi = rn(x) and
+// lo = rn(x - hi) (the fragments of columns 16c.. and 16c+8.. are A's two
+// k halves).
+template <int K>
+struct Split {
+  uint32_t hi[K][4];
+  uint32_t lo[K][4];
+};
+
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);  // .x (x0) in the low half
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);  // x - hi is exact in f32
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+template <int K>
+__device__ __forceinline__ void split(const float (&x)[8 * K], Split<K>& out) {
+#pragma unroll
+  for (int c = 0; c < K; ++c)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split_pair(x[8 * c + 2 * r], x[8 * c + 2 * r + 1], out.hi[c][r], out.lo[c][r]);
+}
+
+// acc += X B, X as split A fragments (16 rows of B per k-step), B a tile
+// as stored from b_addr on: D*32 bytes per k-step
+template <int D, int K>
+__device__ __forceinline__ void issue_split(float (&acc)[D / 2], const Split<K>& x, uint32_t b_addr) {
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    const uint64_t b = smem_desc<D>(b_addr + c * 32 * D);
+    if constexpr (D == 64) {
+      wgmma_rs_n64(acc, x.hi[c], b);
+      wgmma_rs_n64(acc, x.lo[c], b);
+    } else {
+      wgmma_rs_n32(acc, x.hi[c], b);
+      wgmma_rs_n32(acc, x.lo[c], b);
+    }
+  }
+}
+
+// s = fa sa^T and dp = fb sb^T over D ([64 x N], f32, N the rows of sa
+// and sb from their addresses on), issued and drained with no branch in
+// between
+template <int D, int N>
+__device__ __forceinline__ void scores(float (&s)[N / 2], float (&dp)[N / 2], uint32_t fa,
+                                       uint32_t fb, uint32_t sa, uint32_t sb) {
+  wgmma_fence();
+#pragma unroll
+  for (int c = 0; c < D / 16; ++c) {
+    if constexpr (N == 64) {
+      wgmma_ss_n64(s, smem_desc<D>(fa + 32 * c), smem_desc<D>(sa + 32 * c), c);
+    } else {
+      wgmma_ss_n32(s, smem_desc<D>(fa + 32 * c), smem_desc<D>(sa + 32 * c), c);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < D / 16; ++c) {
+    if constexpr (N == 64) {
+      wgmma_ss_n64(dp, smem_desc<D>(fb + 32 * c), smem_desc<D>(sb + 32 * c), c);
+    } else {
+      wgmma_ss_n32(dp, smem_desc<D>(fb + 32 * c), smem_desc<D>(sb + 32 * c), c);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  pin(s);
+  pin(dp);
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {  // ex2(-inf) = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// a consumer warp is done with a stage
+__device__ __forceinline__ void release(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty);
+}
+
+// rows r0 + warp*16 + g (+ 8) of a [n, D] bf16 output from accumulator
+// fragments, times mul
+template <int D>
+__device__ __forceinline__ void store_acc(void* dst, const float (&acc)[D / 2], int r_lo, int n,
+                                          int t, float mul) {
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(dst);
+  const int r_hi = r_lo + 8;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (r_lo < n) {
+      *reinterpret_cast<uint32_t*>(out + (size_t)r_lo * D + col) =
+          pack_bf16(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+    }
+    if (r_hi < n) {
+      *reinterpret_cast<uint32_t*>(out + (size_t)r_hi * D + col) =
+          pack_bf16(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ SmemBf16<D>& smem_bf16() {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  return *reinterpret_cast<SmemBf16<D>*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                         ~static_cast<uintptr_t>(1023));
+}
+
+__device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty, uint64_t* fixed_full,
+                                              int full_count) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], full_count);
+      mbar_init(&empty[s], 4);
+    }
+    mbar_init(fixed_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The producer warp: the fixed pair (rows fixed_row) once, then n_steps
+// streamed pairs from row first, 64 rows each. With kStats (dkdv) every lane
+// stages the streamed rows' lse2 and delta (+inf and 0 at or past Tq) and
+// arrives on the stage's full barrier; otherwise lane 0 alone issues.
+template <int D, bool kStats>
+__device__ __forceinline__ void produce(SmemBf16<D>& sm, const CUtensorMap* fa, const CUtensorMap* fb,
+                                        const CUtensorMap* sa, const CUtensorMap* sb, int fixed_row,
+                                        int slice, int first, int n_steps, const BwdArgs& a, int lane) {
+  if (n_steps == 0 || (!kStats && lane != 0)) return;
+  constexpr uint32_t kPairBytes = 2 * kBM * D * 2;
+  if (lane == 0) {
+    mbar_expect_tx(&sm.fixed_full, kPairBytes);
+    tma_load(sm.fa, fa, &sm.fixed_full, fixed_row, slice);
+    tma_load(sm.fb, fb, &sm.fixed_full, fixed_row, slice);
+  }
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = 0; j < n_steps; ++j) {
+    const int row = first + j * kBN;
+    mbar_wait(&sm.empty[stage], phase ^ 1);  // the first round passes at once
+    if (kStats) {
+      const float* lse2 = a.lse2 + (size_t)slice * a.Tq;
+      const float* delta = a.delta + (size_t)slice * a.Tq;
+#pragma unroll
+      for (int h = 0; h < kBM; h += 32) {
+        const int r = row + h + lane;
+        sm.lse2[stage][h + lane] = r < a.Tq ? lse2[r] : INFINITY;
+        sm.delta[stage][h + lane] = r < a.Tq ? delta[r] : 0.f;
+      }
+    }
+    if (lane == 0) {
+      mbar_expect_tx(&sm.full[stage], kPairBytes);
+      tma_load(sm.sa[stage], sa, &sm.full[stage], row, slice);
+      tma_load(sm.sb[stage], sb, &sm.full[stage], row, slice);
+    } else {
+      mbar_arrive(&sm.full[stage]);  // releases this lane's stats
+    }
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+// ── 0: lse2 and delta ────────────────────────────────────────────────────
+
+// three blocks per SM (91 registers, 51 KB of shared memory each at D = 64)
+template <int D>
+__global__ void __launch_bounds__(kThreads, 3)
+flash_bwd_prep_bf16(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+                    const BwdArgs a) {
+  SmemBf16<D>& sm = smem_bf16<D>();
+  const int slice = blockIdx.z * a.H + blockIdx.y;  // (example, head): the maps' third coordinate
+  const int q0 = blockIdx.x * kBM;
+  const int n_steps = (kv_end(q0, a) + kBN - 1) / kBN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  init_barriers(sm.full, sm.empty, &sm.fixed_full, 1);
+  if (warp == 4) {
+    produce<D, false>(sm, &q_map, &do_map, &k_map, &v_map, q0, slice, 0, n_steps, a, lane);
+    return;
+  }
+
+  // this thread's rows r_lo and r_hi of the accumulator fragments
+  const int g = lane / 4, t = lane % 4;
+  const int r_lo = q0 + warp * 16 + g, r_hi = r_lo + 8;
+  // rows past Tq are computed on Q's zero fill and never stored
+  const int n_lo = row_keys(min(r_lo, a.Tq - 1), a), n_hi = row_keys(min(r_hi, a.Tq - 1), a);
+  const int all_see = row_keys(q0, a);  // tiles ending at or below it need no mask
+  // running max (log2 units), sum of 2^(x - m) and sum of 2^(x - m) * dP
+  // over this thread's quarter of each row; the max is the whole row's
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f, u_lo = 0.f, u_hi = 0.f;
+  if (n_steps > 0) mbar_wait(&sm.fixed_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = 0; j < n_steps; ++j) {
+    const int kv0 = j * kBN;
+    mbar_wait(&sm.full[stage], phase);
+    float s[kBN / 2], dp[kBN / 2];
+    scores<D, kBN>(s, dp, smem_u32(sm.fa), smem_u32(sm.fb), smem_u32(sm.sa[stage]), smem_u32(sm.sb[stage]));
+    release(&sm.empty[stage], lane);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) s[i] *= a.scale_log2;
+    if (kv0 + kBN > all_see) {  // ragged tail, causal diagonal
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) {
+        const int key = kv0 + 8 * (i / 4) + 2 * t + (i & 1);
+        s[i] = key < ((i & 2) ? n_hi : n_lo) ? s[i] : -INFINITY;
+      }
+    }
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) {
+      if (i & 2) {
+        mx_hi = fmaxf(mx_hi, s[i]);
+      } else {
+        mx_lo = fmaxf(mx_lo, s[i]);
+      }
+    }
+    // a row is spread over the 4 threads of a quad
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+    mx_lo = fmaxf(m_lo, mx_lo);
+    mx_hi = fmaxf(m_hi, mx_hi);
+    // a row that has seen no key keeps max -inf: exponentiate against 0
+    const float ref_lo = mx_lo == -INFINITY ? 0.f : mx_lo;
+    const float ref_hi = mx_hi == -INFINITY ? 0.f : mx_hi;
+    const float c_lo = exp2_approx(m_lo - ref_lo), c_hi = exp2_approx(m_hi - ref_hi);
+    m_lo = mx_lo;
+    m_hi = mx_hi;
+    l_lo *= c_lo;
+    u_lo *= c_lo;
+    l_hi *= c_hi;
+    u_hi *= c_hi;
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) {
+      const float e = exp2_approx(s[i] - ((i & 2) ? ref_hi : ref_lo));
+      if (i & 2) {
+        l_hi += e;
+        u_hi = fmaf(e, dp[i], u_hi);
+      } else {
+        l_lo += e;
+        u_lo = fmaf(e, dp[i], u_lo);
+      }
+    }
+  }
+  // each thread holds a quarter of its two rows' sums, all against the row's max
+#pragma unroll
+  for (int off = 1; off < 4; off *= 2) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    u_lo += __shfl_xor_sync(0xffffffffu, u_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+    u_hi += __shfl_xor_sync(0xffffffffu, u_hi, off);
+  }
+  if (t == 0) {
+    float* lse2 = a.lse2 + (size_t)slice * a.Tq;
+    float* delta = a.delta + (size_t)slice * a.Tq;
+    if (r_lo < a.Tq) {
+      lse2[r_lo] = l_lo > 0.f ? m_lo + log2f(l_lo) : INFINITY;
+      delta[r_lo] = l_lo > 0.f ? u_lo / l_lo : 0.f;
+    }
+    if (r_hi < a.Tq) {
+      lse2[r_hi] = l_hi > 0.f ? m_hi + log2f(l_hi) : INFINITY;
+      delta[r_hi] = l_hi > 0.f ? u_hi / l_hi : 0.f;
+    }
+  }
+}
+
+// ── 1: dK and dV ─────────────────────────────────────────────────────────
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+                    const BwdArgs a) {
+  SmemBf16<D>& sm = smem_bf16<D>();
+  const int slice = blockIdx.z * a.H + blockIdx.y;
+  const int k0 = blockIdx.x * kBN;
+  const int first = first_q_tile(k0, a);
+  const int n_steps = first < a.Tq ? (a.Tq - first + kBM - 1) / kBM : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  init_barriers(sm.full, sm.empty, &sm.fixed_full, 32);
+  if (warp == 4) {
+    produce<D, true>(sm, &k_map, &v_map, &q_map, &do_map, k0, slice, first, n_steps, a, lane);
+    return;
+  }
+
+  // accumulator rows are keys, columns query rows
+  const int g = lane / 4, t = lane % 4;
+  const int key_lo = k0 + warp * 16 + g, key_hi = key_lo + 8;
+  const int offs = a.Tk - a.Tq;
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  if (n_steps > 0) mbar_wait(&sm.fixed_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = 0; j < n_steps; ++j) {
+    const int q0 = first + j * kBM;
+    mbar_wait(&sm.full[stage], phase);
+    const bool diag = a.causal && k0 + kBN - 1 > q0 + offs;  // the diagonal: key <= q + offs
+#pragma unroll
+    for (int h = 0; h < kBM / kHalf; ++h) {  // query rows kHalf * h.. of the tile
+      const uint32_t q_addr = smem_u32(sm.sa[stage]) + h * kHalf * D * 2;
+      const uint32_t do_addr = smem_u32(sm.sb[stage]) + h * kHalf * D * 2;
+      const float* lse2 = sm.lse2[stage] + h * kHalf;
+      const float* delta = sm.delta[stage] + h * kHalf;
+      float p[kHalf / 2], ds[kHalf / 2];  // S^T, then P^T; dP^T, then dS^T
+      scores<D, kHalf>(p, ds, smem_u32(sm.fa), smem_u32(sm.fb), q_addr, do_addr);
+      // P^T = 2^(S^T * scale_log2 - lse2[q]): columns at or past Tq read
+      // lse2 = +inf, so 0
+#pragma unroll
+      for (int c = 0; c < kHalf / 8; ++c) {
+        const float2 lse = *reinterpret_cast<const float2*>(&lse2[8 * c + 2 * t]);
+        p[4 * c + 0] = exp2_approx(fmaf(p[4 * c + 0], a.scale_log2, -lse.x));
+        p[4 * c + 1] = exp2_approx(fmaf(p[4 * c + 1], a.scale_log2, -lse.y));
+        p[4 * c + 2] = exp2_approx(fmaf(p[4 * c + 2], a.scale_log2, -lse.x));
+        p[4 * c + 3] = exp2_approx(fmaf(p[4 * c + 3], a.scale_log2, -lse.y));
+      }
+      if (diag) {
+#pragma unroll
+        for (int i = 0; i < kHalf / 2; ++i) {
+          const int q = q0 + h * kHalf + 8 * (i / 4) + 2 * t + (i & 1);
+          p[i] = ((i & 2) ? key_hi : key_lo) <= q + offs ? p[i] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kHalf / 8; ++c) {
+        const float2 dl = *reinterpret_cast<const float2*>(&delta[8 * c + 2 * t]);
+        ds[4 * c + 0] = p[4 * c + 0] * (ds[4 * c + 0] - dl.x);
+        ds[4 * c + 1] = p[4 * c + 1] * (ds[4 * c + 1] - dl.y);
+        ds[4 * c + 2] = p[4 * c + 2] * (ds[4 * c + 2] - dl.x);
+        ds[4 * c + 3] = p[4 * c + 3] * (ds[4 * c + 3] - dl.y);
+      }
+      // P^T's split goes to the tensor cores while dS^T's is made
+      Split<kHalf / 16> ps, dss;
+      split(p, ps);
+      wgmma_fence();
+      issue_split<D>(dv, ps, do_addr);  // dV += P^T dO
+      wgmma_commit();
+      split(ds, dss);
+      wgmma_fence();
+      issue_split<D>(dk, dss, q_addr);  // dK += dS^T Q
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(dv);
+      pin(dk);
+    }
+    release(&sm.empty[stage], lane);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  store_acc<D>(static_cast<__nv_bfloat16*>(a.dk) + (size_t)slice * a.Tk * D, dk, key_lo, a.Tk, t, a.scale);
+  store_acc<D>(static_cast<__nv_bfloat16*>(a.dv) + (size_t)slice * a.Tk * D, dv, key_lo, a.Tk, t, 1.f);
+}
+
+// ── 2: dQ ────────────────────────────────────────────────────────────────
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+                  const BwdArgs a) {
+  SmemBf16<D>& sm = smem_bf16<D>();
+  const int slice = blockIdx.z * a.H + blockIdx.y;
+  const int q0 = blockIdx.x * kBM;
+  const int n_steps = (kv_end(q0, a) + kBN - 1) / kBN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  init_barriers(sm.full, sm.empty, &sm.fixed_full, 1);
+  if (warp == 4) {
+    produce<D, false>(sm, &q_map, &do_map, &k_map, &v_map, q0, slice, 0, n_steps, a, lane);
+    return;
+  }
+
+  const int g = lane / 4, t = lane % 4;
+  const int r_lo = q0 + warp * 16 + g, r_hi = r_lo + 8;
+  const int n_lo = row_keys(min(r_lo, a.Tq - 1), a), n_hi = row_keys(min(r_hi, a.Tq - 1), a);
+  const int all_see = row_keys(q0, a);
+  // the rows' stats; rows past Tq: P = 0
+  const float* lse2 = a.lse2 + (size_t)slice * a.Tq;
+  const float* delta = a.delta + (size_t)slice * a.Tq;
+  const float lse_lo = r_lo < a.Tq ? lse2[r_lo] : INFINITY, lse_hi = r_hi < a.Tq ? lse2[r_hi] : INFINITY;
+  const float dl_lo = r_lo < a.Tq ? delta[r_lo] : 0.f, dl_hi = r_hi < a.Tq ? delta[r_hi] : 0.f;
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  if (n_steps > 0) mbar_wait(&sm.fixed_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = 0; j < n_steps; ++j) {
+    const int kv0 = j * kBN;
+    mbar_wait(&sm.full[stage], phase);
+    float p[kBN / 2], ds[kBN / 2];
+    scores<D, kBN>(p, ds, smem_u32(sm.fa), smem_u32(sm.fb), smem_u32(sm.sa[stage]), smem_u32(sm.sb[stage]));
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) p[i] = exp2_approx(fmaf(p[i], a.scale_log2, (i & 2) ? -lse_hi : -lse_lo));
+    if (kv0 + kBN > all_see) {  // ragged tail, causal diagonal
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) {
+        const int key = kv0 + 8 * (i / 4) + 2 * t + (i & 1);
+        p[i] = key < ((i & 2) ? n_hi : n_lo) ? p[i] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) ds[i] = p[i] * (ds[i] - ((i & 2) ? dl_hi : dl_lo));
+    Split<kBN / 16> dss;
+    split(ds, dss);
+    wgmma_fence();
+    issue_split<D>(dq, dss, smem_u32(sm.sa[stage]));  // dQ += dS K
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(dq);
+    release(&sm.empty[stage], lane);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  store_acc<D>(static_cast<__nv_bfloat16*>(a.dq) + (size_t)slice * a.Tq * D, dq, r_lo, a.Tq, t, a.scale);
+}
+
+// ── f32: scalar FMA ──────────────────────────────────────────────────────
+
+constexpr int kThreadsF32 = 256;  // 16 x 16
+constexpr int kR = 4;             // rows (and keys) of a tile per thread: 64 / 16
+
 // the shared memory of the three kernels (the prep pass uses q, dout, k, v)
 template <int D>
-struct Tiles {
+struct TilesF32 {
   float q[kBM][D + 1];
   float dout[kBM][D + 1];
   float k[kBN][D + 1];
@@ -99,13 +750,13 @@ struct Tiles {
   float delta[kBM];
 };
 
-// rows [r0, r0 + 64) of a [n, D] matrix into shared memory as f32; rows at
-// or past n read as zeros
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(float (*dst)[D + 1], const T* src, int r0, int n) {
-  for (int i = threadIdx.x; i < 64 * D; i += kThreads) {
+// rows [r0, r0 + 64) of a [n, D] matrix into shared memory; rows at or past
+// n read as zeros
+template <int D>
+__device__ __forceinline__ void load_rows(float (*dst)[D + 1], const float* src, int r0, int n) {
+  for (int i = threadIdx.x; i < 64 * D; i += kThreadsF32) {
     const int r = i / D, c = i % D;
-    dst[r][c] = r0 + r < n ? to_float(src[(size_t)(r0 + r) * D + c]) : 0.f;
+    dst[r][c] = r0 + r < n ? src[(size_t)(r0 + r) * D + c] : 0.f;
   }
 }
 
@@ -212,8 +863,8 @@ __device__ __forceinline__ void zero(float (&acc)[kR][D / 16]) {
 }
 
 // rows r0 + ty + 16 i (those below n) of a [n, D] output, times mul
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* dst, const float (&acc)[kR][D / 16], int r0, int n,
+template <int D>
+__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[kR][D / 16], int r0, int n,
                                            float mul) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
@@ -221,7 +872,7 @@ __device__ __forceinline__ void store_rows(T* dst, const float (&acc)[kR][D / 16
     const int r = r0 + ty + 16 * i;
     if (r < n) {
 #pragma unroll
-      for (int j = 0; j < D / 16; ++j) dst[(size_t)r * D + tx + 16 * j] = from_float<T>(acc[i][j] * mul);
+      for (int j = 0; j < D / 16; ++j) dst[(size_t)r * D + tx + 16 * j] = acc[i][j] * mul;
     }
   }
 }
@@ -239,29 +890,21 @@ __device__ __forceinline__ float max16(float x) {
   return x;
 }
 
-// keys [0, end) that some row of the query tile starting at q0 sees
-__device__ __forceinline__ int kv_end(int q0, const BwdArgs& a) {
-  const int last = min(q0 + kBM, a.Tq) - 1;
-  return a.causal ? min(max(last + a.Tk - a.Tq + 1, 0), a.Tk) : a.Tk;
-}
-
-// ── 0: lse2 and delta ────────────────────────────────────────────────────
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2) flash_bwd_prep(const BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Tiles<D>& t = *reinterpret_cast<Tiles<D>*>(smem_raw);
+template <int D>
+__global__ void __launch_bounds__(kThreadsF32, 2) flash_bwd_prep_f32(const BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_f32[];
+  TilesF32<D>& t = *reinterpret_cast<TilesF32<D>*>(smem_f32);
 
   const size_t bh = (size_t)blockIdx.z * a.H + blockIdx.y;
-  const T* q = static_cast<const T*>(a.q) + bh * a.Tq * D;
-  const T* k = static_cast<const T*>(a.k) + bh * a.Tk * D;
-  const T* v = static_cast<const T*>(a.v) + bh * a.Tk * D;
-  const T* dout = static_cast<const T*>(a.dout) + bh * a.Tq * D;
+  const float* q = static_cast<const float*>(a.q) + bh * a.Tq * D;
+  const float* k = static_cast<const float*>(a.k) + bh * a.Tk * D;
+  const float* v = static_cast<const float*>(a.v) + bh * a.Tk * D;
+  const float* dout = static_cast<const float*>(a.dout) + bh * a.Tq * D;
   const int q0 = blockIdx.x * kBM;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  load_rows<T, D>(t.q, q, q0, a.Tq);
-  load_rows<T, D>(t.dout, dout, q0, a.Tq);
+  load_rows<D>(t.q, q, q0, a.Tq);
+  load_rows<D>(t.dout, dout, q0, a.Tq);
   // this thread's running max, sum of 2^(x - m) and sum of 2^(x - m) * dP
   // over its keys, per row
   float m[kR], l[kR], u[kR];
@@ -274,8 +917,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_prep(const BwdArgs a) {
   const int end = kv_end(q0, a);
   for (int k0 = 0; k0 < end; k0 += kBN) {
     __syncthreads();  // Q and dO have landed; the previous K, V tiles are consumed
-    load_rows<T, D>(t.k, k, k0, a.Tk);
-    load_rows<T, D>(t.v, v, k0, a.Tk);
+    load_rows<D>(t.k, k, k0, a.Tk);
+    load_rows<D>(t.v, v, k0, a.Tk);
     __syncthreads();
     float s[kR][kR], dp[kR][kR];
     dot_tile<D>(t.q, t.k, s);
@@ -319,34 +962,30 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_prep(const BwdArgs a) {
   }
 }
 
-// ── 1: dK and dV ─────────────────────────────────────────────────────────
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkdv(const BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Tiles<D>& t = *reinterpret_cast<Tiles<D>*>(smem_raw);
+template <int D>
+__global__ void __launch_bounds__(kThreadsF32, 2) flash_bwd_dkdv_f32(const BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_f32[];
+  TilesF32<D>& t = *reinterpret_cast<TilesF32<D>*>(smem_f32);
 
   const size_t bh = (size_t)blockIdx.z * a.H + blockIdx.y;
-  const T* q = static_cast<const T*>(a.q) + bh * a.Tq * D;
-  const T* k = static_cast<const T*>(a.k) + bh * a.Tk * D;
-  const T* v = static_cast<const T*>(a.v) + bh * a.Tk * D;
-  const T* dout = static_cast<const T*>(a.dout) + bh * a.Tq * D;
+  const float* q = static_cast<const float*>(a.q) + bh * a.Tq * D;
+  const float* k = static_cast<const float*>(a.k) + bh * a.Tk * D;
+  const float* v = static_cast<const float*>(a.v) + bh * a.Tk * D;
+  const float* dout = static_cast<const float*>(a.dout) + bh * a.Tq * D;
   const float* lse2 = a.lse2 + bh * a.Tq;
   const float* delta = a.delta + bh * a.Tq;
   const int k0 = blockIdx.x * kBN;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  load_rows<T, D>(t.k, k, k0, a.Tk);
-  load_rows<T, D>(t.v, v, k0, a.Tk);
+  load_rows<D>(t.k, k, k0, a.Tk);
+  load_rows<D>(t.v, v, k0, a.Tk);
   float dk[kR][D / 16], dv[kR][D / 16];
   zero<D>(dk);
   zero<D>(dv);
-  // the first query row that sees key k0 (causal), and its tile
-  const int first = a.causal ? max(k0 - (a.Tk - a.Tq), 0) : 0;
-  for (int q0 = first / kBM * kBM; q0 < a.Tq; q0 += kBM) {
+  for (int q0 = first_q_tile(k0, a); q0 < a.Tq; q0 += kBM) {
     __syncthreads();  // the previous query tile is consumed (and K, V have landed)
-    load_rows<T, D>(t.q, q, q0, a.Tq);
-    load_rows<T, D>(t.dout, dout, q0, a.Tq);
+    load_rows<D>(t.q, q, q0, a.Tq);
+    load_rows<D>(t.dout, dout, q0, a.Tq);
     load_stats(t.lse2, t.delta, lse2, delta, q0, a.Tq);
     __syncthreads();
     float p[kR][kR], dp[kR][kR];
@@ -368,35 +1007,33 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkdv(const BwdArgs a) {
     __syncthreads();
     atb_tile<D>(t.p, t.q, dk);
   }
-  store_rows<T, D>(static_cast<T*>(a.dk) + bh * a.Tk * D, dk, k0, a.Tk, a.scale);
-  store_rows<T, D>(static_cast<T*>(a.dv) + bh * a.Tk * D, dv, k0, a.Tk, 1.f);
+  store_rows<D>(static_cast<float*>(a.dk) + bh * a.Tk * D, dk, k0, a.Tk, a.scale);
+  store_rows<D>(static_cast<float*>(a.dv) + bh * a.Tk * D, dv, k0, a.Tk, 1.f);
 }
 
-// ── 2: dQ ────────────────────────────────────────────────────────────────
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq(const BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Tiles<D>& t = *reinterpret_cast<Tiles<D>*>(smem_raw);
+template <int D>
+__global__ void __launch_bounds__(kThreadsF32, 2) flash_bwd_dq_f32(const BwdArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_f32[];
+  TilesF32<D>& t = *reinterpret_cast<TilesF32<D>*>(smem_f32);
 
   const size_t bh = (size_t)blockIdx.z * a.H + blockIdx.y;
-  const T* q = static_cast<const T*>(a.q) + bh * a.Tq * D;
-  const T* k = static_cast<const T*>(a.k) + bh * a.Tk * D;
-  const T* v = static_cast<const T*>(a.v) + bh * a.Tk * D;
-  const T* dout = static_cast<const T*>(a.dout) + bh * a.Tq * D;
+  const float* q = static_cast<const float*>(a.q) + bh * a.Tq * D;
+  const float* k = static_cast<const float*>(a.k) + bh * a.Tk * D;
+  const float* v = static_cast<const float*>(a.v) + bh * a.Tk * D;
+  const float* dout = static_cast<const float*>(a.dout) + bh * a.Tq * D;
   const int q0 = blockIdx.x * kBM;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 
-  load_rows<T, D>(t.q, q, q0, a.Tq);
-  load_rows<T, D>(t.dout, dout, q0, a.Tq);
+  load_rows<D>(t.q, q, q0, a.Tq);
+  load_rows<D>(t.dout, dout, q0, a.Tq);
   load_stats(t.lse2, t.delta, a.lse2 + bh * a.Tq, a.delta + bh * a.Tq, q0, a.Tq);
   float dq[kR][D / 16];
   zero<D>(dq);
   const int end = kv_end(q0, a);
   for (int k0 = 0; k0 < end; k0 += kBN) {
     __syncthreads();  // the previous kv tile and dS are consumed (and Q, dO have landed)
-    load_rows<T, D>(t.k, k, k0, a.Tk);
-    load_rows<T, D>(t.v, v, k0, a.Tk);
+    load_rows<D>(t.k, k, k0, a.Tk);
+    load_rows<D>(t.v, v, k0, a.Tk);
     __syncthreads();
     float p[kR][kR], dp[kR][kR];
     dot_tile<D>(t.q, t.k, p);
@@ -410,23 +1047,83 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_dq(const BwdArgs a) {
     __syncthreads();
     ab_tile<D>(t.p, t.k, dq);
   }
-  store_rows<T, D>(static_cast<T*>(a.dq) + bh * a.Tq * D, dq, q0, a.Tq, a.scale);
+  store_rows<D>(static_cast<float*>(a.dq) + bh * a.Tq * D, dq, q0, a.Tq, a.scale);
 }
 
 // ── host ────────────────────────────────────────────────────────────────
 
-template <typename T, int D>
-cudaError_t launch(int stage, const BwdArgs& a, int B, cudaStream_t s) {
-  const dim3 rows((a.Tq + kBM - 1) / kBM, a.H, B);
-  const dim3 keys((a.Tk + kBN - 1) / kBN, a.H, B);
-  const auto kernel = stage == 0   ? flash_bwd_prep<T, D>
-                      : stage == 1 ? flash_bwd_dkdv<T, D>
-                                   : flash_bwd_dq<T, D>;
-  constexpr int smem = sizeof(Tiles<D>);  // above the 48 KB of static shared memory
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's entry-point lookup, so the
+// library does not link libcuda
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a [slices, T, D] bf16 tensor in boxes of 64 rows x D, swizzled for
+// wgmma; rows past T read as zeros
+bool encode_map(CUtensorMap* map, const void* base, int D, int T, int slices) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)slices};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};  // bytes
+  const cuuint32_t box[3] = {(cuuint32_t)D, (cuuint32_t)kBM, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
+            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_bf16(int stage, const BwdArgs& a, int B, cudaStream_t s) {
+  CUtensorMap maps[4];
+  const int slices = B * a.H;
+  if (!encode_map(&maps[0], a.q, D, a.Tq, slices) || !encode_map(&maps[1], a.k, D, a.Tk, slices) ||
+      !encode_map(&maps[2], a.v, D, a.Tk, slices) || !encode_map(&maps[3], a.dout, D, a.Tq, slices)) {
+    return cudaErrorInvalidValue;
+  }
+  const auto kernel = stage == 0   ? flash_bwd_prep_bf16<D>
+                      : stage == 1 ? flash_bwd_dkdv_bf16<D>
+                                   : flash_bwd_dq_bf16<D>;
+  constexpr int smem = sizeof(SmemBf16<D>) + 1024;  // + the 1024-byte alignment
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  kernel<<<stage == 1 ? keys : rows, kThreads, smem, s>>>(a);
+  const dim3 grid(stage == 1 ? (a.Tk + kBN - 1) / kBN : (a.Tq + kBM - 1) / kBM, a.H, B);
+  kernel<<<grid, kThreads, smem, s>>>(maps[0], maps[1], maps[2], maps[3], a);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32(int stage, const BwdArgs& a, int B, cudaStream_t s) {
+  const dim3 rows((a.Tq + kBM - 1) / kBM, a.H, B);
+  const dim3 keys((a.Tk + kBN - 1) / kBN, a.H, B);
+  const auto kernel = stage == 0   ? flash_bwd_prep_f32<D>
+                      : stage == 1 ? flash_bwd_dkdv_f32<D>
+                                   : flash_bwd_dq_f32<D>;
+  constexpr int smem = sizeof(TilesF32<D>);  // above the 48 KB of static shared memory
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  kernel<<<stage == 1 ? keys : rows, kThreadsF32, smem, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -450,8 +1147,7 @@ extern "C" int os_flash_attention_bwd(const void* q, const void* k, const void* 
                   scale, scale * 1.4426950408889634f};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    return (int)(D == 64 ? launch<__nv_bfloat16, 64>(stage, a, B, s)
-                         : launch<__nv_bfloat16, 32>(stage, a, B, s));
+    return (int)(D == 64 ? launch_bf16<64>(stage, a, B, s) : launch_bf16<32>(stage, a, B, s));
   }
-  return (int)(D == 64 ? launch<float, 64>(stage, a, B, s) : launch<float, 32>(stage, a, B, s));
+  return (int)(D == 64 ? launch_f32<64>(stage, a, B, s) : launch_f32<32>(stage, a, B, s));
 }

@@ -227,7 +227,9 @@ def test_combine_launches_are_counted(card):
 
 # K1's backward: the turbo encoder's head count at 1500 rows, ragged tiles
 # both ways, causal end-aligned rectangles (Tq > Tk has rows with no key),
-# the decoder's self and cross attention of a training batch, D 32
+# the decoder's self and cross attention of a training batch, D 32; one row
+# and one key; a ragged kv tail under causal Tq < Tk; D 32 at 1500; many
+# heads (B*H = 80 slices of the TMA maps)
 BWD_CASES = [
     (1, 2, 1500, 1500, 64, False),
     (2, 3, 37, 100, 64, True),
@@ -237,15 +239,21 @@ BWD_CASES = [
     (2, 4, 64, 1500, 64, False),
     (1, 2, 60, 60, 32, True),
     (1, 2, 7, 60, 32, False),
+    (1, 2, 1, 1, 64, True),
+    (1, 2, 1, 1, 64, False),
+    (1, 2, 100, 1500, 64, True),
+    (1, 4, 1500, 1500, 32, False),
+    (4, 20, 128, 1500, 64, False),
 ]
 
 
 def _grad_close(got: torch.Tensor, ref: torch.Tensor) -> bool:
     """``got`` against the plain version in f32 on the same inputs. f32:
     within 1e-4 of max(max|ref|, 1) (summation order over up to Tq or Tk
-    terms). bf16: the kernel accumulates in f32 and rounds only its
-    outputs, so within half a bf16 ulp of ref plus 1e-4 of max|ref| (a
-    kernel that rounded P or dS to bf16 inside reads about 1e-3 there)."""
+    terms). bf16: the kernel accumulates in f32, takes P and dS as two
+    bf16 halves each and rounds only its outputs, so within half a bf16 ulp
+    of ref plus 1e-4 of max|ref| (a kernel that rounded P or dS to bf16
+    once reads about 1e-3 there)."""
     err = (got.float() - ref).abs()
     if got.dtype == torch.float32:
         return err.max().item() <= TOL[torch.float32] * max(ref.abs().max().item(), 1.0)
