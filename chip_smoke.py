@@ -218,6 +218,28 @@ Phases, each of which raises on failure (exit code 1, no result line):
      each backward kernel per step; at B = 1 the kernel-routed gradients
      against a plain-routed bf16 step's over all leaves, and each leaf of
      both against a plain-routed f32 step's.
+ 19. scale-out (``parallel/``: the ("data", "model") mesh, tensor-parallel
+     whisper, ``torch.distributed`` launch), in subprocesses of
+     ``tools/torch_tp_phase.py`` so this process never joins a group.
+     19a: two gloo ranks share cuda:0 (NCCL refuses two ranks on one
+     device) on a (1, 2) mesh: whisper-large-v3-turbo at full width and
+     depth (seed-0 weights), 10 heads per rank, against the unsharded
+     model in bf16 and in float32: the encoder of a 30 s window, the
+     prompt's and the first decode step's logits and a streaming block
+     encode (K2 and its combine at 10 heads), as relative L2 beside the
+     unsharded model's own floor (its run on inputs moved by a relative
+     1e-6): bf16 within twice that floor, float32 within 1e-4; 32 K1
+     launches per window at [1,10,1500,1500,64]; ``decode_step`` ms per
+     rank beside the unsharded step, 3 all-reduces per decoder layer and
+     one all-reduce's ms, resident bytes per rank. 19b: ``test-tiny-eot`` in float32 under
+     (1, 2): REST greedy tokens (the backend under ``OS_TPU_MESH``) and the
+     batcher's tokens equal the unsharded run's; test-tiny float32
+     ``train_step`` under (2, 1) and (1, 2) equals one unsharded step on
+     the whole batch (loss within relative 1e-5, gradients within relative
+     L2 1e-5, new values within 1e-5 where the gradient is not within
+     rounding of 0), through K1 and its backward on the card. 19c: one NCCL
+     rank through ``maybe_init_distributed`` with ``OS_TPU_MESH="1,1"``
+     gives phase 4's request a: the same body and K1 launches.
 
 Each phase's seconds, and the whole script's, are printed on lines of
 their own.
@@ -717,6 +739,7 @@ def main() -> int:
     timed("15 (pocket)", phase_pocket)
     train_kernels, train_launches = timed("18 (training)", phase_train)
     kernels += train_kernels
+    phases.append(timed("19 (scale-out)", phase_tp, _REQUEST_A))
     for key, n in train_launches.items():  # 18c's steps: K1 and its backward
         launches[key] = launches.get(key, 0) + n
     for phase in phases:
@@ -744,6 +767,10 @@ MAIN_MODEL = "whisper-large-v3-turbo"
 SR = 16000
 PROMPT = "the quick brown fox jumps over the lazy dog while the band plays on"
 VERBOSE_KEYS = {"task", "language", "duration", "text", "segments"}
+# phase 4's request a: (name, seconds, seed, arguments), and what it gave
+# (phase 19c holds a mesh run to it)
+REQUEST_A = ("a transcribe 5 s json", 5.0, 1, dict(response_format="json"))
+_REQUEST_A: dict = {}
 SEGMENT_KEYS = {"id", "seek", "start", "end", "text", "tokens", "temperature",
                 "avg_logprob", "compression_ratio", "no_speech_prob"}
 
@@ -830,7 +857,7 @@ def phase_main() -> tuple[dict, object, dict]:
         f"{settings.os_stt_batch_windows} included) in {time.perf_counter() - t0:.2f} s")
     cfg = router.get_backend(MAIN_MODEL)._models[MAIN_MODEL]["cfg"]
     requests = [
-        ("a transcribe 5 s json", 5.0, 1, dict(response_format="json")),
+        REQUEST_A,
         ("b transcribe 45 s verbose_json + prompt", 45.0, 2,
          dict(response_format="verbose_json", prompt=PROMPT)),
         ("c translate 10 s srt", 10.0, 3, dict(response_format="srt")),
@@ -859,6 +886,8 @@ def phase_main() -> tuple[dict, object, dict]:
         if prefill <= 0 or prefill % cfg.n_text_layer:
             raise AssertionError(f"{name}: causal prefill launches {prefill}")
         _check_body(name, body, kw["response_format"], seconds)
+        if name == REQUEST_A[0]:
+            _REQUEST_A.update(body=body, k1=n)
     return total, router, rtfx
 
 
@@ -6347,6 +6376,173 @@ def _train_routes(model, cfg, batch) -> None:
         f"{per['plain'][worst['plain'][0]]:.3e}; median leaf kernel "
         f"{sorted(per['kernel'].values())[len(per['kernel']) // 2]:.3e}, plain "
         f"{sorted(per['plain'].values())[len(per['plain']) // 2]:.3e}")
+
+
+# ── phase 19: scale-out ──────────────────────────────────────────────────
+
+# 19a: a model axis of 2 against the whole model, relative L2. bf16 rounds
+# differently where a product's sum is split, and random-weight turbo
+# carries any change of one bf16 rounding to about 1e-2 at its 32nd layer,
+# as a relative 1e-6 move of its input does. So the bf16 run is held to a
+# multiple of the whole model's own floor, measured in the same run on
+# inputs moved by TP_NOISE, and the float32 run to an absolute bound.
+TP_NOISE = 1e-6
+TP_FLOOR_FACTOR = 2.0
+TP_F32_BOUND = 1e-4
+TP_TRAIN_TOL = 1e-5
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _ranks(part: str, n: int, env: dict, timeout: float) -> list[dict]:
+    """Run ``tools/torch_tp_phase.py --part`` as ``n`` rank subprocesses on
+    one port; returns each rank's JSON. Raises if one fails or hangs."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        try:
+            for rank in range(n):
+                out = Path(tmp) / f"rank{rank}.json"
+                procs.append((subprocess.Popen(
+                    [sys.executable, "-u", str(root / "tools" / "torch_tp_phase.py"), "--part", part,
+                     "--rank", str(rank), "--port", str(port), "--out", str(out)],
+                    cwd=root, env={**os.environ, **env}, stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True), out))
+            results = []
+            for proc, out in procs:
+                try:
+                    text, _ = proc.communicate(timeout=timeout)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    text, _ = proc.communicate()
+                    raise AssertionError(f"scale-out {part}: a rank hung:\n{text[-3000:]}")
+                if proc.returncode != 0:
+                    raise AssertionError(f"scale-out {part}: a rank failed:\n{text[-3000:]}")
+                results.append(json.loads(out.read_text()))
+            return results
+        finally:
+            for proc, _ in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+
+
+def _request_a_whole() -> dict:
+    """Phase 4's request a on a fresh turbo router (when phase 4 did not
+    run in this process)."""
+    import torch
+
+    from open_speech_tpu_torch.config import settings
+    from open_speech_tpu_torch.ops import attention as A
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.runtime.router import BackendRouter, transcription_response
+
+    settings.os_stt_batched_longform = True
+    router = BackendRouter()
+    router.load_model(MAIN_MODEL)
+    name, seconds, seed, kw = REQUEST_A
+    A.launches["flash_attention"] = 0
+    body = transcription_response(router, codec.write_wav(_speechlike(seconds, seed), SR),
+                                  model=MAIN_MODEL, **kw)
+    torch.cuda.synchronize()
+    out = {"body": body, "k1": A.launches["flash_attention"]}
+    router.unload_model(MAIN_MODEL)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp(request_a: dict | None = None) -> dict:
+    """19a-c (see the module docstring). ``request_a`` is phase 4's request
+    a ({"body", "k1"}); without it the phase runs it on a router of its
+    own. Returns the ranks' kernel launches."""
+    if not request_a:
+        request_a = _request_a_whole()
+    launches: dict = {}
+    t0 = time.perf_counter()
+    ab = _ranks("ab", 2, {"STT_DEVICE": "cuda", "OS_TPU_MESH": ""}, timeout=400)
+    log(f"scale-out 19a-b: two gloo ranks on cuda:0 in {time.perf_counter() - t0:.1f} s")
+    for r in ab:
+        a = r["19a"]
+        tag = f"scale-out 19a rank {r['rank']}"
+        for dt in ("bf16", "f32"):
+            log(f"{tag} {dt}: relative L2 against the unsharded model (beside its own floor, inputs moved "
+                f"by {TP_NOISE:g}): " + ", ".join(f"{k} {v['tp']:.3e} ({v['floor']:.3e})"
+                                                  for k, v in a[dt].items() if isinstance(v, dict))
+                + f"; first step argmax equal {a[dt]['step_argmax_equal']}")
+        log(f"{tag}: heads per rank (encoder, decoder) {a['heads']}; K1 per window {a['encoder_k1']} at "
+            f"{a['encoder_k1_shapes']} ({a['k1']} with the prefill); streaming block {a['stream_launches']}; "
+            f"decode_step ms {a['tp_step_ms']:.3f}"
+            + (f" (unsharded, alone on the card: {a['whole_step_ms']:.3f})" if "whole_step_ms" in a else "")
+            + f", all-reduces per step {a['all_reduces_per_step']}, one [1,1,1280] f32 all-reduce "
+            f"{a['all_reduce_ms']:.3f} ms, one [1,1500,1280] {a['encoder_all_reduce_ms']:.3f} ms; "
+            f"resident bytes {a['shard_bytes']} of {a['whole_bytes']} "
+            f"({a['shard_bytes'] / a['whole_bytes']:.4f}); peak allocated {a['peak_bytes']}")
+        if a["heads"] != [10, 10] or a["encoder_k1"] != 32 or a["encoder_k1_shapes"] != [
+                [1, 10, 1500, 1500, 64]]:
+            raise AssertionError(f"{tag}: heads {a['heads']}, K1 {a['encoder_k1']} at "
+                                 f"{a['encoder_k1_shapes']}")
+        for key in ("encoder", "prefill", "step", "stream"):
+            bf16, f32 = a["bf16"][key], a["f32"][key]
+            if not (0 < bf16["floor"] and bf16["tp"] <= TP_FLOOR_FACTOR * bf16["floor"]):
+                raise AssertionError(f"{tag} bf16 {key}: {bf16['tp']:.3e} past {TP_FLOOR_FACTOR} x the "
+                                     f"floor {bf16['floor']:.3e}")
+            if not f32["tp"] <= TP_F32_BOUND:
+                raise AssertionError(f"{tag} f32 {key}: relative L2 {f32['tp']:.3e} > {TP_F32_BOUND}")
+        if a["all_reduces_per_step"] != 3 * 4:  # o, cross o and mlp_out of 4 decoder layers
+            raise AssertionError(f"{tag}: {a['all_reduces_per_step']} all-reduces per step")
+        s = a["stream_launches"]
+        if s["flash_attention_varlen"] != 32 * s["block_encodes"] or s["flash_attention_varlen"] == 0:
+            raise AssertionError(f"{tag}: streaming launches {s}")
+        b = r["19b"]
+        tag = f"scale-out 19b rank {r['rank']}"
+        rest, batch = b["rest_tokens"], b["batcher_tokens"]
+        log(f"{tag}: test-tiny-eot f32 under (1, 2): REST greedy tokens per clip "
+            f"{[len(t) for t in rest['1,2']]}, equal to unsharded={rest['1,2'] == rest['whole']}; "
+            f"batcher tokens per window {[len(t) for t in batch['1,2']]}, equal="
+            f"{batch['1,2'] == batch['whole']}")
+        if b["tp_size"] != 2 or rest["1,2"] != rest["whole"] or batch["1,2"] != batch["whole"] or not any(
+                rest["whole"]):
+            raise AssertionError(f"{tag}: rest {rest}, batcher {batch}")
+        for mesh, t in b["train"].items():
+            log(f"{tag}: train_step under ({mesh}): loss {t['loss']:.6f} (unsharded {t['ref_loss']:.6f}), "
+                f"gradients relative L2 {t['grad_rel_l2']:.3e}, new values {t['value_err']:.3e} over "
+                f"{t['leaves']} leaves, flips {t['flips']}")
+            if not (abs(t["loss"] - t["ref_loss"]) <= TP_TRAIN_TOL * abs(t["ref_loss"])
+                    and t["grad_rel_l2"] <= TP_TRAIN_TOL and t["value_err"] <= TP_TRAIN_TOL
+                    and t["flips"] == 0):
+                raise AssertionError(f"{tag}: train_step under ({mesh}) {t}")
+        for key, n in b["train_launches"].items():
+            launches[key] = launches.get(key, 0) + n
+        launches["flash_attention"] = launches.get("flash_attention", 0) + a["k1"]
+        for key in ("flash_attention_varlen", "flash_combine"):
+            launches[key] = launches.get(key, 0) + s[key]
+    t0 = time.perf_counter()
+    (c,) = _ranks("c", 1, {"STT_DEVICE": "cuda", "OS_TPU_MESH": "1,1", "OS_DIST_NUM_PROCESSES": "1",
+                           "OS_DIST_PROCESS_ID": "0", "OS_DIST_COORDINATOR": f"127.0.0.1:{_free_port()}"},
+                  timeout=300)
+    log(f"scale-out 19c: one rank in {time.perf_counter() - t0:.1f} s: joined {c['joined']} "
+        f"({c['backend']}, world {c['world']}), mesh {c['mesh']}, all-reduces {c['all_reduce']}, "
+        f"tp_size {c['tp_size']}; request a K1 {c['k1']} (phase 4: {request_a['k1']}), body equal="
+        f"{c['body'] == request_a['body']}")
+    if not (c["joined"] and c["backend"] == "nccl" and c["world"] == 1 and c["mesh"] == [1, 1]
+            and c["all_reduce"] == [3.0] * 4 and c["tp_size"] == 1):
+        raise AssertionError(f"scale-out 19c: {c}")
+    if c["body"] != request_a["body"] or c["k1"] != request_a["k1"]:
+        raise AssertionError(f"scale-out 19c: request a {c['body']} K1 {c['k1']} against "
+                             f"{request_a}")
+    launches["flash_attention"] = launches.get("flash_attention", 0) + c["k1"]
+    return launches
 
 
 if __name__ == "__main__":

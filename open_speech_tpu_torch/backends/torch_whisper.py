@@ -15,7 +15,10 @@ With ``OS_STT_BATCHED_LONGFORM`` on, uploads longer than two windows decoded
 from temperature 0 take ``models/whisper/batched.py``'s batched path, as in
 the JAX package. With ``OS_SPEC_DRAFT_MODEL`` set, beam-1 requests whose
 first temperature is 0 decode speculatively against that draft, loaded on
-the same device at the same compute type.
+the same device at the same compute type. With ``OS_TPU_MESH`` naming a
+model axis (``"d,m"``, m > 1), each loaded model keeps this rank's
+tensor-parallel shard (``parallel/mesh.py``); every rank of the model group
+must then make the same calls.
 """
 
 from __future__ import annotations
@@ -212,6 +215,7 @@ class TorchWhisperBackend:
             quantize_whisper_params(model)  # the bf16 weights, as JAX packs them
             logger.info("Quantized %s weights to int8 (per-channel): %.3f of the bf16 bytes",
                         model_id, dequant_size_ratio(nbytes, model))
+        model = self._maybe_shard(model)
         self._models[model_id] = {"model": model, "cfg": cfg, "tok": tok}
         now = time.time()
         self._loaded_at[model_id] = now
@@ -221,6 +225,34 @@ class TorchWhisperBackend:
             self._warmup(model_id)
             # the TTL clock starts at readiness, not at weight load
             self._last_used[model_id] = time.time()
+
+    @staticmethod
+    def _maybe_shard(model):
+        """Tensor-parallel shards when ``OS_TPU_MESH`` asks for a model axis
+        (``parallel/mesh.py``), after quantisation so that each int8 scale
+        covers a whole row. A failure is logged and the model served
+        unsharded, as in the JAX package; a model axis of 1 leaves it whole
+        without building a mesh."""
+        spec = (settings.os_tpu_mesh or "").strip()
+        if not spec:
+            return model
+        try:
+            from open_speech_tpu_torch.parallel.mesh import (
+                mesh_from_settings,
+                parse_mesh,
+                shard_model,
+            )
+
+            if parse_mesh(spec)[1] <= 1:
+                return model
+            mesh = mesh_from_settings()
+            shard_model(model, mesh)
+            logger.info("Sharded whisper over mesh %s (tensor parallel)",
+                        dict(zip(mesh.mesh_dim_names, mesh.shape)))
+            return model
+        except Exception:  # noqa: BLE001 — never let TP placement break serving
+            logger.exception("OS_TPU_MESH sharding failed; serving unsharded")
+            return model
 
     def _warmup(self, model_id: str) -> None:
         """Build the CUDA kernels and drive one beam-5 transcribe of 30 s of

@@ -10,7 +10,7 @@ binding, TLS, auth, CORS, rate limits, upload size, preloads), the
 realtime socket, the Wyoming server, model management and its TTL/LRU
 lifecycle, the profiler routes, Pocket's slot-pool batcher, the Studio
 (voice library, profiles, history, conversations, composer) and the TTS
-cache read. ``os_vad_device``
+cache read, and the scale-out mesh (``os_tpu_mesh``). ``os_vad_device``
 (``OS_VAD_DEVICE``, which the JAX package reads from the environment
 directly) names the VAD's device; its default is the STT device. ``stt_device`` defaults to ``cuda``; ``tts_device`` defaults to
 ``stt_device``.
@@ -74,6 +74,9 @@ _DEFAULTS: dict[str, object] = {
     # decode positions per batcher tick (one host sync per tick)
     "os_batch_steps_per_tick": 4,
     "os_batch_max_tokens": 448,
+    # the ("data", "model") mesh as "d,m" ("" = none): the model axis
+    # shards whisper over that many ranks (parallel/mesh.py)
+    "os_tpu_mesh": "",
     # batched long-form REST: chunks of one window, decoded as a batch
     "os_stt_batched_longform": False,
     "os_stt_batch_windows": 16,

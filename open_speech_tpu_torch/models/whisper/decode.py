@@ -192,18 +192,18 @@ def _prefill(
     Returns (all_logits [P, B, V], self_kv).
     """
     dec = model.decoder
-    n_head = cfg.n_text_head
+    dh = cfg.text_head_dim
     b, p = prompt.shape
     x = embed_tokens(dec, prompt) + dec.pos_emb[:p]
     for i, blk in enumerate(dec.blocks):
         hn = layer_norm(x, blk.ln1)
-        q = _split_heads(linear(hn, blk.attn.q), n_head)
-        k = _split_heads(linear(hn, blk.attn.k), n_head)
-        v = _split_heads(linear(hn, blk.attn.v), n_head)
+        q = _split_heads(linear(hn, blk.attn.q), dh)
+        k = _split_heads(linear(hn, blk.attn.k), dh)
+        v = _split_heads(linear(hn, blk.attn.v), dh)
         attn = flash_attention(q, k, v, causal=True)
         x = x + linear(_merge_heads(attn), blk.attn.o)
         hc = layer_norm(x, blk.ln_cross)
-        qc = _split_heads(linear(hc, blk.cross.q), n_head)
+        qc = _split_heads(linear(hc, blk.cross.q), dh)
         ckv = cross_layer(cross_kv, i)
         x = x + linear(_merge_heads(cross_attend(qc, ckv, b, enc_len)), blk.cross.o)
         x = x + mlp(layer_norm(x, blk.ln_mlp), blk)
@@ -272,7 +272,8 @@ def greedy_decode(
         generator = torch.Generator(device=dev).manual_seed(0)
 
     cross_kv = precompute_cross_kv(model, enc_out, cfg)
-    kv = init_self_kv(cfg, b, _cache_len(cfg, p_len, max_new), enc_out.dtype, dev)
+    kv = init_self_kv(cfg, b, _cache_len(cfg, p_len, max_new), enc_out.dtype, dev,
+                      model.text_heads)
     prefill_logits, kv = _prefill(model, prompt_t, cross_kv, kv, cfg, enc_len_t)
     no_speech_prob = _no_speech_prob(prefill_logits, prompt_t, special)
 
@@ -372,7 +373,7 @@ def beam_decode(
 
     cross_kv = precompute_cross_kv(model, enc_out, cfg)
     t_cache = _cache_len(cfg, p_len, max_new)
-    kv_b = init_self_kv(cfg, b, t_cache, enc_out.dtype, dev)
+    kv_b = init_self_kv(cfg, b, t_cache, enc_out.dtype, dev, model.text_heads)
     prefill_logits, kv_b = _prefill(model, prompt_t, cross_kv, kv_b, cfg, enc_len_t)
     kv = kv_b.repeat_interleave(k, dim=2)
     del kv_b
@@ -465,7 +466,7 @@ def detect_language(
     """
     b = enc_out.shape[0]
     cross_kv = precompute_cross_kv(model, enc_out, cfg)
-    self_kv = init_self_kv(cfg, b, 1, enc_out.dtype, enc_out.device)
+    self_kv = init_self_kv(cfg, b, 1, enc_out.dtype, enc_out.device, model.text_heads)
     prompt = torch.full((b, 1), special.sot, dtype=torch.long, device=enc_out.device)
     logits, _ = _prefill(model, prompt, cross_kv, self_kv, cfg)
     lang = logits[-1][:, special.lang_begin : special.lang_begin + special.n_langs]

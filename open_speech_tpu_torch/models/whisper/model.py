@@ -14,6 +14,15 @@ norms and logits. The functions below keep the JAX package's signatures
 and layouts: mel [B, n_mels, T] -> encoder states [B, T, d]; self-KV
 [L, 2, B, H, T_max, Dh]; cross-KV [L, 2, B, H, T_enc, Dh].
 
+Tensor parallelism (``parallel/mesh.py:shard_model``): a sharded model
+holds its model-axis rank's share of the heads and of the MLP's hidden
+units. Its column-parallel linears (q, k, v, mlp_in) give this rank's
+columns; its row-parallel linears (o, mlp_out) give a partial product that
+``linear`` all-reduces over the model group before adding the bias once.
+Heads are split by the head dim, so every function below runs on H / m
+heads per rank, and the caches a caller allocates take ``model.text_heads``
+or ``model.audio_heads`` heads.
+
 int8 compute (``quantize.py``): ``QuantLinear`` and ``QuantEmbedding`` take
 the place of the linears and the token embedding, and the primitives below
 compute from the int8 packs as the JAX package's int8 branches do; the
@@ -57,6 +66,10 @@ class WhisperConfig:
     @property
     def head_dim(self) -> int:
         return self.n_audio_state // self.n_audio_head
+
+    @property
+    def text_head_dim(self) -> int:
+        return self.n_text_state // self.n_text_head
 
 
 # Model catalog (openai/whisper release table; v3 family: 128 mels, 100
@@ -157,6 +170,7 @@ class AudioEncoder(nn.Module):
     def __init__(self, cfg: WhisperConfig, dtype: torch.dtype) -> None:
         super().__init__()
         d = cfg.n_audio_state
+        self.n_head = cfg.n_audio_head
         self.conv1 = nn.Conv1d(cfg.n_mels, d, 3, padding=1, dtype=dtype)
         self.conv2 = nn.Conv1d(d, d, 3, stride=2, padding=1, dtype=dtype)
         self.register_buffer("pos", torch.zeros(cfg.n_audio_ctx, d, dtype=dtype))
@@ -170,6 +184,7 @@ class TextDecoder(nn.Module):
     def __init__(self, cfg: WhisperConfig, dtype: torch.dtype) -> None:
         super().__init__()
         d = cfg.n_text_state
+        self.n_head = cfg.n_text_head
         self.tok_emb = nn.Parameter(torch.zeros(cfg.n_vocab, d, dtype=dtype))
         self.pos_emb = nn.Parameter(torch.zeros(cfg.n_text_ctx, d, dtype=dtype))
         self.blocks = nn.ModuleList(
@@ -183,6 +198,9 @@ class Whisper(nn.Module):
         super().__init__()
         self.encoder = AudioEncoder(cfg, dtype)
         self.decoder = TextDecoder(cfg, dtype)
+        # the model axis this model is sharded over (parallel/mesh.py)
+        self.tp_group = None
+        self.tp_size = 1
 
     @classmethod
     def empty(cls, cfg: WhisperConfig, dtype: torch.dtype, device) -> "Whisper":
@@ -195,6 +213,16 @@ class Whisper(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.decoder.ln.weight.device
+
+    @property
+    def text_heads(self) -> int:
+        """Decoder heads held by this rank (all of them when unsharded)."""
+        return self.decoder.n_head // self.tp_size
+
+    @property
+    def audio_heads(self) -> int:
+        """Encoder heads held by this rank."""
+        return self.encoder.n_head // self.tp_size
 
 
 @torch.no_grad()
@@ -241,12 +269,85 @@ def layer_norm(x: torch.Tensor, ln: LayerNorm) -> torch.Tensor:
     return (out * ln.weight.float() + ln.bias.float()).to(x.dtype)
 
 
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward, all-reduce backward over the model group: the input
+    of a column-parallel linear, whose gradient on each rank covers only
+    that rank's columns."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """All-reduce forward over the model group, identity backward: the
+    partial products of a row-parallel linear."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        x = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _row_parallel(x: torch.Tensor, w: torch.Tensor, group) -> torch.Tensor:
+    """x @ w.T summed over the model group, in float32: each rank holds the
+    product over its share of ``in``. A bf16 product is taken in float32
+    (cuBLAS accumulates in float32 either way) and summed in float32, so
+    the one rounding the caller makes is the unsharded product's, not
+    three (each share's and the sum's). A product that records a graph
+    stays in its dtype: ``mm``'s ``out_dtype`` form has no derivative."""
+    if x.dtype == torch.float32 or (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
+        out = F.linear(x, w)
+    else:
+        x2 = x.reshape(-1, x.shape[-1])
+        out = (torch.mm(x2, w.t(), out_dtype=torch.float32) if x.is_cuda
+               else x2.float() @ w.t().float()).reshape(*x.shape[:-1], w.shape[0])
+    if out.requires_grad:
+        return _ReduceFromModel.apply(out, group)
+    import torch.distributed as dist
+
+    dist.all_reduce(out, group=group)  # a fresh product: reduced in place
+    return out
+
+
 def linear(x: torch.Tensor, lin: nn.Linear | QuantLinear) -> torch.Tensor:
+    # ("col" | "row", group) on a sharded model's linears, absent otherwise
+    tp = lin.__dict__.get("tp")
+    row = tp is not None and tp[0] == "row"
+    if tp is not None and not row and x.requires_grad:
+        x = _CopyToModel.apply(x, tp[1])
     if isinstance(lin, QuantLinear):
         # the scale applies to the product, then the bias: the JAX package's
         # order (folding the scale into the weight rounds otherwise in bf16)
-        out = (x @ lin.q.T.to(x.dtype)) * lin.s.to(x.dtype)
+        if row:
+            out = _row_parallel(x, lin.q.to(x.dtype), tp[1]).to(x.dtype)
+        else:
+            out = x @ lin.q.T.to(x.dtype)
+        out = out * lin.s.to(x.dtype)
         return out if lin.bias is None else out + lin.bias
+    if row:
+        # the bias once, after the sum (added on every rank it would count
+        # m times), in float32 before the rounding, as F.linear adds it
+        out = _row_parallel(x, lin.weight, tp[1])
+        if lin.bias is not None:
+            out = out + lin.bias.float()
+        return out.to(x.dtype)
     return F.linear(x, lin.weight, lin.bias)
 
 
@@ -264,9 +365,11 @@ def output_logits(x: torch.Tensor, dec: TextDecoder) -> torch.Tensor:
     return (x @ emb.T.to(x.dtype)).float()
 
 
-def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
+def _split_heads(x: torch.Tensor, dh: int) -> torch.Tensor:
+    """[B, T, H * dh] -> [B, H, T, dh]: H is every head, or this rank's
+    share of them on a sharded model."""
     b, t, d = x.shape
-    return x.reshape(b, t, n_head, d // n_head).transpose(1, 2).contiguous()
+    return x.reshape(b, t, d // dh, dh).transpose(1, 2).contiguous()
 
 
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
@@ -274,10 +377,10 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, t, h * dh)
 
 
-def self_attention(x, attn: Attention, n_head: int, causal: bool) -> torch.Tensor:
-    q = _split_heads(linear(x, attn.q), n_head)
-    k = _split_heads(linear(x, attn.k), n_head)
-    v = _split_heads(linear(x, attn.v), n_head)
+def self_attention(x, attn: Attention, dh: int, causal: bool) -> torch.Tensor:
+    q = _split_heads(linear(x, attn.q), dh)
+    k = _split_heads(linear(x, attn.k), dh)
+    v = _split_heads(linear(x, attn.v), dh)
     out = flash_attention(q, k, v, causal=causal)
     return linear(_merge_heads(out), attn.o)
 
@@ -314,7 +417,7 @@ def encode(model: Whisper, mel: torch.Tensor, cfg: WhisperConfig) -> torch.Tenso
     x = conv_stem(enc, mel)  # [B, T, d]
     x = x + enc.pos[: x.shape[1]]
     for blk in enc.blocks:
-        x = x + self_attention(layer_norm(x, blk.ln1), blk.attn, cfg.n_audio_head, False)
+        x = x + self_attention(layer_norm(x, blk.ln1), blk.attn, cfg.head_dim, False)
         x = x + mlp(layer_norm(x, blk.ln_mlp), blk)
     return layer_norm(x, enc.ln_post)
 
@@ -330,15 +433,15 @@ def decoder_forward(
     """tokens [B, T] + encoder states -> logits [B, T, vocab] (teacher-forced;
     differentiable, as ``encode``)."""
     dec = model.decoder
-    n_head = cfg.n_text_head
+    dh = cfg.text_head_dim
     t = tokens.shape[1]
     x = embed_tokens(dec, tokens) + dec.pos_emb[:t]
     for blk in dec.blocks:
-        x = x + self_attention(layer_norm(x, blk.ln1), blk.attn, n_head, True)
+        x = x + self_attention(layer_norm(x, blk.ln1), blk.attn, dh, True)
         hc = layer_norm(x, blk.ln_cross)
-        q = _split_heads(linear(hc, blk.cross.q), n_head)
-        k = _split_heads(linear(enc_out, blk.cross.k), n_head)
-        v = _split_heads(linear(enc_out, blk.cross.v), n_head)
+        q = _split_heads(linear(hc, blk.cross.q), dh)
+        k = _split_heads(linear(enc_out, blk.cross.k), dh)
+        v = _split_heads(linear(enc_out, blk.cross.v), dh)
         x = x + linear(_merge_heads(flash_attention(q, k, v)), blk.cross.o)
         x = x + mlp(layer_norm(x, blk.ln_mlp), blk)
     return output_logits(layer_norm(x, dec.ln), dec)
@@ -351,13 +454,13 @@ def decoder_forward(
 
 def init_self_kv(
     cfg: WhisperConfig, batch: int, max_len: int | None = None,
-    dtype=torch.float32, device=None,
+    dtype=torch.float32, device=None, n_head: int | None = None,
 ) -> torch.Tensor:
-    """Zeroed self-attn KV cache: [L, 2, B, H, T_max, Dh]."""
+    """Zeroed self-attn KV cache: [L, 2, B, H, T_max, Dh]; ``n_head`` is
+    the model's ``text_heads`` (all heads by default)."""
     max_len = max_len or cfg.n_text_ctx
-    dh = cfg.n_text_state // cfg.n_text_head
     return torch.zeros(
-        (cfg.n_text_layer, 2, batch, cfg.n_text_head, max_len, dh),
+        (cfg.n_text_layer, 2, batch, n_head or cfg.n_text_head, max_len, cfg.text_head_dim),
         dtype=dtype, device=device,
     )
 
@@ -368,11 +471,11 @@ def precompute_cross_kv_dense(
 ) -> torch.Tensor:
     """Cross-attention K/V for all layers, dense: [L, 2, B, H, T_enc, Dh]
     (the JAX package's ``_precompute_cross_kv_impl``; int8 linears too)."""
-    n_head = cfg.n_text_head
+    dh = cfg.text_head_dim
     return torch.stack([
         torch.stack([
-            _split_heads(linear(enc_out, blk.cross.k), n_head),
-            _split_heads(linear(enc_out, blk.cross.v), n_head),
+            _split_heads(linear(enc_out, blk.cross.k), dh),
+            _split_heads(linear(enc_out, blk.cross.v), dh),
         ])
         for blk in model.decoder.blocks
     ])
@@ -387,11 +490,11 @@ def _precompute_cross_kv_int8(
     T_enc, *]."""
     from open_speech_tpu_torch.models.whisper.quantize import quantize_tensor
 
-    n_head = cfg.n_text_head
+    dh = cfg.text_head_dim
     layers = []
     for blk in model.decoder.blocks:
-        k = quantize_tensor(_split_heads(linear(enc_out, blk.cross.k), n_head), axis=-1)
-        v = quantize_tensor(_split_heads(linear(enc_out, blk.cross.v), n_head), axis=-1)
+        k = quantize_tensor(_split_heads(linear(enc_out, blk.cross.k), dh), axis=-1)
+        v = quantize_tensor(_split_heads(linear(enc_out, blk.cross.v), dh), axis=-1)
         layers.append({"k": k["q"], "k_s": k["s"], "v": v["q"], "v_s": v["s"]})
     return {key: torch.stack([layer[key] for layer in layers]) for key in layers[0]}
 
@@ -462,16 +565,16 @@ def decode_step(
     Returns (logits [B, vocab] float32, self_kv).
     """
     dec = model.decoder
-    n_head = cfg.n_text_head
+    dh = cfg.text_head_dim
     b = tokens.shape[0]
     row = min(pos, dec.pos_emb.shape[0] - 1)
     x = embed_tokens(dec, tokens) + dec.pos_emb[row : row + 1]  # [B, 1, d]
     length = torch.full((b,), pos + 1, dtype=torch.long, device=x.device)
     for i, blk in enumerate(dec.blocks):
         hn = layer_norm(x, blk.ln1)
-        q = _split_heads(linear(hn, blk.attn.q), n_head)
-        self_kv[i, 0, :, :, pos : pos + 1] = _split_heads(linear(hn, blk.attn.k), n_head)
-        self_kv[i, 1, :, :, pos : pos + 1] = _split_heads(linear(hn, blk.attn.v), n_head)
+        q = _split_heads(linear(hn, blk.attn.q), dh)
+        self_kv[i, 0, :, :, pos : pos + 1] = _split_heads(linear(hn, blk.attn.k), dh)
+        self_kv[i, 1, :, :, pos : pos + 1] = _split_heads(linear(hn, blk.attn.v), dh)
         k_cache, v_cache = self_kv[i, 0], self_kv[i, 1]
         if row_map is not None:
             attn = beam_select_attention(q, k_cache, v_cache, row_map, length, beam)
@@ -479,7 +582,7 @@ def decode_step(
             attn = decode_attention(q, k_cache, v_cache, length)
         x = x + linear(_merge_heads(attn), blk.attn.o)
         hc = layer_norm(x, blk.ln_cross)
-        qc = _split_heads(linear(hc, blk.cross.q), n_head)
+        qc = _split_heads(linear(hc, blk.cross.q), dh)
         ckv = cross_layer(cross_kv, i)
         x = x + linear(_merge_heads(cross_attend(qc, ckv, b, enc_len, beam)), blk.cross.o)
         x = x + mlp(layer_norm(x, blk.ln_mlp), blk)

@@ -88,18 +88,18 @@ def _verify_chunk(
     Returns (logits [B, G, V] float32, self_kv).
     """
     dec = model.decoder
-    n_head = cfg.n_text_head
+    dh = cfg.text_head_dim
     b, g = tokens.shape
     x = embed_tokens(dec, tokens) + pos_emb[pos : pos + g]
     for i, blk in enumerate(dec.blocks):
         hn = layer_norm(x, blk.ln1)
-        q = _split_heads(linear(hn, blk.attn.q), n_head)
-        self_kv[i, 0, :, :, pos : pos + g] = _split_heads(linear(hn, blk.attn.k), n_head)
-        self_kv[i, 1, :, :, pos : pos + g] = _split_heads(linear(hn, blk.attn.v), n_head)
+        q = _split_heads(linear(hn, blk.attn.q), dh)
+        self_kv[i, 0, :, :, pos : pos + g] = _split_heads(linear(hn, blk.attn.k), dh)
+        self_kv[i, 1, :, :, pos : pos + g] = _split_heads(linear(hn, blk.attn.v), dh)
         attn = _chunk_attention(q, self_kv[i, 0], self_kv[i, 1], pos)
         x = x + linear(_merge_heads(attn), blk.attn.o)
         hc = layer_norm(x, blk.ln_cross)
-        qc = _split_heads(linear(hc, blk.cross.q), n_head)
+        qc = _split_heads(linear(hc, blk.cross.q), dh)
         ckv = cross_layer(cross_kv, i)
         x = x + linear(_merge_heads(cross_attend(qc, ckv, b)), blk.cross.o)
         x = x + mlp(layer_norm(x, blk.ln_mlp), blk)
@@ -150,8 +150,8 @@ def speculative_greedy_decode(
     # tail may run gamma slots past the budget (dead slots, but their K/V
     # writes must land in the cache)
     cache = -(-(p_len + max_new + g1 + 1) // 64) * 64
-    t_kv = init_self_kv(t_cfg, b, cache, t_enc_out.dtype, dev)
-    d_kv = init_self_kv(d_cfg, b, cache, d_enc_out.dtype, dev)
+    t_kv = init_self_kv(t_cfg, b, cache, t_enc_out.dtype, dev, t_model.text_heads)
+    d_kv = init_self_kv(d_cfg, b, cache, d_enc_out.dtype, dev, d_model.text_heads)
     pe = t_model.decoder.pos_emb
     pad = max(0, p_len + max_new + g1 - pe.shape[0])
     pe_pad = torch.cat([pe, pe.new_zeros((pad, pe.shape[1]))])

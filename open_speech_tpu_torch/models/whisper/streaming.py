@@ -98,7 +98,7 @@ def _encode_block(
     vcache: torch.Tensor,
     enc_buf: torch.Tensor,
     *,
-    n_head: int,
+    dh: int,
     npos: int,
 ) -> None:
     """Encode ``npos`` new positions given the cached prefix, in place.
@@ -117,9 +117,9 @@ def _encode_block(
     lens = torch.full((x.shape[0],), end, dtype=torch.int32, device=x.device)
     for i, blk in enumerate(enc.blocks):
         hn = layer_norm(x, blk.ln1)
-        q = _split_heads(linear(hn, blk.attn.q), n_head)
-        kcache[i, :, :, pos_start:end] = _split_heads(linear(hn, blk.attn.k), n_head)
-        vcache[i, :, :, pos_start:end] = _split_heads(linear(hn, blk.attn.v), n_head)
+        q = _split_heads(linear(hn, blk.attn.q), dh)
+        kcache[i, :, :, pos_start:end] = _split_heads(linear(hn, blk.attn.k), dh)
+        vcache[i, :, :, pos_start:end] = _split_heads(linear(hn, blk.attn.v), dh)
         att = flash_attention(q, kcache[i], vcache[i], causal=False, kv_length=lens)
         x = x + linear(_merge_heads(att), blk.attn.o)
         x = x + mlp(layer_norm(x, blk.ln_mlp), blk)
@@ -143,10 +143,10 @@ class StreamingWhisperEncoder:
         self.model = model
         self.cfg = cfg
         self.block_pos = min(block_pos, cfg.n_audio_ctx)
-        dh = cfg.n_audio_state // cfg.n_audio_head
+        dh = cfg.head_dim
         dtype = model.encoder.conv1.weight.dtype
         dev = model.device
-        shape = (cfg.n_audio_layer, 1, cfg.n_audio_head, cfg.n_audio_ctx, dh)
+        shape = (cfg.n_audio_layer, 1, model.audio_heads, cfg.n_audio_ctx, dh)
         self._kc = torch.zeros(shape, dtype=dtype, device=dev)
         self._vc = torch.zeros(shape, dtype=dtype, device=dev)
         self._enc = torch.zeros((1, cfg.n_audio_ctx, cfg.n_audio_state), dtype=dtype, device=dev)
@@ -207,7 +207,7 @@ class StreamingWhisperEncoder:
         _encode_block(
             self.model, self._mel_segment(p0, self.block_pos), p0,
             self._kc, self._vc, self._enc,
-            n_head=self.cfg.n_audio_head, npos=self.block_pos,
+            dh=self.cfg.head_dim, npos=self.block_pos,
         )
 
     # ── interim state for decoding ────────────────────────────────────

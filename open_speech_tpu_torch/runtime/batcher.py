@@ -20,9 +20,13 @@ written in place, so a tick that the epoch guard discards has already
 written them (harmless: a failed slot's rows are rewritten from position 0
 by its next admission before they are read). All device work of one
 batcher runs on one CUDA stream, and the scheduler loop never lets an
-admission and a tick overlap. The JAX version's ``mesh`` argument (a KV
-pool sharded over a device mesh) belongs to scale-out and has no
-counterpart here.
+admission and a tick overlap.
+
+Under a ``mesh`` (``parallel/mesh.py``) the batcher runs on a model
+sharded over the mesh's model axis (it shards an unsharded one in place),
+and its pools hold this rank's heads, H / m of them, beside its q/k/v
+columns: a tick then needs only the all-reduces of the row-parallel
+linears. Every rank of the model group runs the same admissions and ticks.
 """
 
 from __future__ import annotations
@@ -84,12 +88,12 @@ def _set_result_if_pending(future: asyncio.Future, value) -> None:
 
 def _slot_step_body(
     model: Whisper, tokens: torch.Tensor, pos: torch.Tensor, self_kv: torch.Tensor,
-    cross_kv: torch.Tensor, n_head: int,
+    cross_kv: torch.Tensor, dh: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One decode position for every slot, each at its own position.
 
-    tokens: [S, 1]; pos: [S] (per-slot position); self_kv: [L, 2, S, H, T,
-    Dh], WRITTEN IN PLACE at each slot's position; cross_kv: [L, 2, S, H,
+    tokens: [S, 1]; pos: [S] (per-slot position); dh: the head dim; self_kv:
+    [L, 2, S, H, T, Dh], WRITTEN IN PLACE at each slot's position; cross_kv: [L, 2, S, H,
     T_enc, Dh]. Returns (logits [S, vocab] float32, self_kv). The JAX
     package's ``_slot_decode_step`` is this body under ``jax.jit``; eager
     PyTorch calls the body itself (the prompt feed, and the tick's block).
@@ -104,16 +108,16 @@ def _slot_step_body(
     length = pos + 1
     for i, blk in enumerate(dec.blocks):
         hn = layer_norm(x, blk.ln1)
-        q = _split_heads(linear(hn, blk.attn.q), n_head)
-        k_new = _split_heads(linear(hn, blk.attn.k), n_head)  # [S, H, 1, Dh]
-        v_new = _split_heads(linear(hn, blk.attn.v), n_head)
+        q = _split_heads(linear(hn, blk.attn.q), dh)
+        k_new = _split_heads(linear(hn, blk.attn.k), dh)  # [S, H, 1, Dh]
+        v_new = _split_heads(linear(hn, blk.attn.v), dh)
         # per-slot insertion: one scatter on the T axis for all slots
         self_kv[i, 0, rows, :, at] = k_new[:, :, 0].to(self_kv.dtype)
         self_kv[i, 1, rows, :, at] = v_new[:, :, 0].to(self_kv.dtype)
         attn = decode_attention(q, self_kv[i, 0], self_kv[i, 1], length)
         x = x + linear(_merge_heads(attn), blk.attn.o)
         hc = layer_norm(x, blk.ln_cross)
-        qc = _split_heads(linear(hc, blk.cross.q), n_head)
+        qc = _split_heads(linear(hc, blk.cross.q), dh)
         x = x + linear(_merge_heads(cross_attend(qc, cross_kv[i], s)), blk.cross.o)
         x = x + mlp(layer_norm(x, blk.ln_mlp), blk)
     logits = output_logits(layer_norm(x, dec.ln), dec)
@@ -148,7 +152,7 @@ def _ruled_argmax(
 def _slot_decode_block(
     model, tokens, pos, self_kv, cross_kv,
     last, penult, max_ts, step_idx, active, steps, max_new, suppress,
-    *, n_head, k_steps, special, max_init_tok, blank,
+    *, dh, k_steps, special, max_init_tok, blank,
 ):
     """Advance every slot ``k_steps`` decode positions on the device.
 
@@ -161,7 +165,7 @@ def _slot_decode_block(
     eot = special.eot
     emitted = []
     for _ in range(k_steps):
-        logits, self_kv = _slot_step_body(model, tokens, pos, self_kv, cross_kv, n_head)
+        logits, self_kv = _slot_step_body(model, tokens, pos, self_kv, cross_kv, dh)
         tok = _ruled_argmax(
             logits, step_idx, last, penult, max_ts, suppress, active,
             special=special, max_init_tok=max_init_tok, blank=blank,
@@ -210,7 +214,19 @@ class ContinuousBatcher:
         language: str = "en",
         task: str = "transcribe",
         suppress_tokens: tuple[int, ...] = (),
+        mesh=None,
     ) -> None:
+        if mesh is not None:
+            tp = mesh["model"].size()
+            if cfg.n_text_head % tp:
+                raise ValueError(
+                    f"n_text_head={cfg.n_text_head} not divisible by model-axis size {tp}"
+                )
+            if tp > 1 and model.tp_size == 1:
+                from open_speech_tpu_torch.parallel.mesh import shard_model
+
+                shard_model(model, mesh)
+        self.mesh = mesh
         self.model = model
         self.cfg = cfg
         self.special = special
@@ -229,8 +245,7 @@ class ContinuousBatcher:
         self._cache_len = min(cfg.n_text_ctx, -(-need // 64) * 64)
         self._self_kv = self._zeros_self_kv()
         self._cross_kv = torch.zeros(
-            (cfg.n_text_layer, 2, slots, cfg.n_text_head, cfg.n_audio_ctx,
-             cfg.n_text_state // cfg.n_text_head),
+            (cfg.n_text_layer, 2, slots, model.text_heads, cfg.n_audio_ctx, cfg.text_head_dim),
             dtype=_CACHE_DTYPE, device=self.device,
         )
         self._tokens = np.full((slots,), special.eot, np.int64)
@@ -372,8 +387,8 @@ class ContinuousBatcher:
     def _zeros_self_kv(self) -> torch.Tensor:
         cfg = self.cfg
         return torch.zeros(
-            (cfg.n_text_layer, 2, self.n_slots, cfg.n_text_head, self._cache_len,
-             cfg.n_text_state // cfg.n_text_head),
+            (cfg.n_text_layer, 2, self.n_slots, self.model.text_heads, self._cache_len,
+             cfg.text_head_dim),
             dtype=_CACHE_DTYPE, device=self.device,
         )
 
@@ -474,7 +489,7 @@ class ContinuousBatcher:
                 _slot_step_body(
                     self.model, self._to_device(self._tokens[:, None]),
                     self._to_device(self._pos), self._self_kv, self._cross_kv,
-                    self.cfg.n_text_head,
+                    self.cfg.text_head_dim,
                 )
                 for slot, *_ in batch:
                     self._pos[slot] += 1
@@ -495,7 +510,7 @@ class ContinuousBatcher:
                 self.model, state[0][:, None], state[1], self._self_kv, self._cross_kv,
                 state[2], state[3], state[4], state[5], state[6].bool(), state[7], state[8],
                 self._suppress,
-                n_head=self.cfg.n_text_head,
+                dh=self.cfg.text_head_dim,
                 k_steps=self.steps_per_tick,
                 special=self.special,
                 max_init_tok=self._max_init_tok,

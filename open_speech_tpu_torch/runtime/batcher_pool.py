@@ -27,6 +27,26 @@ _lock_loop: asyncio.AbstractEventLoop | None = None
 _retiring: set[asyncio.Task] = set()  # drain tasks, held until they end
 
 
+def _settings_mesh():
+    """The mesh of ``OS_TPU_MESH`` when it has a model axis, else None.
+
+    The backend shards the model at load (``_maybe_shard``); the batcher
+    takes the same mesh so its pools hold the same heads. A model axis of
+    1 needs no mesh (building one is a collective that independent data
+    replicas must not wait on). An invalid mesh is logged and the batcher
+    runs on the model as loaded, as the backend serves it."""
+    spec = (settings.os_tpu_mesh or "").strip()
+    if not spec:
+        return None
+    try:
+        from open_speech_tpu_torch.parallel.mesh import mesh_from_settings, parse_mesh
+
+        return mesh_from_settings() if parse_mesh(spec)[1] > 1 else None
+    except Exception:  # noqa: BLE001 — serve unsharded, as the backend does
+        logger.exception("OS_TPU_MESH invalid; batcher unsharded")
+        return None
+
+
 def _pool_lock() -> asyncio.Lock:
     """The pool mutex, bound to the *running* loop.
 
@@ -99,16 +119,20 @@ async def get_batcher(
         entry = await asyncio.get_running_loop().run_in_executor(
             None, backend._ensure_model, model_id
         )
-        batcher = ContinuousBatcher(
-            entry["model"],
-            entry["cfg"],
-            entry["tok"].special,
+        kwargs = dict(
             slots=settings.os_batch_max_sessions,
             max_new_tokens=min(224, settings.os_batch_max_tokens),
             language=language or "en",
             task=task,
             suppress_tokens=tuple(entry["tok"].non_speech_tokens),
         )
+        make = getattr(backend, "make_batcher", None)  # a model group's leader
+        if make is not None:
+            batcher = await asyncio.get_running_loop().run_in_executor(
+                None, lambda: make(model_id, **kwargs))
+        else:
+            batcher = ContinuousBatcher(entry["model"], entry["cfg"], entry["tok"].special,
+                                        mesh=_settings_mesh(), **kwargs)
         batcher.start()
         _batchers[key] = batcher
         logger.info(

@@ -33,9 +33,11 @@ from open_speech_tpu_torch.text.formatters import format_transcription
 
 
 class BackendRouter:
-    def __init__(self, device: str | None = None, compute_type: str | None = None) -> None:
+    def __init__(self, device: str | None = None, compute_type: str | None = None,
+                 backend: STTBackend | None = None) -> None:
         self._lock = asyncio.Lock()
-        whisper = TorchWhisperBackend(device=device, compute_type=compute_type)
+        # ``backend``: one made by the caller (a model group's leader)
+        whisper = backend or TorchWhisperBackend(device=device, compute_type=compute_type)
         # every provider name resolves to the same backend instance
         self._backends: dict[str, STTBackend] = {
             "torch-whisper": whisper,

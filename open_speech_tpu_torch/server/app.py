@@ -56,6 +56,14 @@ A transcription with ``diarize=true`` (and ``STT_DIARIZE_ENABLED``) also
 runs the shared diarizer (``diarization.py``) on the preprocessed upload
 and answers ``{"text", "segments"}`` with the words spread over the
 speaker turns, whatever the ``response_format``.
+
+Scale-out (``parallel/``): ``main`` joins the process group that
+``OS_DIST_*`` describes before it builds the app, and ``/api/stats``
+reports this process's replica. Data replicas serve on their own. Under a
+model axis greater than 1 (``OS_TPU_MESH="d,m"``, m > 1) each model
+group's coordinate-0 rank serves and the others follow its model calls
+(``parallel/serving.py``); ``create_app`` refuses such a mesh with
+``ModelAxisServingError`` unless its STT router runs on that leader.
 """
 
 from __future__ import annotations
@@ -581,23 +589,6 @@ async def list_voices(request: Request) -> Response:
 # ── metrics and stats ──────────────────────────────────────────────────
 
 
-def _replica_info() -> dict:
-    """This process's place among replicas, with the JAX route's keys:
-    ``torch.distributed``'s rank and world size (0 and 1 when it is not
-    initialised) and the cards this process sees. Counting the cards
-    creates no CUDA context on the loop's thread."""
-    import torch
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        rank, world = dist.get_rank(), dist.get_world_size()
-    else:
-        rank, world = 0, 1
-    local = torch.cuda.device_count()
-    return {"replica": rank, "replica_count": world,
-            "local_devices": local, "global_devices": local * world}
-
-
 async def metrics_route(request: Request) -> Response:
     metrics.set_gauge("streaming_sessions_active", len(_active_sessions))
     for key, stats in pool_stats().items():
@@ -623,7 +614,9 @@ async def stats_route(request: Request) -> Response:
     snap["batchers"] = pool_stats()
     snap["tts_batchers"] = tts_batcher_stats()
     snap["pocket_batchers"] = pocket_batcher_stats()
-    snap["replica"] = _replica_info()
+    from open_speech_tpu_torch.parallel.distributed import replica_info
+
+    snap["replica"] = replica_info()
     return json_response(snap)
 
 
@@ -1317,8 +1310,34 @@ async def _on_cleanup(app: Application) -> None:
     app["studio_store"].close()
 
 
+class ModelAxisServingError(RuntimeError):
+    """An app asked to serve a model axis without a model group behind it."""
+
+
+def _model_axis() -> int:
+    from open_speech_tpu_torch.parallel.mesh import parse_mesh
+
+    spec = (settings.os_tpu_mesh or "").strip()
+    return parse_mesh(spec)[1] if spec else 1
+
+
+def _refuse_model_axis(stt_router: BackendRouter | None) -> None:
+    from open_speech_tpu_torch.parallel.serving import ModelGroupLeader
+
+    model = _model_axis()
+    if model > 1 and not (stt_router is not None and isinstance(
+            stt_router.get_backend(settings.stt_model), ModelGroupLeader)):
+        raise ModelAxisServingError(
+            f"OS_TPU_MESH={settings.os_tpu_mesh!r} asks for a model axis of {model}: every "
+            "rank of a model group must make each model call, so the app needs the "
+            "group's leader behind its STT router. Start every rank with `python -m "
+            "open_speech_tpu_torch.server` (torchrun and OS_DIST_AUTO=1, or OS_DIST_*)"
+        )
+
+
 def create_app(stt_router: BackendRouter | None = None,
                tts_router: TTSRouter | None = None) -> Application:
+    _refuse_model_axis(stt_router)
     app = Application(
         middlewares=[error_middleware, security_middleware],
         client_max_size=settings.os_max_upload_mb * 1024 * 1024 * 2,
@@ -1426,7 +1445,28 @@ def main() -> None:
         level=logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
-    app = create_app()
+    # a process group before the app (a no-op unless OS_DIST_* is set; see
+    # parallel/distributed.py for the replica topology)
+    from open_speech_tpu_torch.parallel.distributed import maybe_init_distributed
+
+    maybe_init_distributed()
+    leader = None
+    if _model_axis() > 1:
+        from open_speech_tpu_torch.backends.torch_whisper import TorchWhisperBackend
+        from open_speech_tpu_torch.parallel.mesh import mesh_from_settings
+        from open_speech_tpu_torch.parallel.serving import serve_model_axis
+
+        leader = serve_model_axis(TorchWhisperBackend(), mesh_from_settings())
+        if leader is None:
+            return  # a follower, whose leader has stopped
+    try:
+        _serve(create_app(stt_router=BackendRouter(backend=leader) if leader else None))
+    finally:
+        if leader is not None:
+            leader.stop()
+
+
+def _serve(app: Application) -> None:
     ssl_context = None
     if settings.os_ssl_enabled:
         import ssl as _ssl
