@@ -19,13 +19,24 @@ Phases, each of which raises on failure (exit code 1, no result line):
      bound, K2's split count and blocks, and the wrapper's host time per
      call.
      K1 also runs at the batch widths of the batch modes: the encoder at 8
-     and 16 windows and a 16-row prompted prefill.
+     and 16 windows and a 16-row prompted prefill. The float32 routes (every
+     operand split into three bf16 pieces by ``flash_split_f32``, each
+     product six bf16 wgmma piece products): K1 at the encoder and K2 at the
+     streaming block's four lengths (per call, device, plain, SDPA on the
+     same float32 inputs, the CUDA-core and the split-operand bound), the
+     f32 combine and the split against their plain versions.
   4. REST path: whisper-large-v3-turbo (random weights from seed 0, bf16)
      through the port's router with the REST defaults (beam 5, temperature
      fallback), at full width, loaded with ``OS_STT_BATCHED_LONGFORM`` on;
      counts K1 launches per request. The sequential requests are at most
      two windows long; then one 460 s upload (16 chunks, one batch of 16)
      takes the batched long-form path, its RTFx beside the sequential ones.
+  4c. float32 serving: turbo at float32 (seed-0 weights, TF32 off) behind
+     ``BackendRouter(compute_type="float32")``: request a (its body, K1
+     launches = the bf16 request's, all float32), S2's telephony session
+     unpaced (K2 and its combine at float32), one window's encoder through the kernels
+     against the same encoder through ``flash_attention_reference`` (relative
+     L2 within ``F32_ENCODER_TOL``).
   5. streaming path: the same loaded model behind ``/v1/audio/stream``
      sessions (``server/streaming.py:streaming_endpoint``, an in-process
      client socket): S1 29 s of 16 kHz PCM16 paced in real time, language
@@ -72,7 +83,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
      at float32 with the draft ``test-tiny-draft``, gamma 4: card tokens
      equal plain greedy's and the CPU's, through the speculative decode.
      Sp-b: whisper-large-v3 with distil-large-v3 as its draft (random,
-     bf16), one 5 s upload with and without the draft: wall, tokens,
+     bf16), one 1.5 s upload with and without the draft: wall, tokens,
      rounds, accepted, host syncs per round (must be 1), K1 launches, and
      the first bf16 divergence from plain greedy with its top-2 margin.
      Sp-c: the target as its own draft against ``greedy_decode``.
@@ -203,7 +214,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
  18. fine-tuning (``train.py``, ``runtime/checkpoint.py``) through K1's
      backward (``kernels/csrc/flash_attention_bwd.cu``: three kernels, new
      work with no TPU counterpart; bf16 on wgmma with P and dS split into
-     two bf16 operands, 12 tensor-core products; f32 scalar). 18a: the
+     two bf16 operands, 12 tensor-core products; f32 on wgmma with every
+     operand in three bf16 pieces, 54). 18a: the
      backward against ``flash_attention_backward_reference`` at the turbo
      encoder [1,20,1500,1500,64] and the decoder's self [2,20,64,64,64]
      (causal) and cross [2,20,64,1500,64] attention, bf16 (and a bf16-P
@@ -217,7 +229,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
      (walls, peak memory, loss within 2 of log V), 40 K1 forward and 40 of
      each backward kernel per step; at B = 1 the kernel-routed gradients
      against a plain-routed bf16 step's over all leaves, and each leaf of
-     both against a plain-routed f32 step's.
+     both against a plain-routed f32 step's. 18d: the 18c step with float32
+     params (TF32 off): three steps (walls, peak memory), 40 of each float32
+     kernel per step (80 operand splits); at B = 1 its gradients against the
+     plain-routed float32 step's within ``TRAIN_F32_ROUTE_TOL``.
  19. scale-out (``parallel/``: the ("data", "model") mesh, tensor-parallel
      whisper, ``torch.distributed`` launch), in subprocesses of
      ``tools/torch_tp_phase.py`` so this process never joins a group.
@@ -259,6 +274,10 @@ import time
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak (H100 SXM data sheet)
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
+H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core peak
+# float32 on the tensor cores through split operands: three TF32 products
+# per float32 product (3xTF32), the same time as six bf16 products
+H100_SPLIT_F32_FLOPS = H100_TF32_FLOPS / 3
 H100_BYTES_PER_S = 3.35e12
 
 
@@ -369,8 +388,8 @@ def phase_build() -> None:
         kernels = ptxas_kernels(text)
         for k in kernels:
             dyn = ""
-            if t := re.search(r"14flash_fwd_bf16ILi(\d+)E", k["name"]):
-                dyn = f" + dynamic {smem_bytes(int(t.group(1)))} B"
+            if t := re.search(r"14flash_fwd_(bf16|f32)ILi(\d+)E", k["name"]):
+                dyn = f" + dynamic {smem_bytes(int(t.group(2)), int(t.group(1) == 'bf16'))} B"
             log(f"  {stem}: registers {k['registers']:3d} smem {k['smem_bytes']} B{dyn} "
                 f"spills {k['spill_bytes']} B  {k['name']}")
         spilled = [k["name"] for k in kernels if "_bf16" in k["name"] and k["spill_bytes"]]
@@ -407,7 +426,9 @@ def _limit(name: str, ref) -> float:
     """Largest max-abs error a kernel may show against its plain version:
     bf16 relative to the output's own scale (2e-2 of max|ref|, so a dropped
     kv tile or a mis-scaled row fails even where outputs are small), f32
-    absolute (it differs only in summation order)."""
+    absolute (the f32 kernels take each operand as three bf16 pieces and
+    each product as six piece products summed in f32: about 2^-24 of each
+    product's terms, then the sums' rounding in another order)."""
     if name == "bfloat16":
         return TOL[name] * ref.abs().max().item()
     return TOL[name]
@@ -430,10 +451,12 @@ VARLEN_SHAPES = [
 ]
 
 
-def _flash_bound_ms(b, h, t_q, t_k, d, causal, itemsize, lengths=None) -> tuple[float, str]:
+def _flash_bound_ms(b, h, t_q, t_k, d, causal, itemsize, lengths=None, *, split=False) -> tuple[float, str]:
     """Least time for the call: visible (q, k) pairs at the peak rate for
     the dtype vs each input read once and the output written once. With
-    ``lengths`` (K2) only each example's valid kv prefix is read and seen."""
+    ``lengths`` (K2) only each example's valid kv prefix is read and seen.
+    float32 is bounded at the CUDA cores' peak, or with ``split`` at the
+    split-operand tensor-core rate (``H100_SPLIT_F32_FLOPS``)."""
     flops = nbytes = 0
     for n in lengths if lengths is not None else [t_k] * b:
         if causal:
@@ -442,7 +465,7 @@ def _flash_bound_ms(b, h, t_q, t_k, d, causal, itemsize, lengths=None) -> tuple[
             visible = t_q * n
         flops += 4 * h * visible * d
         nbytes += h * (2 * t_q + 2 * n) * d * itemsize + (4 if lengths is not None else 0)
-    peak = H100_BF16_FLOPS if itemsize == 2 else H100_F32_FLOPS
+    peak = H100_BF16_FLOPS if itemsize == 2 else H100_SPLIT_F32_FLOPS if split else H100_F32_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / H100_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -454,7 +477,7 @@ def phase_kernels() -> list[dict]:
     from open_speech_tpu_torch.ops import attention as A
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    worst = 0.0
+    worst = worst_f32 = 0.0
     for b, h, t_q, t_k, d, causal in FLASH_SHAPES:
         for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
             q = torch.randn(b, h, t_q, d, generator=gen, device="cuda").to(dtype)
@@ -476,7 +499,10 @@ def phase_kernels() -> list[dict]:
                 n_zero = t_q - t_k
                 if out[:, :, :n_zero].abs().max().item() != 0.0:
                     raise AssertionError("flash_attention: zero-key rows are not zero")
-            worst = max(worst, err)
+            if name == "float32":
+                worst_f32 = max(worst_f32, err)
+            else:
+                worst = max(worst, err)
             log(f"flash_attention {name:8s} [{b},{h},{t_q},{t_k},{d}] causal={int(causal)} "
                 f"max_abs_err {err:.3e} (tol {limit:.3e})")
 
@@ -502,6 +528,7 @@ def phase_kernels() -> list[dict]:
     log(f"flash_attention bf16 [5,20,3,3,64] causal (a beam-5 prefill): host_us per call "
         f"{med:.2f} median, {least:.2f} least (5 x 1000 calls, no sync)")
     worst = max(worst, _phase_kernels_batched(gen))
+    f32 = _phase_kernels_f32(gen)
     k1 = {
         "name": "flash_attention",
         "route": "cuda",
@@ -515,7 +542,111 @@ def phase_kernels() -> list[dict]:
         "bound_by": bound_by,
         "library_ms": library_ms,
     }
-    return [k1, _phase_kernels_varlen(gen), _phase_kernels_combine(gen)]
+    varlen = _phase_kernels_varlen(gen)
+    f32[0]["max_abs_err"], f32[1]["max_abs_err"] = worst_f32, varlen.pop("max_abs_err_f32")
+    return [k1, varlen, _phase_kernels_combine(gen), *f32]
+
+
+F32_LENGTHS = (128, 256, 700, 1500)  # K2 f32 at the streaming block
+
+
+def _phase_kernels_f32(gen) -> list[dict]:
+    """The float32 routes at the served shapes: K1 at the encoder and K2 at
+    the streaming block's four lengths (per call, device with the queue
+    held, the plain version, SDPA on the same float32 inputs, the CUDA-core
+    and the split bound), the f32 combine and the operand split against
+    their plain versions. Returns their entries of the kernels line (K1's
+    and K2's errors are phase 3's float32 checks)."""
+    import torch
+    import torch.nn.functional as F
+
+    from open_speech_tpu_torch.ops import attention as A
+
+    def bounds(*shape, lengths=None) -> str:
+        ops = [_flash_bound_ms(*shape, 4, lengths, split=split) for split in (False, True)]
+        return (f"bound_ms CUDA cores {ops[0][0]:.4f} ({ops[0][1]}), split operands {ops[1][0]:.4f} "
+                f"({ops[1][1]})")
+
+    b, h, t, d = 1, 20, 1500, 64
+    q, k, v = (torch.randn(b, h, t, d, generator=gen, device="cuda") for _ in range(3))
+    k1 = dict(ms=cuda_ms(lambda: A.flash_attention(q, k, v)),
+              device_ms=cuda_ms(lambda: A.flash_attention(q, k, v), held=True),
+              plain_ms=cuda_ms(lambda: A.flash_attention_reference(q, k, v), iters=5),
+              library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+              library_device_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), held=True))
+    bound_ms, bound_by = _flash_bound_ms(b, h, t, t, d, False, 4, split=True)
+    log(f"flash_attention f32 [1,20,1500,1500,64]: kernel_ms {k1['ms']:.4f} device_ms {k1['device_ms']:.4f} "
+        f"plain_ms {k1['plain_ms']:.4f} library_ms (SDPA) {k1['library_ms']:.4f} device "
+        f"{k1['library_device_ms']:.4f}; {bounds(b, h, t, t, d, False)}; share of the split bound "
+        f"{bound_ms / k1['device_ms']:.4f} (device); blocks {-(-t // A.F32_BLOCK_Q) * h * b} of 128 rows")
+    entries = [{"name": "flash_attention_f32", "route": "cuda",
+                "source": "open_speech_tpu_torch/kernels/csrc/flash_attention.cu",
+                "replaces": "open_speech_tpu/ops/attention.py:256", "launches": 0, "max_abs_err": 0.0,
+                "ms": k1["device_ms"], "plain_ms": k1["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": k1["library_device_ms"]}]
+
+    q2 = torch.randn(b, h, 128, d, generator=gen, device="cuda")
+    splits, per = A.plan_splits(b, h, 128, t, *A.tiles(torch.float32))
+    k2 = {}
+    for n in F32_LENGTHS:
+        lens = torch.tensor([n], dtype=torch.int32, device="cuda")
+        kp, vp = k[:, :, :n], v[:, :, :n]
+        k2[n] = dict(ms=cuda_ms(lambda: A.flash_attention(q2, k, v, kv_length=lens)),
+                     device_ms=cuda_ms(lambda: A.flash_attention(q2, k, v, kv_length=lens), held=True),
+                     plain_ms=cuda_ms(lambda: A.flash_attention_varlen_reference(q2, k, v, lens), iters=5),
+                     library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q2, kp, vp)),
+                     library_device_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q2, kp, vp), held=True))
+        log(f"flash_attention_varlen f32 [1,20,128,1500,64] length {n}: kernel_ms {k2[n]['ms']:.4f} device_ms "
+            f"{k2[n]['device_ms']:.4f} plain_ms {k2[n]['plain_ms']:.4f} library_ms (SDPA on the prefix) "
+            f"{k2[n]['library_ms']:.4f} device {k2[n]['library_device_ms']:.4f}; "
+            f"{bounds(b, h, 128, t, d, False, lengths=[n])}; splits {splits} x {per} tiles of 64 keys, "
+            f"blocks {h * splits} (the split, K2 and the combine)")
+    bound_ms, bound_by = _flash_bound_ms(b, h, 128, t, d, False, 4, [1500], split=True)
+    entries.append({"name": "flash_attention_varlen_f32", "route": "cuda",
+                    "source": "open_speech_tpu_torch/kernels/csrc/flash_attention.cu",
+                    "replaces": "open_speech_tpu/ops/attention.py:271", "launches": 0, "max_abs_err": 0.0,
+                    "ms": k2[1500]["device_ms"], "plain_ms": k2[1500]["plain_ms"], "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": k2[1500]["library_device_ms"]})
+
+    # the combine writing float32, at the f32 plan's partials, one split past the length
+    o_part = torch.randn(b, splits, h, 128, d, generator=gen, device="cuda")
+    m_part = 4 * torch.randn(b, splits, h, 128, generator=gen, device="cuda")
+    l_part = torch.rand(b, splits, h, 128, generator=gen, device="cuda") + 0.5
+    o_part[:, -1], m_part[:, -1], l_part[:, -1] = 0.0, float("-inf"), 0.0
+    out = A.flash_combine(o_part, m_part, l_part, dtype=torch.float32)
+    torch.cuda.synchronize()
+    err = (out - A.flash_combine_reference(o_part, m_part, l_part)).abs().max().item()
+    if not (out.dtype == torch.float32 and err <= TOL["float32"]):
+        raise AssertionError(f"flash_combine f32: {out.dtype} max_abs_err {err:.3e} > {TOL['float32']}")
+    call = lambda: A.flash_combine(o_part, m_part, l_part, dtype=torch.float32)  # noqa: E731
+    comb = dict(ms=cuda_ms(call, held=True),
+                plain_ms=cuda_ms(lambda: A.flash_combine_reference(o_part, m_part, l_part), iters=10))
+    bound_ms = 1e3 * b * h * 128 * ((splits * (d + 2) + d) * 4) / H100_BYTES_PER_S
+    log(f"flash_combine f32 [{b},{splits},{h},128,{d}] max_abs_err {err:.3e} (tol {TOL['float32']:.0e}) device_ms "
+        f"{comb['ms']:.4f} plain_ms {comb['plain_ms']:.4f} bound_ms {bound_ms:.4f} (bytes)")
+    entries.append({"name": "flash_combine_f32", "route": "cuda",
+                    "source": "open_speech_tpu_torch/kernels/csrc/flash_attention.cu",
+                    "replaces": "open_speech_tpu/ops/attention.py:271", "launches": 0, "max_abs_err": err,
+                    "ms": comb["ms"], "plain_ms": comb["plain_ms"], "bound_ms": bound_ms, "bound_by": "bytes",
+                    "library_ms": None})
+
+    # the operand split of q, k, v at the encoder shape: bit-equal to its plain version
+    pieces = A.split_operands(q, k, v)
+    torch.cuda.synchronize()
+    if not all(torch.equal(p, A.split_operands_reference(x)) for p, x in zip(pieces, (q, k, v))):
+        raise AssertionError("flash_split_f32: pieces differ from split_operands_reference")
+    split = dict(ms=cuda_ms(lambda: A.split_operands(q, k, v), held=True),
+                 plain_ms=cuda_ms(lambda: [A.split_operands_reference(x) for x in (q, k, v)], iters=10))
+    bound_ms = 1e3 * 3 * q.numel() * (4 + 6) / H100_BYTES_PER_S
+    log(f"flash_split_f32 q, k, v [1,20,1500,64] -> 3 bf16 pieces each: equal to the plain version; device_ms "
+        f"{split['ms']:.4f} plain_ms {split['plain_ms']:.4f} bound_ms {bound_ms:.4f} (bytes)")
+    entries.append({"name": "flash_split_f32", "route": "cuda",
+                    "source": "open_speech_tpu_torch/kernels/csrc/flash_attention.cu",
+                    "replaces": "none: new, the float32 routes' operand split into bf16 pieces "
+                                "(open_speech_tpu/ops/attention.py:256 and :271 run float32 in Pallas)",
+                    "launches": 0, "max_abs_err": 0.0, "ms": split["ms"], "plain_ms": split["plain_ms"],
+                    "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None})
+    return entries
 
 
 # K1 at the batch modes' widths (bf16): the encoder over 8 and 16 windows
@@ -575,7 +706,7 @@ def _phase_kernels_varlen(gen) -> dict:
 
     from open_speech_tpu_torch.ops import attention as A
 
-    worst = 0.0
+    worst = {"bfloat16": 0.0, "float32": 0.0}
     for b, h, t_q, t_k, d, causal, lens in VARLEN_SHAPES:
         kv_length = torch.tensor(lens, dtype=torch.int32, device="cuda")
         for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
@@ -595,7 +726,7 @@ def _phase_kernels_varlen(gen) -> dict:
             for i, n in enumerate(lens):
                 if n == 0 and out[i].abs().max().item() != 0.0:
                     raise AssertionError(f"{tag}: the length-0 example is not zero")
-            worst = max(worst, err)
+            worst[name] = max(worst[name], err)
             log(f"{tag} max_abs_err {err:.3e} (tol {limit:.3e})")
 
     # times at the streaming block shape, bf16 (the served path), from the
@@ -640,7 +771,8 @@ def _phase_kernels_varlen(gen) -> dict:
         "source": "open_speech_tpu_torch/kernels/csrc/flash_attention.cu",
         "replaces": "open_speech_tpu/ops/attention.py:271",
         "launches": 0,
-        "max_abs_err": worst,
+        "max_abs_err": worst["bfloat16"],
+        "max_abs_err_f32": worst["float32"],
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -716,6 +848,8 @@ def main() -> int:
     streaming = timed("5 (streaming)", phase_streaming, router)
     launches["flash_attention"] += streaming.pop("flash_attention")  # S3's admissions
     launches.update(streaming)
+    for key, n in timed("4c (float32 serving)", phase_f32_serving).items():
+        launches[key] = launches.get(key, 0) + n
     timed("6 (fixture)", phase_fixture)
     from open_speech_tpu_torch.ops import attention as A
 
@@ -889,6 +1023,94 @@ def phase_main() -> tuple[dict, object, dict]:
         if name == REQUEST_A[0]:
             _REQUEST_A.update(body=body, k1=n)
     return total, router, rtfx
+
+
+# ── phase 4c: the float32 serving path at full width ─────────────────────
+
+# 4c: turbo's encoder at float32 through the kernels against the same
+# encoder through flash_attention_reference on the card, relative L2 over
+# one 30 s window. Both run float32 with TF32 off; the attentions differ by
+# the kernels' six-piece products (about 2^-24 of each product's terms) and
+# their sums' order, a few 1e-6 at phase 3's shapes; through 32 layers of
+# random weights a relative 1e-6 move of the input moves this encoder by
+# about as much (19a's float32 floor). 1e-4 is 19a's float32 bound.
+F32_ENCODER_TOL = 1e-4
+
+
+def phase_f32_serving() -> dict:
+    """4c: whisper-large-v3-turbo at float32 (random weights from seed 0,
+    TF32 off) behind ``BackendRouter(compute_type="float32")``, loaded
+    without its warmup: phase 4's request a (its body checked, as many K1
+    launches as the bf16 request, all float32), S2's 6 s telephony session
+    unpaced (K2 and its combine at float32), and one window's encoder through the kernels against the same
+    encoder through ``flash_attention_reference``. Returns the launches of
+    request a and the session."""
+    import torch
+
+    import open_speech_tpu_torch.models.whisper.model as M
+    from open_speech_tpu_torch.config import settings
+    from open_speech_tpu_torch.ops import attention as A
+    from open_speech_tpu_torch.ops import audio as codec
+    from open_speech_tpu_torch.ops.mel import log_mel_spectrogram, pad_or_trim
+    from open_speech_tpu_torch.runtime.router import BackendRouter, transcription_response
+
+    t0 = time.perf_counter()
+    router = BackendRouter(compute_type="float32")
+    warmup, settings.os_precompile_on_load = settings.os_precompile_on_load, False
+    try:
+        router.load_model(MAIN_MODEL)  # random init from seed 0; the kernels are built (phase 2)
+    finally:
+        settings.os_precompile_on_load = warmup
+    torch.cuda.synchronize()
+    entry = router.get_backend(MAIN_MODEL)._models[MAIN_MODEL]
+    model, cfg = entry["model"], entry["cfg"]
+    if next(model.parameters()).dtype != torch.float32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("4c: the float32 router's weights are not float32 or TF32 is on")
+    log(f"f32 4c: loaded {MAIN_MODEL} at float32 (random weights, TF32 off) without warmup in "
+        f"{time.perf_counter() - t0:.2f} s")
+    name, seconds, seed, kw = REQUEST_A
+    for key in A.launches:
+        A.launches[key] = 0  # count this request only
+    t1 = time.perf_counter()
+    body = transcription_response(router, codec.write_wav(_speechlike(seconds, seed), SR), model=MAIN_MODEL, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    _check_body(f"f32 {name}", body, kw["response_format"], seconds)
+    rest = dict(A.launches)
+    log(f"f32 4c {name}: wall_s {wall:.3f} rtfx {seconds / wall:.3f} K1 launches {rest['flash_attention']} "
+        f"(float32 {rest['flash_attention_f32']}; bf16 request a {_REQUEST_A.get('k1')}), operand splits "
+        f"{rest['flash_split_f32']}; body {body}")
+    if rest["flash_attention_f32"] != rest["flash_attention"] or (
+            _REQUEST_A and rest["flash_attention"] != _REQUEST_A["k1"]):
+        raise AssertionError(f"f32 4c {name}: K1 launches {rest} against the bf16 request's {_REQUEST_A.get('k1')}")
+    n_k2, n_combine = _stream_s2(router, pace=False)  # counts the session alone
+    stream = dict(A.launches)
+    log(f"f32 4c S2: K2 launches {n_k2} (float32 {stream['flash_attention_varlen_f32']}), combine {n_combine} "
+        f"(float32 {stream['flash_combine_f32']}), operand splits {stream['flash_split_f32']}")
+    if not (n_k2 > 0 and n_combine > 0 and stream["flash_attention_varlen_f32"] == n_k2
+            and stream["flash_combine_f32"] == n_combine):
+        raise AssertionError(f"f32 4c S2: launches {stream}")
+
+    audio = torch.from_numpy(_speechlike(30.0, 4)).cuda()
+    mel = log_mel_spectrogram(pad_or_trim(audio, cfg.n_audio_ctx * 2 * 160), n_mels=cfg.n_mels)[None]
+    with torch.no_grad():
+        got = M.encode(model, mel, cfg)
+        M.flash_attention = lambda q, k, v, causal=False: A.flash_attention_reference(q, k, v, causal=causal)
+        try:
+            want = M.encode(model, mel, cfg)
+        finally:
+            M.flash_attention = A.flash_attention
+    torch.cuda.synchronize()
+    rel = (torch.linalg.norm(got - want) / torch.linalg.norm(want)).item()
+    log(f"f32 4c encoder of one 30 s window, kernels vs flash_attention_reference on the card: relative L2 "
+        f"{rel:.3e} (bound {F32_ENCODER_TOL:g}), max abs {(got - want).abs().max().item():.3e}, finite "
+        f"{bool(torch.isfinite(got).all())}")
+    if not (torch.isfinite(got).all() and got.shape == want.shape and rel <= F32_ENCODER_TOL):
+        raise AssertionError(f"f32 4c encoder: relative L2 {rel:.3e} > {F32_ENCODER_TOL}")
+    router.unload_model(MAIN_MODEL)
+    del model, entry, router
+    torch.cuda.empty_cache()
+    return {k: rest.get(k, 0) + stream.get(k, 0) for k in rest}
 
 
 # ── phase 4b: batched long-form REST at full width ───────────────────────
@@ -1234,8 +1456,9 @@ def _profile_interim(entry: dict, pcm: bytes, language: str) -> None:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} x  {e.key[:90]}")
 
 
-def _stream_s2(router) -> tuple[int, int]:
-    """6 s of 8 kHz mu-law, paced; language en, VAD on (the default)."""
+def _stream_s2(router, pace: bool = True) -> tuple[int, int]:
+    """6 s of 8 kHz mu-law, paced unless ``pace`` is off; language en, VAD
+    on (the default)."""
     import numpy as np
 
     from open_speech_tpu_torch.ops import attention as A
@@ -1246,7 +1469,7 @@ def _stream_s2(router) -> tuple[int, int]:
     codes = codec.ulaw_encode((audio * 32767).astype(np.int16)).tobytes()
     step = int(8000 * FRAME_S)
     frames = [codes[i : i + step] for i in range(0, len(codes), step)]
-    ws = _ClientWS(frames, pace=True)
+    ws = _ClientWS(frames, pace=pace)
     for key in A.launches:
         A.launches[key] = 0  # count this session only
     asyncio.run(streaming_endpoint(ws, router, model=MAIN_MODEL, language="en",
@@ -1258,7 +1481,7 @@ def _stream_s2(router) -> tuple[int, int]:
         calls = session.vad_state.calls if session.vad_state else None
         raise AssertionError(f"S2: VAD ran {calls} times for {len(frames)} chunks")
     speech = len([e for e in ws.of_type("vad") if e["state"] == "speech_start"])
-    log(f"stream S2 8 kHz mulaw {TELEPHONY_SECONDS} s, VAD on (random weights): "
+    log(f"stream S2 8 kHz mulaw {TELEPHONY_SECONDS} s{'' if pace else ' unpaced'}, VAD on (random weights): "
         f"vad_calls {session.vad_state.calls} speech_starts {speech} "
         f"transcripts {len(ws.of_type('transcript'))} K2 launches {n_k2} combine {n_combine} "
         f"vad_device {session.vad_state.session.device}")
@@ -2425,7 +2648,7 @@ def _spec_full_width() -> None:
     from open_speech_tpu_torch.runtime.router import BackendRouter
 
     settings.os_precompile_on_load = False  # the kernels are built (phase 2)
-    # no warmed budget to round up to: a 5 s upload decodes its own 80
+    # no warmed budget to round up to: a 1.5 s upload decodes its own 32
     # tokens (random weights never emit EOT), not 224
     settings.os_stt_precompile_budgets = ""
     router = BackendRouter()  # cuda, bf16
@@ -2435,7 +2658,7 @@ def _spec_full_width() -> None:
     torch.cuda.synchronize()
     log(f"spec Sp-b: loaded {SPEC_TARGET} (target) and {SPEC_DRAFT} (draft), random, bf16, in "
         f"{time.perf_counter() - t0:.2f} s")
-    wav = codec.write_wav(_speechlike(5.0, 9), SR)
+    wav = codec.write_wav(_speechlike(1.5, 9), SR)
     kw = dict(language="en", beam_size=1, fallback=False, response_format="json")
     runs = {}
     for name in ("plain", "spec", "spec", "plain"):
@@ -6009,8 +6232,10 @@ BWD_SHAPES = [
     (2, 20, 64, 1500, 64, False),
 ]
 # the backward against its plain version, computed in f32 from the same
-# inputs. f32: 1e-4 of max(max|ref|, 1) (summation order only, over up to
-# 1500 terms). bf16: the kernel accumulates in f32, takes P and dS as two
+# inputs. f32: 1e-4 of max(max|ref|, 1) (the kernels take q, k, v, dO, P
+# and dS as three bf16 pieces each and every product as six piece products
+# summed in f32: about 2^-24 of each product's terms, then sums over up to
+# 1500 terms in another order). bf16: the kernel accumulates in f32, takes P and dS as two
 # bf16 halves each (exact to about 2^-17) and rounds only its outputs, so
 # each element may sit up to half a bf16 ulp of its f32 value away; what it
 # adds beyond that half ulp is near f32 noise. The bound holds that
@@ -6019,9 +6244,12 @@ BWD_SHAPES = [
 # MMAs would take them) must read above it, or the bound could not tell a
 # kernel that rounds inside from one that does not.
 BWD_TOL = {"bfloat16": 1e-4, "float32": 1e-4}
-# [Tq x Tk x D] products each route runs (the bound counts 5): bf16 12 on
-# the tensor cores (P and dS each go in as a hi and a lo bf16 operand), f32 9
-BWD_PRODUCTS = {"bfloat16": 12, "float32": 9}
+# [Tq x Tk x D] products each route runs on the tensor cores, in bf16
+# operand products (the bound counts 5 of the dtype's): bf16 12 (P and dS
+# each go in as a hi and a lo bf16 operand); f32 9 float32 products (S and
+# dP in each of the three kernels, then dV, dK, dQ), each six bf16 piece
+# products: 54
+BWD_PRODUCTS = {"bfloat16": 12, "float32": 54}
 TRAIN_SEED = 0  # 18c's weights and batch
 TRAIN_TOKENS = 65  # 18c: 64 teacher-forced positions per example
 TRAIN_STEPS = 4  # 18c's steps at B = 2 (the first pays cuBLAS and allocator warmup; the median of the rest)
@@ -6037,15 +6265,17 @@ TRAIN_ROUTE_TOL = 5e-2
 TRAIN_ROUTE_LEAF_TOL = 5e-2
 
 
-def _bwd_bound_ms(b, h, t_q, t_k, d, causal, itemsize, products, q_like, k_like, stats) -> tuple[float, str]:
+def _bwd_bound_ms(b, h, t_q, t_k, d, causal, itemsize, products, q_like, k_like, stats, *,
+                  split=False) -> tuple[float, str]:
     """Least time of ``products`` [Tq x Tk x D] products over the visible
-    (q, k) pairs at the dense peak for the dtype, or of ``q_like`` [B,H,Tq,D]
-    and ``k_like`` [B,H,Tk,D] tensors read or written once plus ``stats``
-    f32 rows [B,H,Tq]."""
+    (q, k) pairs at the dense peak for the dtype (float32: the CUDA cores',
+    or with ``split`` the split-operand tensor-core rate), or of ``q_like``
+    [B,H,Tq,D] and ``k_like`` [B,H,Tk,D] tensors read or written once plus
+    ``stats`` f32 rows [B,H,Tq]."""
     visible = sum(min(max(i + t_k - t_q + 1, 0), t_k) for i in range(t_q)) if causal else t_q * t_k
     flops = products * 2 * b * h * visible * d
     nbytes = b * h * ((q_like * t_q + k_like * t_k) * d * itemsize + stats * t_q * 4)
-    t_ops = flops / (H100_BF16_FLOPS if itemsize == 2 else H100_F32_FLOPS)
+    t_ops = flops / (H100_BF16_FLOPS if itemsize == 2 else H100_SPLIT_F32_FLOPS if split else H100_F32_FLOPS)
     t_bytes = nbytes / H100_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -6058,13 +6288,13 @@ def _bwd_device_ms(q, k, v, d_out, causal: bool) -> dict[str, float]:
 
     from open_speech_tpu_torch.ops import attention as A
 
-    tensors = (q, k, v, d_out)
+    operands = A.bwd_operands(q, k, v, d_out)  # float32: the pieces, split once
     grads = tuple(torch.empty_like(t) for t in (q, k, v))
     stats = torch.empty(2, *q.shape[:3], dtype=torch.float32, device=q.device)
     scale = q.shape[-1] ** -0.5
 
     def launch(stage: int) -> None:
-        err = A._bwd_stage(stage, tensors, grads, stats, causal, scale)
+        err = A._bwd_stage(stage, operands, grads, stats, causal, scale)
         if err:
             raise RuntimeError(f"train 18a: backward pass {stage}: cudaError {err}")
 
@@ -6105,10 +6335,14 @@ def _bwd_bf16_p_control(q, k, v, d_out, causal: bool):
 
 def phase_train() -> tuple[list[dict], dict]:
     """18: K1's backward (new; no TPU kernel) and the training step.
-    Returns the backward's entry and the launches of 18c's steps."""
+    Returns the backward's entries (bf16, float32) and the launches of
+    18c's and 18d's steps."""
     entries = _train_kernels()
     _train_tiny()
-    return entries, _train_turbo()
+    launches = _train_turbo()
+    for key, n in _train_turbo_f32().items():
+        launches[key] = launches.get(key, 0) + n
+    return entries, launches
 
 
 def _train_kernels() -> list[dict]:
@@ -6121,8 +6355,8 @@ def _train_kernels() -> list[dict]:
     from open_speech_tpu_torch.ops import attention as A
 
     gen = torch.Generator(device="cuda").manual_seed(1818)
-    worst = 0.0
-    entry = None
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    entries = {}
     for b, h, t_q, t_k, d, causal in BWD_SHAPES:
         for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
             q = torch.randn(b, h, t_q, d, generator=gen, device="cuda").to(dtype)
@@ -6137,7 +6371,7 @@ def _train_kernels() -> list[dict]:
             errs = []
             for i, (grad, g, ref) in enumerate(zip("qkv", got, want)):
                 err = (g.float() - ref).abs().max().item()
-                worst = max(worst, err)
+                worst[name] = max(worst[name], err)
                 if not (g.shape == ref.shape and g.dtype == dtype):
                     raise AssertionError(f"{tag} d{grad}: {tuple(g.shape)} {g.dtype}")
                 if name == "float32":
@@ -6162,7 +6396,10 @@ def _train_kernels() -> list[dict]:
             plain_ms = cuda_ms(lambda: A.flash_attention_backward_reference(q, k, v, d_out, causal=causal),
                                iters=3, warmup=1)
             per_kernel = _bwd_device_ms(q, k, v, d_out, causal)
-            bound_ms, bound_by = _bwd_bound_ms(b, h, t_q, t_k, d, causal, itemsize, 5, 3, 4, 0)
+            bound_ms, bound_by = _bwd_bound_ms(b, h, t_q, t_k, d, causal, itemsize, 5, 3, 4, 0,
+                                               split=itemsize == 4)
+            core = ("" if itemsize == 2 else "; CUDA-core bound_ms %.4f (%s)" %
+                    _bwd_bound_ms(b, h, t_q, t_k, d, causal, itemsize, 5, 3, 4, 0))
             # SDPA's backward alone: autograd of one forward, replayed (the graph kept)
             qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
             o_sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)  # Tq = Tk where causal
@@ -6174,15 +6411,16 @@ def _train_kernels() -> list[dict]:
             flops = runs * 2 * b * h * d * (t_q * t_k if not causal else
                                             sum(min(max(i + t_k - t_q + 1, 0), t_k) for i in range(t_q)))
             log(f"{tag}: {', '.join(errs)}; ms {ms:.4f} device_ms {device_ms:.4f} ({stages}) plain_ms "
-                f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}, 5 products) share_of_bound "
-                f"{bound_ms / device_ms:.4f}; runs {runs} {'tensor-core' if itemsize == 2 else 'scalar f32'} "
-                f"products, {flops / device_ms / 1e9:.1f} TFLOP/s over them; SDPA backward device_ms "
+                f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}, 5 products{', split operands' * (itemsize == 4)})"
+                f"{core} share_of_bound {bound_ms / device_ms:.4f}; runs {runs} bf16 tensor-core products, "
+                f"{flops / device_ms / 1e9:.1f} TFLOP/s over them; SDPA backward device_ms "
                 f"{library_ms:.4f} per call {library_call_ms:.4f}")
-            if (b, h, t_q, t_k, d, causal) == BWD_SHAPES[0] and name == "bfloat16":
-                # the JSON line's numbers: the encoder shape in bf16, the whole backward
+            if (b, h, t_q, t_k, d, causal) == BWD_SHAPES[0]:
+                # the JSON line's numbers: the encoder shape, the whole backward
                 # against its 5-product bound; each kernel's device ms under "parts"
-                entry = {
-                    "name": "flash_attention_bwd",
+                suffix = "" if name == "bfloat16" else A.F32_SUFFIX
+                entries[name] = {
+                    "name": "flash_attention_bwd" + suffix,
                     "route": "cuda",
                     "source": "open_speech_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
                     "replaces": "none: new, K1's gradient (jax.grad differentiates "
@@ -6194,11 +6432,12 @@ def _train_kernels() -> list[dict]:
                     "bound_ms": bound_ms,
                     "bound_by": bound_by,
                     "library_ms": library_ms,
-                    "parts": [{"name": n, "launches": 0, "ms": t} for n, t in per_kernel.items()],
+                    "parts": [{"name": n + suffix, "launches": 0, "ms": t} for n, t in per_kernel.items()],
                 }
             del qs, ks, vs, o_sdpa, got, want, control
-    entry["max_abs_err"] = worst
-    return [entry]
+    for name, entry in entries.items():
+        entry["max_abs_err"] = worst[name]
+    return list(entries.values())
 
 
 def _train_batch(cfg, b: int, seed: int, device: str) -> dict:
@@ -6295,7 +6534,7 @@ def _train_turbo() -> dict:
         walls.append(time.perf_counter() - t1)
     launches = dict(A.launches)
     peak = torch.cuda.max_memory_allocated()
-    want = {"flash_attention": per_step * TRAIN_STEPS, "flash_attention_varlen": 0, "flash_combine": 0,
+    want = {**dict.fromkeys(A.launches, 0), "flash_attention": per_step * TRAIN_STEPS,
             **{name: per_step * TRAIN_STEPS for name in A.BWD_STAGES}}
     if launches != want:
         raise AssertionError(f"train 18c: launches {launches}, want {want}")
@@ -6376,6 +6615,96 @@ def _train_routes(model, cfg, batch) -> None:
         f"{per['plain'][worst['plain'][0]]:.3e}; median leaf kernel "
         f"{sorted(per['kernel'].values())[len(per['kernel']) // 2]:.3e}, plain "
         f"{sorted(per['plain'].values())[len(per['plain']) // 2]:.3e}")
+
+
+# 18d: the float32 step's gradients through the kernels against the same
+# step with the plain attention (autograd of flash_attention_reference) on
+# the card, relative L2 over all leaves. Both run float32 with TF32 off; the
+# kernels' forward and backward differ from the plain ones by their six-
+# piece products and sums' order (18a: about 1e-5 of max(max|ref|, 1) at
+# the encoder shape); through 36 layers of random weights the gradients
+# move by about as much. 1e-4 is the float32 gates' bound.
+TRAIN_F32_ROUTE_TOL = 1e-4
+TRAIN_F32_STEPS = 3  # 18d's steps at B = 2 (the median of the last two)
+
+
+def _train_turbo_f32() -> dict:
+    """18d: 18c's step with float32 params (TF32 off): every attention runs
+    the float32 K1 and its three backward kernels (40 of each per step) and
+    the operand split before each (80 per step). Walls, peak memory; then
+    at B = 1 the kernel-routed gradients against the plain-routed step's.
+    Returns the launches of the B = 2 steps."""
+    import math
+    import statistics
+
+    import torch
+
+    import open_speech_tpu_torch.models.whisper.model as M
+    from open_speech_tpu_torch import train as T
+    from open_speech_tpu_torch.ops import attention as A
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = M.PRESETS["large-v3-turbo"]
+    model = M.init_params(torch.Generator(device="cuda").manual_seed(TRAIN_SEED), cfg, torch.float32, "cuda")
+    opt = T.make_optimizer(model)
+    batch = _train_batch(cfg, 2, TRAIN_SEED, "cuda")
+    per_step = cfg.n_audio_layer + 2 * cfg.n_text_layer
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for key in A.launches:
+        A.launches[key] = 0
+    walls, losses = [], []
+    for _ in range(TRAIN_F32_STEPS):
+        t1 = time.perf_counter()
+        losses.append(T.train_step(model, opt, batch, cfg).item())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    launches = dict(A.launches)
+    peak = torch.cuda.max_memory_allocated()
+    n = per_step * TRAIN_F32_STEPS
+    want = {**dict.fromkeys(A.launches, 0), "flash_attention": n, "flash_attention_f32": n,
+            "flash_split_f32": 2 * n, **{k: n for k in A.BWD_STAGES}, **{k + A.F32_SUFFIX: n for k in A.BWD_STAGES}}
+    if launches != want:
+        raise AssertionError(f"train 18d: launches {launches}, want {want}")
+    if not all(math.isfinite(x) and abs(x - math.log(cfg.n_vocab)) < 2 for x in losses):
+        raise AssertionError(f"train 18d: losses {losses} vs log V {math.log(cfg.n_vocab):.4f}")
+    steady = statistics.median(walls[1:])
+    log(f"train 18d whisper-large-v3-turbo float32 (TF32 off, random weights from seed {TRAIN_SEED}), AdamW, "
+        f"batch 2 x 30 s mel + {TRAIN_TOKENS} tokens: step walls s {[round(w, 4) for w in walls]}; losses "
+        f"{[round(x, 4) for x in losses]}; steady step (median after the first) {steady:.4f} s: "
+        f"{2 * (TRAIN_TOKENS - 1) / steady:.1f} target tokens/s; max_memory_allocated {peak / 2**30:.3f} GiB; "
+        f"launches per step: K1 f32 {per_step}, backward prep/dkdv/dq f32 {per_step} each, operand splits "
+        f"{2 * per_step}")
+    del opt
+    one = {k: v[:1] for k, v in batch.items()}
+    grads = {}
+    for route in ("kernel", "plain"):
+        model.zero_grad(set_to_none=True)
+        model.encoder.pos.grad = None
+        leaves = {**dict(model.named_parameters()), "encoder.pos": model.encoder.pos}
+        if route == "plain":
+            M.flash_attention = lambda q, k, v, causal=False: A.flash_attention_reference(q, k, v, causal=causal)
+        try:
+            T.loss_fn(model, one, cfg).backward()
+        finally:
+            M.flash_attention = A.flash_attention
+        grads[route] = _grads(leaves)
+        torch.cuda.synchronize()
+    flat = {r: torch.cat([g.flatten() for g in grads[r].values()]) for r in grads}
+    rel = (torch.linalg.norm(flat["kernel"] - flat["plain"]) / torch.linalg.norm(flat["plain"])).item()
+    per = {n: (torch.linalg.norm(grads["kernel"][n] - grads["plain"][n])
+               / torch.linalg.norm(grads["plain"][n]).clamp_min(1e-30)).item() for n in grads["plain"]}
+    worst = max(per, key=per.get)
+    log(f"train 18d B=1 float32 kernel-routed vs plain-routed gradients: relative L2 over all "
+        f"{flat['kernel'].numel()} values {rel:.3e} (bound {TRAIN_F32_ROUTE_TOL:g}); worst leaf {worst} "
+        f"{per[worst]:.3e}, median leaf {sorted(per.values())[len(per) // 2]:.3e}")
+    if not rel <= TRAIN_F32_ROUTE_TOL:
+        raise AssertionError(f"train 18d B=1: kernel vs plain gradients relative L2 {rel:.3e} > {TRAIN_F32_ROUTE_TOL}")
+    del model, grads, flat
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ── phase 19: scale-out ──────────────────────────────────────────────────

@@ -60,11 +60,27 @@
 //   - K1 runs without splits: at the encoder shape its 24 x 20 = 480 blocks
 //     fill the 132 SMs, two at a time, in 1.82 waves.
 
-// f32: `flash_fwd_f32`, scalar FMAs so the result stays f32-exact (tensor
-// cores would round inputs to TF32). One thread owns one query row, with q
-// and the accumulator in registers; K/V tiles of 32 keys are read from
-// shared memory as float4 broadcasts. Grid (ceil(Tq/64), H, B), the kv loop
-// cut at the causal bound and the length, no splits.
+// f32 (K1 and K2 at float32), `flash_fwd_f32<D, kVarlen>`: the same design
+// on the tensor cores through split operands.
+//   - `split_f32` first writes each f32 input as three bf16 pieces, hi =
+//     rn(x), mid = rn(x - hi), lo = rn(x - hi - mid) (x to within 2^-27
+//     |x|), in planes the kernel's TMA maps read like bf16 tensors (so the
+//     128-byte swizzle of a D = 64 row stays one box); P is split the same
+//     way in registers. Each f32 product runs as six bf16 wgmma piece
+//     products (hl, lh, mm, hm, mh, hh: smallest first), accumulated in f32:
+//     about 2^-24 of each product's terms, where a TF32 rounding of the
+//     inputs would leave 2^-11 (tests/test_torch_attention.py models it).
+//   - Its bound at the whisper encoder [1,20,1500,1500,64]: six bf16
+//     products per f32 product, the time of 3xTF32 at 495 TFLOP/s, 0.0698
+//     ms against 0.0092 ms of bytes (operations), where the CUDA cores' f32
+//     peak (67 TFLOP/s) would take 0.1719 ms.
+//   - The pieces triple the tiles: a block is two consumer warpgroups over
+//     128 query rows and one producer warp, sharing a ring of two stages of
+//     64-key K/V tiles (three pieces each), 145 KB of shared memory at
+//     D = 64, one block per SM. K2's splits come from the same plan as
+//     bf16's, counted in 64-key tiles, and the combine writes f32.
+//   - The length tile zeroes V rows past the length in all three pieces:
+//     the split leaves them unwritten.
 
 #include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
 #include <cuda_bf16.h>
@@ -539,11 +555,12 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
 
 // Merges K2's kv-split partials: out[b,h,r] = sum_s w_s O_s / sum_s w_s l_s
 // with w_s = 2^(m_s - max_s m_s), in split order (deterministic); zeros
-// where every l_s is 0. One thread per 4 output columns.
-template <int D>
+// where every l_s is 0. One thread per 4 output columns. Out is bf16, or
+// float for K2 at float32.
+template <int D, typename Out>
 __global__ void __launch_bounds__(256)
 flash_combine(const float* __restrict__ o_part, const float* __restrict__ m_part,
-              const float* __restrict__ l_part, __nv_bfloat16* __restrict__ o, int S, int HT,
+              const float* __restrict__ l_part, Out* __restrict__ o, int S, int HT,
               int rows) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int row = i / (D / 4), c = i % (D / 4);
@@ -566,105 +583,372 @@ flash_combine(const float* __restrict__ o_part, const float* __restrict__ m_part
     acc.w += w * x.w;
   }
   const float inv = l > 0.f ? 1.f / l : 0.f;
-  *reinterpret_cast<uint2*>(o + (size_t)row * D + 4 * c) =
-      make_uint2(pack_bf16(acc.x * inv, acc.y * inv), pack_bf16(acc.z * inv, acc.w * inv));
+  if constexpr (sizeof(Out) == 4) {
+    *reinterpret_cast<float4*>(o + (size_t)row * D + 4 * c) =
+        make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+  } else {
+    *reinterpret_cast<uint2*>(o + (size_t)row * D + 4 * c) =
+        make_uint2(pack_bf16(acc.x * inv, acc.y * inv), pack_bf16(acc.z * inv, acc.w * inv));
+  }
 }
 
-// ── f32: scalar FMAs ────────────────────────────────────────────────────
+// ── f32: split operands on the tensor cores ─────────────────────────────
 
-constexpr int kTileKf = 32;  // keys per shared-memory tile
+// Each f32 value x goes in as three bf16 pieces, hi = rn(x), mid = rn(x -
+// hi) and lo = rn(x - hi - mid) (both differences are exact in f32), so
+// x = hi + mid + lo to within 2^-27 |x|. A product a b is taken as the six
+// piece products hl, lh, mm, hm, mh, hh, accumulated in f32 by wgmma; the
+// dropped ml, lm and ll are below 2^-25 |a||b|. Product i multiplies A's
+// piece piece_a(i) by B's piece piece_b(i), smallest first: the tensor
+// cores align each k-step's addends to the largest and truncate the rest,
+// so the small products go in while the accumulator is small, and only the
+// last D/16 k-steps (hh) meet its full size.
+constexpr int kPieces = 3;
+constexpr int kSplitProducts = 6;
+__host__ __device__ constexpr int piece_a(int i) { return i == 1 ? 2 : i == 2 || i == 4 ? 1 : 0; }
+__host__ __device__ constexpr int piece_b(int i) { return i == 0 ? 2 : i == 2 || i == 3 ? 1 : 0; }
 
+// the three pieces of (x0, x1) as packed bf16 pairs (.x = x0 in the low half)
+__device__ __forceinline__ void split_pair3(float x0, float x1, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = x0 - hf.x, r1 = x1 - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(m);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(r0 - mf.x, r1 - mf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// The operand split: float32 [slices, T, D] tensors -> their bf16 pieces
+// [3, slices, T, D] (the hi, mid and lo planes), up to four tensors per
+// launch (blockIdx.y). Rows at or past an example's kv length are skipped
+// for the tensors flagged in len_mask (K2's caches: the kernel never reads
+// them as values, see flash_fwd_f32). A thread takes 4 values of a row,
+// D/4 threads a row. Bytes bound it: 4 read + 6 written per element.
+struct SplitTensor {
+  const float* x;
+  __nv_bfloat16* out;
+  int T;
+};
+struct SplitArgs {  // no arrays: one indexed by blockIdx.y would go to local memory
+  SplitTensor t0, t1, t2, t3;
+  const int* kv_len;
+  int len_mask, slices, H, D;
+};
+
+__global__ void __launch_bounds__(256) split_f32(const SplitArgs a) {
+  const int j = blockIdx.y;
+  // the fields by value (a reference into the parameters would copy them to local memory)
+  const int T = j == 0 ? a.t0.T : j == 1 ? a.t1.T : j == 2 ? a.t2.T : a.t3.T;
+  const float4* x = reinterpret_cast<const float4*>(j == 0 ? a.t0.x : j == 1 ? a.t1.x : j == 2 ? a.t2.x : a.t3.x);
+  uint2* out = reinterpret_cast<uint2*>(j == 0 ? a.t0.out : j == 1 ? a.t1.out : j == 2 ? a.t2.out : a.t3.out);
+  const int per_row = a.D / 4, rows_per_block = 256 / per_row;
+  const int rows = a.slices * T;
+  const size_t plane = (size_t)rows * per_row;  // float4s per piece
+  const bool by_len = (a.len_mask >> j) & 1;
+  const int c = threadIdx.x % per_row;
+  for (int row = blockIdx.x * rows_per_block + threadIdx.x / per_row; row < rows;
+       row += gridDim.x * rows_per_block) {
+    if (by_len) {
+      const int slice = row / T;
+      if (row - slice * T >= min(max(a.kv_len[slice / a.H], 0), T)) continue;
+    }
+    const size_t i = (size_t)row * per_row + c;
+    const float4 v = x[i];
+    uint2 h, m, l;
+    split_pair3(v.x, v.y, h.x, m.x, l.x);
+    split_pair3(v.z, v.w, h.y, m.y, l.y);
+    out[i] = h;
+    out[i + plane] = m;
+    out[i + 2 * plane] = l;
+  }
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64]: A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+constexpr int kFBlockQ = 128;   // query rows per block: two consumer warpgroups of 64
+constexpr int kFBlockN = 64;    // keys per kv tile
+constexpr int kFThreads = 288;  // two consumer warpgroups, one producer warp
+
+template <int D>
+struct SmemF32 {  // every tile starts on a 1024-byte boundary; the pieces of a tile follow each other
+  __nv_bfloat16 q[kPieces][kFBlockQ * D];
+  __nv_bfloat16 k[kStages][kPieces][kFBlockN * D];
+  __nv_bfloat16 v[kStages][kPieces][kFBlockN * D];
+  uint64_t full[kStages];   // the tile's pieces have landed
+  uint64_t empty[kStages];  // all 8 consumer warps are done with the tile
+  uint64_t q_full;
+};
+
+// K1 and K2 at float32 from the bf16 pieces of q, k and v (split_f32): the
+// bf16 kernel's design with every operand in three pieces, 64-key tiles
+// and two consumer warpgroups over 128 query rows sharing each K/V tile.
 template <int D, bool kVarlen>
-__global__ void __launch_bounds__(kBlockQ)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o,
-              const int* __restrict__ kv_len, int H, int Tq, int Tk, float scale,
-              int causal) {
-  __shared__ __align__(16) float ks[kTileKf][D];
-  __shared__ __align__(16) float vs[kTileKf][D];
+__global__ void __launch_bounds__(kFThreads, 1)
+flash_fwd_f32(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+              const __grid_constant__ CUtensorMap v_map, const FwdArgs args) {
+  using Smem = SmemF32<D>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                      ~static_cast<uintptr_t>(1023));
+  constexpr uint32_t kQPiece = kFBlockQ * D * 2, kKVPiece = kFBlockN * D * 2;  // bytes
 
-  const size_t bh = (size_t)blockIdx.z * H + blockIdx.y;
-  const float* qp = q + bh * (size_t)Tq * D;
-  const float* kp = k + bh * (size_t)Tk * D;
-  const float* vp = v + bh * (size_t)Tk * D;
-  float* op = o + bh * (size_t)Tq * D;
-
-  const int row0 = blockIdx.x * kBlockQ;
-  const int row = row0 + threadIdx.x;
+  const int Tq = args.Tq, Tk = args.Tk, causal = args.causal;
+  const int b = blockIdx.z / args.splits, split = blockIdx.z % args.splits;
+  const int slices = gridDim.z / args.splits * args.H;  // B*H: the pieces' plane
+  const int slice = b * args.H + blockIdx.y;
+  const int row0 = blockIdx.x * kFBlockQ;
   const int offs = Tk - Tq;
-  const int len = example_keys<kVarlen>(kv_len, blockIdx.z, Tk);
-  const int kv_end = row_keys<kVarlen>(min(row0 + kBlockQ, Tq) - 1, Tk, len, offs, causal);
-  const int n_row = row < Tq ? row_keys<kVarlen>(row, Tk, len, offs, causal) : 0;
+  const int len = example_keys<kVarlen>(args.kv_len, b, Tk);
+  const int kv_begin = split * args.split_tiles * kFBlockN;
+  const int kv_stop = min(kv_begin + args.split_tiles * kFBlockN, Tk);
+  const int kv_end =
+      min(kv_stop, row_keys<kVarlen>(min(row0 + kFBlockQ, Tq) - 1, Tk, len, offs, causal));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  float qr[D];
-  float acc[D];
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int c = 0; c < D; ++c) {
-    qr[c] = row < Tq ? qp[(size_t)row * D + c] : 0.f;
-    acc[c] = 0.f;
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], 8);
+    }
+    mbar_init(&sm.q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  float m = -INFINITY;
-  float l = 0.f;
+  __syncthreads();
 
-  for (int kv0 = 0; kv0 < kv_end; kv0 += kTileKf) {
-    const int nt = min(kTileKf, len - kv0);
-    __syncthreads();  // the previous tile is fully consumed
-    for (int i = threadIdx.x; i < nt * D; i += kBlockQ) {
-      ks[i / D][i % D] = kp[(size_t)kv0 * D + i];
-      vs[i / D][i % D] = vp[(size_t)kv0 * D + i];
-    }
-    __syncthreads();
-    const int jn = min(nt, n_row - kv0);  // keys of this tile the row sees
-    if (jn <= 0) continue;
-
-    float s[kTileKf];
-    float m_new = m;
+  if (warp == 8) {  // the producer warp: one thread issues every copy
+    if (lane == 0 && kv_begin < kv_end) {
+      mbar_expect_tx(&sm.q_full, kPieces * kQPiece);
 #pragma unroll
-    for (int j = 0; j < kTileKf; ++j) {
-      float dot = 0.f;
-      if (j < jn) {
-        const float4* kr = reinterpret_cast<const float4*>(ks[j]);
+      for (int p = 0; p < kPieces; ++p) tma_load(sm.q[p], &q_map, &sm.q_full, row0, slice + p * slices);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kv0 = kv_begin; kv0 < kv_end; kv0 += kFBlockN) {
+        mbar_wait(&sm.empty[stage], phase ^ 1);  // the first round passes at once
+        mbar_expect_tx(&sm.full[stage], 2 * kPieces * kKVPiece);
 #pragma unroll
-        for (int c = 0; c < D / 4; ++c) {
-          const float4 kk = kr[c];
-          dot = fmaf(qr[4 * c + 0], kk.x, dot);
-          dot = fmaf(qr[4 * c + 1], kk.y, dot);
-          dot = fmaf(qr[4 * c + 2], kk.z, dot);
-          dot = fmaf(qr[4 * c + 3], kk.w, dot);
+        for (int p = 0; p < kPieces; ++p) {
+          tma_load(sm.k[stage][p], &k_map, &sm.full[stage], kv0, slice + p * slices);
+          tma_load(sm.v[stage][p], &v_map, &sm.full[stage], kv0, slice + p * slices);
         }
-        dot *= scale;
-        m_new = fmaxf(m_new, dot);
-      }
-      s[j] = dot;
-    }
-    // jn > 0, so m_new is finite; on the first live tile m = -inf -> 0
-    const float alpha = expf(m - m_new);
-    l *= alpha;
-#pragma unroll
-    for (int c = 0; c < D; ++c) acc[c] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kTileKf; ++j) {
-      if (j < jn) {
-        const float p = expf(s[j] - m_new);
-        l += p;
-        const float4* vr = reinterpret_cast<const float4*>(vs[j]);
-#pragma unroll
-        for (int c = 0; c < D / 4; ++c) {
-          const float4 vv = vr[c];
-          acc[4 * c + 0] = fmaf(p, vv.x, acc[4 * c + 0]);
-          acc[4 * c + 1] = fmaf(p, vv.y, acc[4 * c + 1]);
-          acc[4 * c + 2] = fmaf(p, vv.z, acc[4 * c + 2]);
-          acc[4 * c + 3] = fmaf(p, vv.w, acc[4 * c + 3]);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
         }
       }
     }
-    m = m_new;
+    return;
   }
 
-  if (row < Tq) {
-    // a row that saw no key has l == 0 and writes zeros
+  // consumer warpgroup wg (warps 4wg..4wg+3) owns rows row0 + 64wg..; this
+  // thread holds rows r_lo and r_hi of its accumulator fragments
+  const int wg = warp / 4;
+  const int g = lane / 4, t = lane % 4;
+  const int r_lo = row0 + wg * 64 + (warp % 4) * 16 + g, r_hi = r_lo + 8;
+  // rows past Tq are computed on Q's zero fill and never stored
+  const int n_lo = row_keys<kVarlen>(min(r_lo, Tq - 1), Tk, len, offs, causal);
+  const int n_hi = row_keys<kVarlen>(min(r_hi, Tq - 1), Tk, len, offs, causal);
+  // tiles that end at or below the warpgroup's first row's keys need no mask
+  const int all_see = row_keys<kVarlen>(min(row0 + wg * 64, Tq - 1), Tk, len, offs, causal);
+
+  float o[D / 2];
 #pragma unroll
-    for (int c = 0; c < D; ++c) op[(size_t)row * D + c] = l > 0.f ? acc[c] / l : 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+
+  // as the bf16 kernel: tile j issues S_j and then O += P_{j-1} V_{j-1},
+  // and runs its softmax while the second product is on the tensor cores;
+  // the first and last tiles are peeled
+  if (kv_begin < kv_end) {
+    mbar_wait(&sm.q_full, 0);
+    const uint32_t q_addr = smem_u32(sm.q[0]) + wg * 64 * D * 2;
+    const int n_tiles = (kv_end - kv_begin + kFBlockN - 1) / kFBlockN;
+    int stage = 0, prev = 0;
+    uint32_t phase = 0;
+    uint32_t pa[kPieces][kFBlockN / 16][4];  // P_{j-1}'s pieces: the A fragments of its P V
+    float s[kFBlockN / 2];
+    // wait for tile j; K2's length tile: zero V rows [len, kv0 + 64) of
+    // every piece (the split skipped them) and make the stores visible to
+    // wgmma
+    auto wait_tile = [&](int kv0) {
+      mbar_wait(&sm.full[stage], phase);
+      if (kVarlen && kv0 < len && len < min(kv0 + kFBlockN, Tk)) {
+        const int per_piece = (kv0 + kFBlockN - len) * D / 8;  // uint4s
+        for (int i = threadIdx.x; i < kPieces * per_piece; i += 256) {
+          const int p = i / per_piece;
+          reinterpret_cast<uint4*>(sm.v[stage][p] + (len - kv0) * D)[i - p * per_piece] =
+              make_uint4(0, 0, 0, 0);
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync 1, 256;\n" ::: "memory");  // the consumer warps
+      }
+    };
+    auto next_stage = [&] {
+      prev = stage;
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    };
+    auto issue_s = [&] {
+      const uint32_t k_addr = smem_u32(sm.k[stage][0]);
+#pragma unroll
+      for (int i = 0; i < kSplitProducts; ++i) {
+#pragma unroll
+        for (int c = 0; c < D / 16; ++c) {  // 64 rows x 64 keys, D/16 k-steps of 32 bytes
+          wgmma_ss_n64(s, smem_desc<D>(q_addr + piece_a(i) * kQPiece + 32 * c),
+                       smem_desc<D>(k_addr + piece_b(i) * kKVPiece + 32 * c), i + c);
+        }
+      }
+      wgmma_commit();
+    };
+    auto issue_pv = [&](uint32_t v_addr) {
+#pragma unroll
+      for (int i = 0; i < kSplitProducts; ++i) {
+#pragma unroll
+        for (int c = 0; c < kFBlockN / 16; ++c) {
+          wgmma_pv<D>(o, pa[piece_a(i)][c], smem_desc<D>(v_addr + piece_b(i) * kKVPiece + c * 32 * D));
+        }
+      }
+    };
+    float sum_lo, sum_hi;
+    auto softmax = [&](int kv0, float& alpha_lo, float& alpha_hi) {
+      if (kv0 + kFBlockN > all_see) {
+#pragma unroll
+        for (int i = 0; i < kFBlockN / 2; ++i) {
+          const int key = kv0 + 8 * (i / 4) + 2 * t + (i & 1);
+          s[i] = key < ((i & 2) ? n_hi : n_lo) ? s[i] : -INFINITY;
+        }
+      }
+      float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < kFBlockN / 2; ++i) {
+        if (i & 2) {
+          mx_hi = fmaxf(mx_hi, s[i]);
+        } else {
+          mx_lo = fmaxf(mx_lo, s[i]);
+        }
+      }
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+      mx_lo = fmaxf(m_lo, mx_lo * args.scale_log2);
+      mx_hi = fmaxf(m_hi, mx_hi * args.scale_log2);
+      const float ref_lo = mx_lo == -INFINITY ? 0.f : mx_lo;
+      const float ref_hi = mx_hi == -INFINITY ? 0.f : mx_hi;
+      alpha_lo = exp2_approx(m_lo - ref_lo);
+      alpha_hi = exp2_approx(m_hi - ref_hi);
+      m_lo = mx_lo;
+      m_hi = mx_hi;
+      sum_lo = sum_hi = 0.f;
+#pragma unroll
+      for (int i = 0; i < kFBlockN / 2; ++i) {
+        s[i] = exp2_approx(fmaf(s[i], args.scale_log2, (i & 2) ? -ref_hi : -ref_lo));
+        if (i & 2) {
+          sum_hi += s[i];
+        } else {
+          sum_lo += s[i];
+        }
+      }
+    };
+    // rescale O and l, then split P_j into the A fragments of its pieces
+    auto rescale_and_split = [&](float alpha_lo, float alpha_hi) {
+      l_lo = l_lo * alpha_lo + sum_lo;
+      l_hi = l_hi * alpha_hi + sum_hi;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? alpha_hi : alpha_lo;
+#pragma unroll
+      for (int c = 0; c < kFBlockN / 16; ++c) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          split_pair3(s[8 * c + 2 * r], s[8 * c + 2 * r + 1], pa[0][c][r], pa[1][c][r], pa[2][c][r]);
+        }
+      }
+    };
+
+    float alpha_lo, alpha_hi;
+    wait_tile(kv_begin);
+    wgmma_fence();
+    issue_s();
+    wgmma_wait<0>();
+    pin(s);
+    softmax(kv_begin, alpha_lo, alpha_hi);
+    rescale_and_split(alpha_lo, alpha_hi);
+    next_stage();
+    for (int j = 1; j < n_tiles; ++j) {
+      const int kv0 = kv_begin + j * kFBlockN;
+      wait_tile(kv0);
+      wgmma_fence();
+      issue_s();
+      issue_pv(smem_u32(sm.v[prev][0]));
+      wgmma_commit();
+      wgmma_wait<1>();  // S_j is done; P_{j-1} V_{j-1} may still run
+      pin(s);
+      softmax(kv0, alpha_lo, alpha_hi);
+      wgmma_wait<0>();  // O and P_{j-1}'s registers are free
+      pin(o);
+      release(&sm.empty[prev], lane);
+      rescale_and_split(alpha_lo, alpha_hi);
+      next_stage();
+    }
+    wgmma_fence();
+    issue_pv(smem_u32(sm.v[prev][0]));
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(o);
+    release(&sm.empty[prev], lane);
+  }
+
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+  // splits == 1: the normalised f32 output (zeros where l == 0); else this
+  // split's partial, as the bf16 kernel writes it
+  const bool whole = args.splits == 1;
+  const size_t part = whole ? (size_t)slice : (size_t)blockIdx.z * args.H + blockIdx.y;
+  const float inv_lo = !whole ? 1.f : l_lo > 0.f ? 1.f / l_lo : 0.f;
+  const float inv_hi = !whole ? 1.f : l_hi > 0.f ? 1.f / l_hi : 0.f;
+  float* op = static_cast<float*>(args.o) + part * Tq * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (r_lo < Tq) {
+      *reinterpret_cast<float2*>(op + (size_t)r_lo * D + col) =
+          make_float2(o[4 * j] * inv_lo, o[4 * j + 1] * inv_lo);
+    }
+    if (r_hi < Tq) {
+      *reinterpret_cast<float2*>(op + (size_t)r_hi * D + col) =
+          make_float2(o[4 * j + 2] * inv_hi, o[4 * j + 3] * inv_hi);
+    }
+  }
+  if (!whole && t == 0) {
+    if (r_lo < Tq) {
+      args.m_part[part * Tq + r_lo] = m_lo;
+      args.l_part[part * Tq + r_lo] = l_lo;
+    }
+    if (r_hi < Tq) {
+      args.m_part[part * Tq + r_hi] = m_hi;
+      args.l_part[part * Tq + r_hi] = l_hi;
+    }
   }
 }
 
@@ -710,78 +994,79 @@ bool encode_map(CUtensorMap* map, const void* base, int D, int T, int slices, in
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// dtype 1: q, k, v are the bf16 tensors, [B*H, T, D]; dtype 0: they are
+// the bf16 pieces of the f32 tensors, [3 * B*H, T, D] (split_f32)
 template <int D, bool kVarlen>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, const FwdArgs& a, int B,
-                        cudaStream_t stream) {
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const FwdArgs& a, int B,
+                   cudaStream_t stream) {
   CUtensorMap maps[3];
-  const int slices = B * a.H;
+  const bool f32 = dtype == 0;
+  const int slices = (f32 ? kPieces : 1) * B * a.H;
+  const int block_q = f32 ? kFBlockQ : kBlockQ, block_n = f32 ? kFBlockN : kBlockN;
   // Tk == 0: no tile is loaded; the maps only need to be valid
   const void* kb = a.Tk > 0 ? k : q;
   const void* vb = a.Tk > 0 ? v : q;
   const int tk = a.Tk > 0 ? a.Tk : a.Tq;
-  if (!encode_map(&maps[0], q, D, a.Tq, slices, kBlockQ) ||
-      !encode_map(&maps[1], kb, D, tk, slices, kBlockN) ||
-      !encode_map(&maps[2], vb, D, tk, slices, kBlockN)) {
+  if (!encode_map(&maps[0], q, D, a.Tq, slices, block_q) ||
+      !encode_map(&maps[1], kb, D, tk, slices, block_n) ||
+      !encode_map(&maps[2], vb, D, tk, slices, block_n)) {
     return cudaErrorInvalidValue;
   }
-  const auto kernel = flash_fwd_bf16<D, kVarlen>;
-  constexpr int smem = sizeof(SmemBf16<D>) + 1024;  // + the 1024-byte alignment
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  constexpr int smem_bf16 = sizeof(SmemBf16<D>) + 1024, smem_f32 = sizeof(SmemF32<D>) + 1024;  // + alignment
+  static const cudaError_t attr_bf16 = cudaFuncSetAttribute(
+      flash_fwd_bf16<D, kVarlen>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bf16);
+  static const cudaError_t attr_f32 = cudaFuncSetAttribute(
+      flash_fwd_f32<D, kVarlen>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_f32);
+  const cudaError_t attr = f32 ? attr_f32 : attr_bf16;
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((a.Tq + kBlockQ - 1) / kBlockQ, a.H, B * a.splits);
-  kernel<<<grid, kThreads, smem, stream>>>(maps[0], maps[1], maps[2], a);
+  const auto kernel = f32 ? flash_fwd_f32<D, kVarlen> : flash_fwd_bf16<D, kVarlen>;
+  const int smem = f32 ? smem_f32 : smem_bf16;
+  const dim3 grid((a.Tq + block_q - 1) / block_q, a.H, B * a.splits);
+  kernel<<<grid, f32 ? kFThreads : kThreads, smem, stream>>>(maps[0], maps[1], maps[2], a);
   return cudaGetLastError();
 }
 
-template <int D, bool kVarlen>
-cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const FwdArgs& a,
-                   int B, float scale, cudaStream_t stream) {
-  if (dtype == 1) return launch_bf16<D, kVarlen>(q, k, v, a, B, stream);
-  const dim3 grid((a.Tq + kBlockQ - 1) / kBlockQ, a.H, B);
-  flash_fwd_f32<D, kVarlen><<<grid, kBlockQ, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(a.o), a.kv_len, a.H, a.Tq, a.Tk, scale, a.causal);
-  return cudaGetLastError();
-}
+int block_keys(int dtype) { return dtype == 1 ? kBlockN : kFBlockN; }
 
 template <bool kVarlen>
 int dispatch(const void* q, const void* k, const void* v, void* o, const int* kv_len,
              float* m_part, float* l_part, int splits, int split_tiles, int B, int H, int Tq,
              int Tk, int D, int dtype, float scale, int causal, void* stream) {
-  const long tiles = (Tk + kBlockN - 1) / kBlockN;
+  const long tiles = (Tk + block_keys(dtype) - 1) / block_keys(dtype);
   if (B < 1 || H < 1 || Tq < 1 || Tk < 0 || H > 65535 || (dtype != 0 && dtype != 1) ||
       (kVarlen && kv_len == nullptr) || splits < 1 || split_tiles < 1 ||
       (long)B * splits > 65535 || (long)splits * split_tiles < tiles ||
-      (splits > 1 && (dtype != 1 || m_part == nullptr || l_part == nullptr)) ||
-      (dtype == 1 && !(scale > 0.f))) {
+      (splits > 1 && (m_part == nullptr || l_part == nullptr)) || !(scale > 0.f)) {
     return (int)cudaErrorInvalidValue;
   }
   const FwdArgs a{o, m_part, l_part, kv_len, H, Tq, Tk, causal, splits, split_tiles,
                   scale * 1.4426950408889634f};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)launch<64, kVarlen>(dtype, q, k, v, a, B, scale, s);
-  if (D == 32) return (int)launch<32, kVarlen>(dtype, q, k, v, a, B, scale, s);
+  if (D == 64) return (int)launch<64, kVarlen>(dtype, q, k, v, a, B, s);
+  if (D == 32) return (int)launch<32, kVarlen>(dtype, q, k, v, a, B, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// K1. dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// K1. dtype: 0 = float32 (q, k, v: their bf16 pieces from os_split_f32),
+// 1 = bfloat16. o in the dtype. scale > 0. Returns a cudaError_t (0 =
+// launched).
 extern "C" int os_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* o, int B, int H,
                                       int Tq, int Tk, int D, int dtype,
                                       float scale, int causal, void* stream) {
-  const int tiles = Tk > kBlockN ? (Tk + kBlockN - 1) / kBlockN : 1;
+  const int n = dtype == 0 ? kFBlockN : kBlockN;
+  const int tiles = Tk > n ? (Tk + n - 1) / n : 1;
   return dispatch<false>(q, k, v, o, nullptr, nullptr, nullptr, 1, tiles, B, H, Tq, Tk, D, dtype,
                          scale, causal, stream);
 }
 
 // K2: K1 with kv_len, B int32 valid kv lengths in device memory (clamped to
-// [0, Tk]), over `splits` ranges of `split_tiles` tiles of 128 keys. With
-// splits > 1 (bf16 only) `o` is the f32 partial O [B,S,H,Tq,D] and m_part,
-// l_part [B,S,H,Tq] take each row's max and sum; os_flash_combine merges
-// them. Returns a cudaError_t (0 = launched).
+// [0, Tk]), over `splits` ranges of `split_tiles` kv tiles (128 keys in
+// bf16, 64 in f32). With splits > 1 `o` is the f32 partial O [B,S,H,Tq,D]
+// and m_part, l_part [B,S,H,Tq] take each row's max and sum;
+// os_flash_combine merges them. Returns a cudaError_t (0 = launched).
 extern "C" int os_flash_attention_varlen_fwd(const void* q, const void* k,
                                              const void* v, void* o,
                                              const int* kv_len, float* m_part,
@@ -794,29 +1079,74 @@ extern "C" int os_flash_attention_varlen_fwd(const void* q, const void* k,
                         dtype, scale, causal, stream);
 }
 
-// Dynamic shared memory of a bf16 block (Q, the K/V ring, the barriers and
-// the 1024-byte alignment), or -1 for a head dim that has no kernel.
-extern "C" int os_flash_attention_smem_bytes(int D) {
-  return D == 64 ? (int)sizeof(SmemBf16<64>) + 1024 : D == 32 ? (int)sizeof(SmemBf16<32>) + 1024 : -1;
+// Dynamic shared memory of a block (its tiles, the barriers and the
+// 1024-byte alignment) for dtype (0 = float32, 1 = bfloat16), or -1 for a
+// head dim that has no kernel.
+extern "C" int os_flash_attention_smem_bytes(int D, int dtype) {
+  if (D != 64 && D != 32) return -1;
+  if (dtype == 0) return (D == 64 ? (int)sizeof(SmemF32<64>) : (int)sizeof(SmemF32<32>)) + 1024;
+  return (D == 64 ? (int)sizeof(SmemBf16<64>) : (int)sizeof(SmemBf16<32>)) + 1024;
 }
 
-// K2's second pass: o [B,H,Tq,D] bf16 from the S partials of
-// os_flash_attention_varlen_fwd. Returns a cudaError_t (0 = launched).
+// K2's second pass: o [B,H,Tq,D] in dtype (0 = float32, 1 = bfloat16) from
+// the S partials of os_flash_attention_varlen_fwd. Returns a cudaError_t
+// (0 = launched).
 extern "C" int os_flash_combine(const float* o_part, const float* m_part,
                                 const float* l_part, void* o, int B, int S,
-                                int H, int Tq, int D, void* stream) {
-  if (B < 1 || S < 1 || H < 1 || Tq < 1 || (D != 32 && D != 64) ||
+                                int H, int Tq, int D, int dtype, void* stream) {
+  if (B < 1 || S < 1 || H < 1 || Tq < 1 || (D != 32 && D != 64) || (dtype != 0 && dtype != 1) ||
       (long)B * H * Tq * D / 4 > 0x7fffffffL) {
     return (int)cudaErrorInvalidValue;
   }
   const int rows = B * H * Tq;
   const int threads = 256, blocks = (rows * (D / 4) + threads - 1) / threads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    float* out = static_cast<float*>(o);
+    if (D == 64) {
+      flash_combine<64><<<blocks, threads, 0, s>>>(o_part, m_part, l_part, out, S, H * Tq, rows);
+    } else {
+      flash_combine<32><<<blocks, threads, 0, s>>>(o_part, m_part, l_part, out, S, H * Tq, rows);
+    }
+    return (int)cudaGetLastError();
+  }
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(o);
   if (D == 64) {
     flash_combine<64><<<blocks, threads, 0, s>>>(o_part, m_part, l_part, out, S, H * Tq, rows);
   } else {
     flash_combine<32><<<blocks, threads, 0, s>>>(o_part, m_part, l_part, out, S, H * Tq, rows);
   }
+  return (int)cudaGetLastError();
+}
+
+// The operand split of the float32 routes: up to n = 4 contiguous float32
+// tensors x[j] [B*H, T[j], D] into their bf16 pieces out[j] [3, B*H, T[j],
+// D] (hi, mid, lo), one launch. Bit j of len_mask: skip tensor j's rows at
+// or past kv_len[b] (B int32 in device memory). Returns a cudaError_t (0 =
+// launched).
+extern "C" int os_split_f32(const float* x0, const float* x1, const float* x2, const float* x3,
+                            void* out0, void* out1, void* out2, void* out3, int n, int T0, int T1,
+                            int T2, int T3, int BH, int H, int D, const int* kv_len, int len_mask,
+                            void* stream) {
+  const int Ts[4] = {T0, T1, T2, T3};
+  if (n < 1 || n > 4 || BH < 1 || H < 1 || BH % H || (D != 32 && D != 64) ||
+      (len_mask && kv_len == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const float* xs[4] = {x0, x1, x2, x3};
+  const SplitArgs a{{x0, static_cast<__nv_bfloat16*>(out0), T0}, {x1, static_cast<__nv_bfloat16*>(out1), T1},
+                    {x2, static_cast<__nv_bfloat16*>(out2), T2}, {x3, static_cast<__nv_bfloat16*>(out3), T3},
+                    kv_len, len_mask, BH, H, D};
+  long most = 0;  // rows of the largest tensor
+  for (int j = 0; j < n; ++j) {
+    if (Ts[j] < 0 || (Ts[j] > 0 && xs[j] == nullptr) || (long)BH * Ts[j] > 0x7fffffffL) {
+      return (int)cudaErrorInvalidValue;
+    }
+    most = (long)BH * Ts[j] > most ? (long)BH * Ts[j] : most;
+  }
+  if (most == 0) return 0;
+  const long want = (most + 256 / (D / 4) - 1) / (256 / (D / 4));
+  const dim3 grid((unsigned)(want < 132 * 32 ? want : 132 * 32), n);
+  split_f32<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

@@ -84,14 +84,21 @@
 //     one block's products with the other's exponentials and splits;
 //     prep and dq run one 64 x 64 step at a time.
 //
-// f32 (`flash_bwd_{prep,dkdv,dq}_f32<D>`): scalar f32 FMA, so the result
-// stays f32-exact (tensor cores would round inputs to TF32, and the bf16
-// transpose bit does not exist for tf32). It recomputes S and dP in each
-// kernel (9 products). Each block is 256 threads over a 16 x 16 grid; a
-// thread owns a 4 x 4 micro tile of each [64, 64] score tile (rows
-// ty + 16 i, keys tx + 16 j) and a 4 x D/16 tile of each [64, D] product,
-// so every shared-memory read is a broadcast or one word per bank. Tiles
-// are held in shared memory rows padded by one word.
+// f32 (`flash_bwd_{prep,dkdv,dq}_f32<D>`): the bf16 kernels' structure on
+// split operands. q, k, v and dO arrive as three bf16 pieces each
+// (hi, mid, lo from flash_attention.cu's `split_f32`, one launch before the
+// three), P and dS are split the same way in registers, and every f32
+// product runs as six bf16 wgmma piece products accumulated in f32 (about
+// 2^-24 of each product's terms; TF32 would leave 2^-11, and bf16 keeps the
+// transpose bit the MN-major operands need, which tf32 lacks). 9 f32
+// products per tile pair (S and dP in each kernel, dV, dK, dQ): 54 bf16
+// ones against the 5 x 6 of the bound. The pieces triple the tiles, so a
+// block is one per SM: two consumer warpgroups over 128 fixed rows (query
+// rows in prep and dq, keys in dkdv) that share each streamed pair, which
+// halves the streamed loads and keeps the tensor cores busy through one
+// warpgroup's exponentials and splits (one warpgroup where the fixed rows
+// are 64 or fewer, as in the decoder); dkdv keeps the bf16 kernel's
+// 32-column halves.
 
 #include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
 #include <cuda_bf16.h>
@@ -411,12 +418,12 @@ __device__ __forceinline__ SmemBf16<D>& smem_bf16() {
 }
 
 __device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty, uint64_t* fixed_full,
-                                              int full_count) {
+                                              int full_count, int consumer_warps = 4) {
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], full_count);
-      mbar_init(&empty[s], 4);
+      mbar_init(&empty[s], consumer_warps);
     }
     mbar_init(fixed_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -733,321 +740,473 @@ flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap q_map, const __grid_consta
   store_acc<D>(static_cast<__nv_bfloat16*>(a.dq) + (size_t)slice * a.Tq * D, dq, r_lo, a.Tq, t, a.scale);
 }
 
-// ── f32: scalar FMA ──────────────────────────────────────────────────────
+// ── f32: split operands on the tensor cores ─────────────────────────────
 
-constexpr int kThreadsF32 = 256;  // 16 x 16
-constexpr int kR = 4;             // rows (and keys) of a tile per thread: 64 / 16
+// As in flash_attention.cu: each f32 operand goes in as three bf16 pieces
+// (hi, mid, lo; the tiles from split_f32's planes, P and dS split in
+// registers) and a product as the six piece products hl, lh, mm, hm, mh,
+// hh accumulated in f32, smallest first. Product i multiplies A's piece
+// piece_a(i) by B's piece piece_b(i).
+constexpr int kPieces = 3;
+constexpr int kSplitProducts = 6;
+__host__ __device__ constexpr int piece_a(int i) { return i == 1 ? 2 : i == 2 || i == 4 ? 1 : 0; }
+__host__ __device__ constexpr int piece_b(int i) { return i == 0 ? 2 : i == 2 || i == 3 ? 1 : 0; }
 
-// the shared memory of the three kernels (the prep pass uses q, dout, k, v)
-template <int D>
-struct TilesF32 {
-  float q[kBM][D + 1];
-  float dout[kBM][D + 1];
-  float k[kBN][D + 1];
-  float v[kBN][D + 1];
-  float p[kBM][kBN + 1];  // P, then dS
-  float lse2[kBM];
-  float delta[kBM];
+// A block is W consumer warpgroups, each over its own 64-row fixed pair,
+// sharing the streamed tiles, and one producer warp.
+template <int W>
+constexpr int f32_threads() {
+  return 32 * (4 * W + 1);
+}
+template <int D, int W>
+struct SmemF32 {  // every tile starts on a 1024-byte boundary; a tile's pieces follow each other
+  __nv_bfloat16 fa[W][kPieces][kBM * D];
+  __nv_bfloat16 fb[W][kPieces][kBM * D];
+  __nv_bfloat16 sa[kStages][kPieces][kBN * D];
+  __nv_bfloat16 sb[kStages][kPieces][kBN * D];
+  float lse2[kStages][kBM];
+  float delta[kStages][kBM];
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+  uint64_t fixed_full;
 };
 
-// rows [r0, r0 + 64) of a [n, D] matrix into shared memory; rows at or past
-// n read as zeros
-template <int D>
-__device__ __forceinline__ void load_rows(float (*dst)[D + 1], const float* src, int r0, int n) {
-  for (int i = threadIdx.x; i < 64 * D; i += kThreadsF32) {
-    const int r = i / D, c = i % D;
-    dst[r][c] = r0 + r < n ? src[(size_t)(r0 + r) * D + c] : 0.f;
-  }
+template <int D, int W>
+__device__ __forceinline__ SmemF32<D, W>& smem_f32() {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  return *reinterpret_cast<SmemF32<D, W>*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                           ~static_cast<uintptr_t>(1023));
 }
 
-// each row's lse2 and delta; rows at or past Tq get +inf and 0, so their
-// probabilities are 0
-__device__ __forceinline__ void load_stats(float* lse2_s, float* delta_s, const float* lse2,
-                                           const float* delta, int q0, int Tq) {
-  if (threadIdx.x < kBM) {
-    const int r = q0 + threadIdx.x;
-    lse2_s[threadIdx.x] = r < Tq ? lse2[r] : INFINITY;
-    delta_s[threadIdx.x] = r < Tq ? delta[r] : 0.f;
-  }
+// keys [0, end) that some row of the block of `rows` rows starting at q0 sees
+__device__ __forceinline__ int kv_end_f32(int q0, int rows, const BwdArgs& a) {
+  const int last = min(q0 + rows, a.Tq) - 1;
+  return a.causal ? min(max(last + a.Tk - a.Tq + 1, 0), a.Tk) : a.Tk;
 }
 
-// s[i][j] = a[ty + 16 i] . b[tx + 16 j] over D
-template <int D>
-__device__ __forceinline__ void dot_tile(const float (*a)[D + 1], const float (*b)[D + 1],
-                                         float (&s)[kR][kR]) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+// produce() over the pieces (piece p of a tile is at slice + p * slices)
+// and every warpgroup's fixed pair (rows fixed_row + 64 w)
+template <int D, int W, bool kStats>
+__device__ __forceinline__ void produce_f32(SmemF32<D, W>& sm, const CUtensorMap* fa, const CUtensorMap* fb,
+                                            const CUtensorMap* sa, const CUtensorMap* sb, int fixed_row,
+                                            int slice, int slices, int first, int n_steps, const BwdArgs& a,
+                                            int lane) {
+  if (n_steps == 0 || (!kStats && lane != 0)) return;
+  constexpr uint32_t kPairBytes = 2 * kPieces * kBM * D * 2;
+  if (lane == 0) {
+    mbar_expect_tx(&sm.fixed_full, W * kPairBytes);
 #pragma unroll
-  for (int i = 0; i < kR; ++i)
+    for (int w = 0; w < W; ++w) {
 #pragma unroll
-    for (int j = 0; j < kR; ++j) s[i][j] = 0.f;
-#pragma unroll 16
-  for (int d = 0; d < D; ++d) {
-    float x[kR], y[kR];
-#pragma unroll
-    for (int i = 0; i < kR; ++i) x[i] = a[ty + 16 * i][d];
-#pragma unroll
-    for (int j = 0; j < kR; ++j) y[j] = b[tx + 16 * j][d];
-#pragma unroll
-    for (int i = 0; i < kR; ++i)
-#pragma unroll
-      for (int j = 0; j < kR; ++j) s[i][j] = fmaf(x[i], y[j], s[i][j]);
-  }
-}
-
-// key c is visible to query row r
-__device__ __forceinline__ bool visible(int r, int c, const BwdArgs& a) {
-  return c < a.Tk && (!a.causal || c <= r + a.Tk - a.Tq);
-}
-
-// raw scores of the tile (rows q0.., keys k0..) -> probabilities, 0 where
-// masked or where the row has no key (lse2 = +inf)
-__device__ __forceinline__ void probs(float (&s)[kR][kR], const float* lse2_s, int q0, int k0,
-                                      const BwdArgs& a) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    const int r = q0 + ty + 16 * i;
-    const float lse2 = lse2_s[ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < kR; ++j) {
-      const int c = k0 + tx + 16 * j;
-      s[i][j] = visible(r, c, a) ? exp2f(fmaf(s[i][j], a.scale_log2, -lse2)) : 0.f;
-    }
-  }
-}
-
-// acc[i][j] += sum_r p[r][ty + 16 i] * b[r][tx + 16 j]   (P^T B)
-template <int D>
-__device__ __forceinline__ void atb_tile(const float (*p)[kBN + 1], const float (*b)[D + 1],
-                                         float (&acc)[kR][D / 16]) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll 8
-  for (int r = 0; r < kBM; ++r) {
-    float x[kR], y[D / 16];
-#pragma unroll
-    for (int i = 0; i < kR; ++i) x[i] = p[r][ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) y[j] = b[r][tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < kR; ++i)
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
-  }
-}
-
-// acc[i][j] += sum_c p[ty + 16 i][c] * b[c][tx + 16 j]   (P B)
-template <int D>
-__device__ __forceinline__ void ab_tile(const float (*p)[kBN + 1], const float (*b)[D + 1],
-                                        float (&acc)[kR][D / 16]) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll 8
-  for (int c = 0; c < kBN; ++c) {
-    float x[kR], y[D / 16];
-#pragma unroll
-    for (int i = 0; i < kR; ++i) x[i] = p[ty + 16 * i][c];
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) y[j] = b[c][tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < kR; ++i)
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void zero(float (&acc)[kR][D / 16]) {
-#pragma unroll
-  for (int i = 0; i < kR; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.f;
-}
-
-// rows r0 + ty + 16 i (those below n) of a [n, D] output, times mul
-template <int D>
-__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[kR][D / 16], int r0, int n,
-                                           float mul) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    const int r = r0 + ty + 16 * i;
-    if (r < n) {
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) dst[(size_t)r * D + tx + 16 * j] = acc[i][j] * mul;
-    }
-  }
-}
-
-// the sum (or max) over the 16 lanes that share a row (lanes 0-15 and 16-31
-// of a warp are two rows)
-__device__ __forceinline__ float sum16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off /= 2) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-__device__ __forceinline__ float max16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off /= 2) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreadsF32, 2) flash_bwd_prep_f32(const BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_f32[];
-  TilesF32<D>& t = *reinterpret_cast<TilesF32<D>*>(smem_f32);
-
-  const size_t bh = (size_t)blockIdx.z * a.H + blockIdx.y;
-  const float* q = static_cast<const float*>(a.q) + bh * a.Tq * D;
-  const float* k = static_cast<const float*>(a.k) + bh * a.Tk * D;
-  const float* v = static_cast<const float*>(a.v) + bh * a.Tk * D;
-  const float* dout = static_cast<const float*>(a.dout) + bh * a.Tq * D;
-  const int q0 = blockIdx.x * kBM;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-
-  load_rows<D>(t.q, q, q0, a.Tq);
-  load_rows<D>(t.dout, dout, q0, a.Tq);
-  // this thread's running max, sum of 2^(x - m) and sum of 2^(x - m) * dP
-  // over its keys, per row
-  float m[kR], l[kR], u[kR];
-#pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-    u[i] = 0.f;
-  }
-  const int end = kv_end(q0, a);
-  for (int k0 = 0; k0 < end; k0 += kBN) {
-    __syncthreads();  // Q and dO have landed; the previous K, V tiles are consumed
-    load_rows<D>(t.k, k, k0, a.Tk);
-    load_rows<D>(t.v, v, k0, a.Tk);
-    __syncthreads();
-    float s[kR][kR], dp[kR][kR];
-    dot_tile<D>(t.q, t.k, s);
-    dot_tile<D>(t.dout, t.v, dp);
-#pragma unroll
-    for (int i = 0; i < kR; ++i) {
-      const int r = q0 + ty + 16 * i;
-      float x[kR];
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < kR; ++j) {
-        x[j] = visible(r, k0 + tx + 16 * j, a) ? s[i][j] * a.scale_log2 : -INFINITY;
-        mx = fmaxf(mx, x[j]);
+      for (int p = 0; p < kPieces; ++p) {
+        tma_load(sm.fa[w][p], fa, &sm.fixed_full, fixed_row + w * kBM, slice + p * slices);
+        tma_load(sm.fb[w][p], fb, &sm.fixed_full, fixed_row + w * kBM, slice + p * slices);
       }
-      if (mx == -INFINITY) continue;  // no key of this tile for this thread's part of the row
-      const float c = exp2f(m[i] - mx);  // m[i] = -inf: 0
-      float sum = l[i] * c, dsum = u[i] * c;
+    }
+  }
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = 0; j < n_steps; ++j) {
+    const int row = first + j * kBN;
+    mbar_wait(&sm.empty[stage], phase ^ 1);  // the first round passes at once
+    if (kStats) {
+      const float* lse2 = a.lse2 + (size_t)slice * a.Tq;
+      const float* delta = a.delta + (size_t)slice * a.Tq;
 #pragma unroll
-      for (int j = 0; j < kR; ++j) {
-        const float e = exp2f(x[j] - mx);
-        sum += e;
-        dsum = fmaf(e, dp[i][j], dsum);
+      for (int h = 0; h < kBM; h += 32) {
+        const int r = row + h + lane;
+        sm.lse2[stage][h + lane] = r < a.Tq ? lse2[r] : INFINITY;
+        sm.delta[stage][h + lane] = r < a.Tq ? delta[r] : 0.f;
       }
-      m[i] = mx;
-      l[i] = sum;
-      u[i] = dsum;
     }
-  }
-  float* lse2 = a.lse2 + bh * a.Tq;
-  float* delta = a.delta + bh * a.Tq;
+    if (lane == 0) {
+      mbar_expect_tx(&sm.full[stage], kPairBytes);
 #pragma unroll
-  for (int i = 0; i < kR; ++i) {
-    const float mx = max16(m[i]);
-    const float c = m[i] == -INFINITY ? 0.f : exp2f(m[i] - mx);
-    const float sum = sum16(l[i] * c), dsum = sum16(u[i] * c);
-    const int r = q0 + ty + 16 * i;
-    if (tx == 0 && r < a.Tq) {
-      lse2[r] = sum > 0.f ? mx + log2f(sum) : INFINITY;
-      delta[r] = sum > 0.f ? dsum / sum : 0.f;
+      for (int p = 0; p < kPieces; ++p) {
+        tma_load(sm.sa[stage][p], sa, &sm.full[stage], row, slice + p * slices);
+        tma_load(sm.sb[stage][p], sb, &sm.full[stage], row, slice + p * slices);
+      }
+    } else {
+      mbar_arrive(&sm.full[stage]);  // releases this lane's stats
+    }
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
     }
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreadsF32, 2) flash_bwd_dkdv_f32(const BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_f32[];
-  TilesF32<D>& t = *reinterpret_cast<TilesF32<D>*>(smem_f32);
-
-  const size_t bh = (size_t)blockIdx.z * a.H + blockIdx.y;
-  const float* q = static_cast<const float*>(a.q) + bh * a.Tq * D;
-  const float* k = static_cast<const float*>(a.k) + bh * a.Tk * D;
-  const float* v = static_cast<const float*>(a.v) + bh * a.Tk * D;
-  const float* dout = static_cast<const float*>(a.dout) + bh * a.Tq * D;
-  const float* lse2 = a.lse2 + bh * a.Tq;
-  const float* delta = a.delta + bh * a.Tq;
-  const int k0 = blockIdx.x * kBN;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-
-  load_rows<D>(t.k, k, k0, a.Tk);
-  load_rows<D>(t.v, v, k0, a.Tk);
-  float dk[kR][D / 16], dv[kR][D / 16];
-  zero<D>(dk);
-  zero<D>(dv);
-  for (int q0 = first_q_tile(k0, a); q0 < a.Tq; q0 += kBM) {
-    __syncthreads();  // the previous query tile is consumed (and K, V have landed)
-    load_rows<D>(t.q, q, q0, a.Tq);
-    load_rows<D>(t.dout, dout, q0, a.Tq);
-    load_stats(t.lse2, t.delta, lse2, delta, q0, a.Tq);
-    __syncthreads();
-    float p[kR][kR], dp[kR][kR];
-    dot_tile<D>(t.q, t.k, p);
-    probs(p, t.lse2, q0, k0, a);
-    dot_tile<D>(t.dout, t.v, dp);
+// scores() over the pieces: s = fa sa^T and dp = fb sb^T ([64 x N]) as six
+// piece products each; a piece of a fixed tile is kBM * D * 2 bytes after
+// the one before, of a streamed tile kBN * D * 2
+template <int D, int N>
+__device__ __forceinline__ void scores_f32(float (&s)[N / 2], float (&dp)[N / 2], uint32_t fa,
+                                           uint32_t fb, uint32_t sa, uint32_t sb) {
+  constexpr uint32_t kF = kBM * D * 2, kS = kBN * D * 2;
+  wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < kR; ++i)
+  for (int i = 0; i < kSplitProducts; ++i) {
 #pragma unroll
-      for (int j = 0; j < kR; ++j) t.p[ty + 16 * i][tx + 16 * j] = p[i][j];
-    __syncthreads();
-    atb_tile<D>(t.p, t.dout, dv);
-    __syncthreads();  // every read of P is done
-#pragma unroll
-    for (int i = 0; i < kR; ++i)
-#pragma unroll
-      for (int j = 0; j < kR; ++j)
-        t.p[ty + 16 * i][tx + 16 * j] = p[i][j] * (dp[i][j] - t.delta[ty + 16 * i]);
-    __syncthreads();
-    atb_tile<D>(t.p, t.q, dk);
+    for (int c = 0; c < D / 16; ++c) {
+      const uint64_t x = smem_desc<D>(fa + piece_a(i) * kF + 32 * c);
+      const uint64_t y = smem_desc<D>(sa + piece_b(i) * kS + 32 * c);
+      if constexpr (N == 64) {
+        wgmma_ss_n64(s, x, y, i + c);
+      } else {
+        wgmma_ss_n32(s, x, y, i + c);
+      }
+    }
   }
-  store_rows<D>(static_cast<float*>(a.dk) + bh * a.Tk * D, dk, k0, a.Tk, a.scale);
-  store_rows<D>(static_cast<float*>(a.dv) + bh * a.Tk * D, dv, k0, a.Tk, 1.f);
+#pragma unroll
+  for (int i = 0; i < kSplitProducts; ++i) {
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) {
+      const uint64_t x = smem_desc<D>(fb + piece_a(i) * kF + 32 * c);
+      const uint64_t y = smem_desc<D>(sb + piece_b(i) * kS + 32 * c);
+      if constexpr (N == 64) {
+        wgmma_ss_n64(dp, x, y, i + c);
+      } else {
+        wgmma_ss_n32(dp, x, y, i + c);
+      }
+    }
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  pin(s);
+  pin(dp);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreadsF32, 2) flash_bwd_dq_f32(const BwdArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_f32[];
-  TilesF32<D>& t = *reinterpret_cast<TilesF32<D>*>(smem_f32);
+// the three pieces of a score tile's accumulator fragments, as A fragments
+// per k-step of 16 columns (see Split)
+template <int K>
+struct Split3 {
+  uint32_t p[kPieces][K][4];
+};
 
-  const size_t bh = (size_t)blockIdx.z * a.H + blockIdx.y;
-  const float* q = static_cast<const float*>(a.q) + bh * a.Tq * D;
-  const float* k = static_cast<const float*>(a.k) + bh * a.Tk * D;
-  const float* v = static_cast<const float*>(a.v) + bh * a.Tk * D;
-  const float* dout = static_cast<const float*>(a.dout) + bh * a.Tq * D;
-  const int q0 = blockIdx.x * kBM;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+__device__ __forceinline__ void split_pair3(float x0, float x1, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);  // .x (x0) in the low half
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = x0 - hf.x, r1 = x1 - hf.y;  // exact in f32
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(m);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(r0 - mf.x, r1 - mf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
 
-  load_rows<D>(t.q, q, q0, a.Tq);
-  load_rows<D>(t.dout, dout, q0, a.Tq);
-  load_stats(t.lse2, t.delta, a.lse2 + bh * a.Tq, a.delta + bh * a.Tq, q0, a.Tq);
-  float dq[kR][D / 16];
-  zero<D>(dq);
-  const int end = kv_end(q0, a);
-  for (int k0 = 0; k0 < end; k0 += kBN) {
-    __syncthreads();  // the previous kv tile and dS are consumed (and Q, dO have landed)
-    load_rows<D>(t.k, k, k0, a.Tk);
-    load_rows<D>(t.v, v, k0, a.Tk);
-    __syncthreads();
-    float p[kR][kR], dp[kR][kR];
-    dot_tile<D>(t.q, t.k, p);
-    probs(p, t.lse2, q0, k0, a);
-    dot_tile<D>(t.dout, t.v, dp);
+template <int K>
+__device__ __forceinline__ void split3(const float (&x)[8 * K], Split3<K>& out) {
 #pragma unroll
-    for (int i = 0; i < kR; ++i)
+  for (int c = 0; c < K; ++c)
 #pragma unroll
-      for (int j = 0; j < kR; ++j)
-        t.p[ty + 16 * i][tx + 16 * j] = p[i][j] * (dp[i][j] - t.delta[ty + 16 * i]);
-    __syncthreads();
-    ab_tile<D>(t.p, t.k, dq);
+    for (int r = 0; r < 4; ++r)
+      split_pair3(x[8 * c + 2 * r], x[8 * c + 2 * r + 1], out.p[0][c][r], out.p[1][c][r], out.p[2][c][r]);
+}
+
+// acc += X B over the six piece products: X the split register operand, B
+// a streamed tile's pieces as stored from b_addr on (kBN * D * 2 bytes
+// apart), D*32 bytes per k-step
+template <int D, int K>
+__device__ __forceinline__ void issue_split3(float (&acc)[D / 2], const Split3<K>& x, uint32_t b_addr) {
+  constexpr uint32_t kS = kBN * D * 2;
+#pragma unroll
+  for (int i = 0; i < kSplitProducts; ++i) {
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+      const uint64_t b = smem_desc<D>(b_addr + piece_b(i) * kS + c * 32 * D);
+      if constexpr (D == 64) {
+        wgmma_rs_n64(acc, x.p[piece_a(i)][c], b);
+      } else {
+        wgmma_rs_n32(acc, x.p[piece_a(i)][c], b);
+      }
+    }
   }
-  store_rows<D>(static_cast<float*>(a.dq) + bh * a.Tq * D, dq, q0, a.Tq, a.scale);
+}
+
+// rows r0 + warp*16 + g (+ 8) of a [n, D] f32 output from accumulator
+// fragments, times mul
+template <int D>
+__device__ __forceinline__ void store_acc_f32(float* out, const float (&acc)[D / 2], int r_lo, int n,
+                                              int t, float mul) {
+  const int r_hi = r_lo + 8;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (r_lo < n) {
+      *reinterpret_cast<float2*>(out + (size_t)r_lo * D + col) = make_float2(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+    }
+    if (r_hi < n) {
+      *reinterpret_cast<float2*>(out + (size_t)r_hi * D + col) =
+          make_float2(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
+    }
+  }
+}
+
+// The three f32 kernels are the bf16 ones over pieces: 12 products per
+// score pair, 6 per product with P or dS. A block is W consumer warpgroups
+// over W x 64 fixed rows that share each streamed pair (W fixed pairs and
+// two stages of streamed pairs: 145 KB at D = 64 and W = 1, 193 KB at
+// W = 2; one block per SM); prep and dq hold whole 64-column steps and
+// dkdv works in column slices of kHalf. With W = 2 (9 warps, three on
+// one SM sub-partition) ptxas allows 168 registers, and dkdv spills about
+// 400 bytes there; it still measured 13% faster than W = 1 at the encoder
+// shape (PERF.md), the second warpgroup's products running beside the
+// first one's exponentials and splits.
+
+template <int D, int W>
+__global__ void __launch_bounds__(f32_threads<W>(), 1)
+flash_bwd_prep_f32(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+                   const BwdArgs a) {
+  SmemF32<D, W>& sm = smem_f32<D, W>();
+  const int slices = gridDim.z * a.H;
+  const int slice = blockIdx.z * a.H + blockIdx.y;
+  const int q0 = blockIdx.x * W * kBM;
+  const int n_steps = (kv_end_f32(q0, W * kBM, a) + kBN - 1) / kBN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  init_barriers(sm.full, sm.empty, &sm.fixed_full, 1, 4 * W);
+  if (warp == 4 * W) {
+    produce_f32<D, W, false>(sm, &q_map, &do_map, &k_map, &v_map, q0, slice, slices, 0, n_steps, a, lane);
+    return;
+  }
+
+  // warpgroup wg owns rows q0 + 64 wg..; rows past Tq compute on zeros, unstored
+  const int wg = warp / 4, g = lane / 4, t = lane % 4;
+  const int r_lo = q0 + wg * kBM + (warp % 4) * 16 + g, r_hi = r_lo + 8;
+  const int n_lo = row_keys(min(r_lo, a.Tq - 1), a), n_hi = row_keys(min(r_hi, a.Tq - 1), a);
+  const int all_see = row_keys(min(q0 + wg * kBM, a.Tq - 1), a);
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f, u_lo = 0.f, u_hi = 0.f;
+  if (n_steps > 0) mbar_wait(&sm.fixed_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = 0; j < n_steps; ++j) {
+    const int kv0 = j * kBN;
+    mbar_wait(&sm.full[stage], phase);
+    float s[kBN / 2], dp[kBN / 2];
+    scores_f32<D, kBN>(s, dp, smem_u32(sm.fa[wg][0]), smem_u32(sm.fb[wg][0]), smem_u32(sm.sa[stage][0]),
+                       smem_u32(sm.sb[stage][0]));
+    release(&sm.empty[stage], lane);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) s[i] *= a.scale_log2;
+    if (kv0 + kBN > all_see) {  // ragged tail, causal diagonal
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) {
+        const int key = kv0 + 8 * (i / 4) + 2 * t + (i & 1);
+        s[i] = key < ((i & 2) ? n_hi : n_lo) ? s[i] : -INFINITY;
+      }
+    }
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) {
+      if (i & 2) {
+        mx_hi = fmaxf(mx_hi, s[i]);
+      } else {
+        mx_lo = fmaxf(mx_lo, s[i]);
+      }
+    }
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+    mx_lo = fmaxf(m_lo, mx_lo);
+    mx_hi = fmaxf(m_hi, mx_hi);
+    const float ref_lo = mx_lo == -INFINITY ? 0.f : mx_lo;
+    const float ref_hi = mx_hi == -INFINITY ? 0.f : mx_hi;
+    const float c_lo = exp2_approx(m_lo - ref_lo), c_hi = exp2_approx(m_hi - ref_hi);
+    m_lo = mx_lo;
+    m_hi = mx_hi;
+    l_lo *= c_lo;
+    u_lo *= c_lo;
+    l_hi *= c_hi;
+    u_hi *= c_hi;
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) {
+      const float e = exp2_approx(s[i] - ((i & 2) ? ref_hi : ref_lo));
+      if (i & 2) {
+        l_hi += e;
+        u_hi = fmaf(e, dp[i], u_hi);
+      } else {
+        l_lo += e;
+        u_lo = fmaf(e, dp[i], u_lo);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off *= 2) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    u_lo += __shfl_xor_sync(0xffffffffu, u_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+    u_hi += __shfl_xor_sync(0xffffffffu, u_hi, off);
+  }
+  if (t == 0) {
+    float* lse2 = a.lse2 + (size_t)slice * a.Tq;
+    float* delta = a.delta + (size_t)slice * a.Tq;
+    if (r_lo < a.Tq) {
+      lse2[r_lo] = l_lo > 0.f ? m_lo + log2f(l_lo) : INFINITY;
+      delta[r_lo] = l_lo > 0.f ? u_lo / l_lo : 0.f;
+    }
+    if (r_hi < a.Tq) {
+      lse2[r_hi] = l_hi > 0.f ? m_hi + log2f(l_hi) : INFINITY;
+      delta[r_hi] = l_hi > 0.f ? u_hi / l_hi : 0.f;
+    }
+  }
+}
+
+template <int D, int W>
+__global__ void __launch_bounds__(f32_threads<W>(), 1)
+flash_bwd_dkdv_f32(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+                   const BwdArgs a) {
+  SmemF32<D, W>& sm = smem_f32<D, W>();
+  const int slices = gridDim.z * a.H;
+  const int slice = blockIdx.z * a.H + blockIdx.y;
+  const int k0 = blockIdx.x * W * kBN;
+  const int first = first_q_tile(k0, a);
+  const int n_steps = first < a.Tq ? (a.Tq - first + kBM - 1) / kBM : 0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  init_barriers(sm.full, sm.empty, &sm.fixed_full, 32, 4 * W);
+  if (warp == 4 * W) {
+    produce_f32<D, W, true>(sm, &k_map, &v_map, &q_map, &do_map, k0, slice, slices, first, n_steps, a, lane);
+    return;
+  }
+
+  // warpgroup wg owns keys k0 + 64 wg..
+  const int wg = warp / 4, g = lane / 4, t = lane % 4;
+  const int kw = k0 + wg * kBN;
+  const int key_lo = kw + (warp % 4) * 16 + g, key_hi = key_lo + 8;
+  const int offs = a.Tk - a.Tq;
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  if (n_steps > 0) mbar_wait(&sm.fixed_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = 0; j < n_steps; ++j) {
+    const int q0 = first + j * kBM;
+    mbar_wait(&sm.full[stage], phase);
+    const bool diag = a.causal && kw + kBN - 1 > q0 + offs;
+#pragma unroll
+    for (int h = 0; h < kBM / kHalf; ++h) {
+      const uint32_t q_addr = smem_u32(sm.sa[stage][0]) + h * kHalf * D * 2;
+      const uint32_t do_addr = smem_u32(sm.sb[stage][0]) + h * kHalf * D * 2;
+      const float* lse2 = sm.lse2[stage] + h * kHalf;
+      const float* delta = sm.delta[stage] + h * kHalf;
+      float p[kHalf / 2], ds[kHalf / 2];
+      scores_f32<D, kHalf>(p, ds, smem_u32(sm.fa[wg][0]), smem_u32(sm.fb[wg][0]), q_addr, do_addr);
+#pragma unroll
+      for (int c = 0; c < kHalf / 8; ++c) {
+        const float2 lse = *reinterpret_cast<const float2*>(&lse2[8 * c + 2 * t]);
+        p[4 * c + 0] = exp2_approx(fmaf(p[4 * c + 0], a.scale_log2, -lse.x));
+        p[4 * c + 1] = exp2_approx(fmaf(p[4 * c + 1], a.scale_log2, -lse.y));
+        p[4 * c + 2] = exp2_approx(fmaf(p[4 * c + 2], a.scale_log2, -lse.x));
+        p[4 * c + 3] = exp2_approx(fmaf(p[4 * c + 3], a.scale_log2, -lse.y));
+      }
+      if (diag) {
+#pragma unroll
+        for (int i = 0; i < kHalf / 2; ++i) {
+          const int q = q0 + h * kHalf + 8 * (i / 4) + 2 * t + (i & 1);
+          p[i] = ((i & 2) ? key_hi : key_lo) <= q + offs ? p[i] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kHalf / 8; ++c) {
+        const float2 dl = *reinterpret_cast<const float2*>(&delta[8 * c + 2 * t]);
+        ds[4 * c + 0] = p[4 * c + 0] * (ds[4 * c + 0] - dl.x);
+        ds[4 * c + 1] = p[4 * c + 1] * (ds[4 * c + 1] - dl.y);
+        ds[4 * c + 2] = p[4 * c + 2] * (ds[4 * c + 2] - dl.x);
+        ds[4 * c + 3] = p[4 * c + 3] * (ds[4 * c + 3] - dl.y);
+      }
+      // P^T's pieces go to the tensor cores while dS^T's are made
+      Split3<kHalf / 16> ps, dss;
+      split3(p, ps);
+      wgmma_fence();
+      issue_split3<D>(dv, ps, do_addr);  // dV += P^T dO
+      wgmma_commit();
+      split3(ds, dss);
+      wgmma_fence();
+      issue_split3<D>(dk, dss, q_addr);  // dK += dS^T Q
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(dv);
+      pin(dk);
+    }
+    release(&sm.empty[stage], lane);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  store_acc_f32<D>(static_cast<float*>(a.dk) + (size_t)slice * a.Tk * D, dk, key_lo, a.Tk, t, a.scale);
+  store_acc_f32<D>(static_cast<float*>(a.dv) + (size_t)slice * a.Tk * D, dv, key_lo, a.Tk, t, 1.f);
+}
+
+template <int D, int W>
+__global__ void __launch_bounds__(f32_threads<W>(), 1)
+flash_bwd_dq_f32(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+                 const BwdArgs a) {
+  SmemF32<D, W>& sm = smem_f32<D, W>();
+  const int slices = gridDim.z * a.H;
+  const int slice = blockIdx.z * a.H + blockIdx.y;
+  const int q0 = blockIdx.x * W * kBM;
+  const int n_steps = (kv_end_f32(q0, W * kBM, a) + kBN - 1) / kBN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  init_barriers(sm.full, sm.empty, &sm.fixed_full, 1, 4 * W);
+  if (warp == 4 * W) {
+    produce_f32<D, W, false>(sm, &q_map, &do_map, &k_map, &v_map, q0, slice, slices, 0, n_steps, a, lane);
+    return;
+  }
+
+  const int wg = warp / 4, g = lane / 4, t = lane % 4;
+  const int r_lo = q0 + wg * kBM + (warp % 4) * 16 + g, r_hi = r_lo + 8;
+  const int n_lo = row_keys(min(r_lo, a.Tq - 1), a), n_hi = row_keys(min(r_hi, a.Tq - 1), a);
+  const int all_see = row_keys(min(q0 + wg * kBM, a.Tq - 1), a);
+  const float* lse2 = a.lse2 + (size_t)slice * a.Tq;
+  const float* delta = a.delta + (size_t)slice * a.Tq;
+  const float lse_lo = r_lo < a.Tq ? lse2[r_lo] : INFINITY, lse_hi = r_hi < a.Tq ? lse2[r_hi] : INFINITY;
+  const float dl_lo = r_lo < a.Tq ? delta[r_lo] : 0.f, dl_hi = r_hi < a.Tq ? delta[r_hi] : 0.f;
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  if (n_steps > 0) mbar_wait(&sm.fixed_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = 0; j < n_steps; ++j) {
+    const int kv0 = j * kBN;
+    mbar_wait(&sm.full[stage], phase);
+    float p[kBN / 2], ds[kBN / 2];
+    scores_f32<D, kBN>(p, ds, smem_u32(sm.fa[wg][0]), smem_u32(sm.fb[wg][0]), smem_u32(sm.sa[stage][0]),
+                       smem_u32(sm.sb[stage][0]));
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) p[i] = exp2_approx(fmaf(p[i], a.scale_log2, (i & 2) ? -lse_hi : -lse_lo));
+    if (kv0 + kBN > all_see) {  // ragged tail, causal diagonal
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) {
+        const int key = kv0 + 8 * (i / 4) + 2 * t + (i & 1);
+        p[i] = key < ((i & 2) ? n_hi : n_lo) ? p[i] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) ds[i] = p[i] * (ds[i] - ((i & 2) ? dl_hi : dl_lo));
+    Split3<kBN / 16> dss;
+    split3(ds, dss);
+    wgmma_fence();
+    issue_split3<D>(dq, dss, smem_u32(sm.sa[stage][0]));  // dQ += dS K
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(dq);
+    release(&sm.empty[stage], lane);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  store_acc_f32<D>(static_cast<float*>(a.dq) + (size_t)slice * a.Tq * D, dq, r_lo, a.Tq, t, a.scale);
 }
 
 // ── host ────────────────────────────────────────────────────────────────
@@ -1112,27 +1271,48 @@ cudaError_t launch_bf16(int stage, const BwdArgs& a, int B, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_f32(int stage, const BwdArgs& a, int B, cudaStream_t s) {
-  const dim3 rows((a.Tq + kBM - 1) / kBM, a.H, B);
-  const dim3 keys((a.Tk + kBN - 1) / kBN, a.H, B);
-  const auto kernel = stage == 0   ? flash_bwd_prep_f32<D>
-                      : stage == 1 ? flash_bwd_dkdv_f32<D>
-                                   : flash_bwd_dq_f32<D>;
-  constexpr int smem = sizeof(TilesF32<D>);  // above the 48 KB of static shared memory
+template <int D, int W, typename Kernel>
+cudaError_t run_f32(Kernel kernel, const BwdArgs& a, int B, int rows, const CUtensorMap (&maps)[4],
+                    cudaStream_t s) {
+  constexpr int smem = sizeof(SmemF32<D, W>) + 1024;  // + the 1024-byte alignment
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  kernel<<<stage == 1 ? keys : rows, kThreadsF32, smem, s>>>(a);
+  const dim3 grid((rows + W * kBM - 1) / (W * kBM), a.H, B);
+  kernel<<<grid, f32_threads<W>(), smem, s>>>(maps[0], maps[1], maps[2], maps[3], a);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32(int stage, const BwdArgs& a, int B, cudaStream_t s) {
+  CUtensorMap maps[4];  // over the pieces: [3 * B*H, T, D] bf16
+  const int slices = kPieces * B * a.H;
+  if (!encode_map(&maps[0], a.q, D, a.Tq, slices) || !encode_map(&maps[1], a.k, D, a.Tk, slices) ||
+      !encode_map(&maps[2], a.v, D, a.Tk, slices) || !encode_map(&maps[3], a.dout, D, a.Tq, slices)) {
+    return cudaErrorInvalidValue;
+  }
+  // two warpgroups where the fixed rows (query rows; keys in dkdv) fill more
+  // than one: the decoder's 64-row tiles would leave half of each block idle
+  const int rows = stage == 1 ? a.Tk : a.Tq;
+  if (rows > kBM) {
+    const auto kernel = stage == 0   ? flash_bwd_prep_f32<D, 2>
+                        : stage == 1 ? flash_bwd_dkdv_f32<D, 2>
+                                     : flash_bwd_dq_f32<D, 2>;
+    return run_f32<D, 2>(kernel, a, B, rows, maps, s);
+  }
+  const auto kernel = stage == 0   ? flash_bwd_prep_f32<D, 1>
+                      : stage == 1 ? flash_bwd_dkdv_f32<D, 1>
+                                   : flash_bwd_dq_f32<D, 1>;
+  return run_f32<D, 1>(kernel, a, B, rows, maps, s);
 }
 
 }  // namespace
 
 // One of the three passes of K1's backward: stage 0 writes lse2 and delta
 // ([B,H,Tq] f32 scratch), stage 1 dk and dv, stage 2 dq (both read lse2 and
-// delta). dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 =
-// launched).
+// delta). dtype: 0 = float32 (q, k, v and dout: their bf16 pieces
+// [3,B,H,T,D] from os_split_f32; dq, dk, dv float32), 1 = bfloat16.
+// Returns a cudaError_t (0 = launched).
 extern "C" int os_flash_attention_bwd(const void* q, const void* k, const void* v,
                                       const void* dout, void* dq, void* dk, void* dv,
                                       float* lse2, float* delta, int stage, int B,

@@ -8,10 +8,13 @@ Counterpart of ``open_speech_tpu/ops/attention.py``:
     without lengths, K2 with them); a CPU tensor runs their plain versions
     ``flash_attention_reference`` and ``flash_attention_varlen_reference``.
     There is no fallback between the two: a CUDA call that cannot launch
-    raises. In bf16, K2 splits the kv axis over more blocks
-    (``plan_splits``) and ``flash_combine`` merges the splits' partials;
+    raises. K2 splits the kv axis over more blocks (``plan_splits``) and
+    ``flash_combine`` merges the splits' partials;
     ``flash_attention_partial_reference`` and ``flash_combine_reference``
-    are the plain versions of the two passes.
+    are the plain versions of the two passes. float32 runs on the tensor
+    cores through split operands: ``split_operands`` writes each float32
+    input as three bf16 pieces (plain version ``split_operands_reference``)
+    and the kernels take every product as six piece products.
   - ``FlashAttentionFn``: K1 with its gradient, which ``flash_attention``
     takes when a gradient is wanted. On a CUDA tensor the backward is the
     hand-written sm_90a kernels of ``kernels/csrc/flash_attention_bwd.cu``
@@ -37,16 +40,29 @@ NEG_INF = -1e30
 LOG2E = math.log2(math.e)
 
 # launches of the flash kernels (K1, K2, K2's combine pass and the three
-# passes of K1's backward), counted where each is launched
+# passes of K1's backward), counted where each is launched; a float32
+# launch also counts under the name + "_f32", and the float32 routes'
+# operand split under "flash_split_f32"
 BWD_STAGES = ("flash_attention_bwd_prep", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
-launches = {"flash_attention": 0, "flash_attention_varlen": 0, "flash_combine": 0,
-            **dict.fromkeys(BWD_STAGES, 0)}
+F32_SUFFIX = "_f32"
+_ROUTES = ("flash_attention", "flash_attention_varlen", "flash_combine", *BWD_STAGES)
+launches = {**dict.fromkeys(_ROUTES, 0), **dict.fromkeys((n + F32_SUFFIX for n in _ROUTES), 0),
+            "flash_split_f32": 0}
 
-# the bf16 kernel's tiles (kBlockN keys, kBlockQ query rows per block in
-# flash_attention.cu) and the card's SM count, which K2's split plan fills
+# the forward kernels' tiles (kBlockN keys and kBlockQ query rows per block
+# in bf16, kFBlockN and kFBlockQ in float32, flash_attention.cu) and the
+# card's SM count, which K2's split plan fills
 BLOCK_N = 128
 BLOCK_Q = 64
+F32_BLOCK_N = 64
+F32_BLOCK_Q = 128
 N_SMS = 132
+
+
+def tiles(dtype: torch.dtype) -> tuple[int, int]:
+    """(query rows per block, keys per kv tile) of the forward kernel for
+    ``dtype``."""
+    return (F32_BLOCK_Q, F32_BLOCK_N) if dtype == torch.float32 else (BLOCK_Q, BLOCK_N)
 
 
 def mha_reference(
@@ -148,21 +164,25 @@ def flash_attention_varlen_reference(
 
 
 @functools.lru_cache(maxsize=256)
-def plan_splits(b: int, h: int, t_q: int, t_k: int) -> tuple[int, int]:
-    """K2's kv split in bf16: ``(splits, tiles_per_split)`` from the shape
-    alone (the lengths stay on the card). The fewest splits that give every
-    SM a block, with at least two 128-key tiles per split; each split owns
-    ``tiles_per_split`` whole tiles and none is empty."""
-    tiles = max(1, -(-t_k // BLOCK_N))
-    blocks = b * h * -(-t_q // BLOCK_Q)  # query blocks
-    splits = max(1, min(-(-N_SMS // blocks), tiles // 2))
-    per = -(-tiles // splits)
-    return -(-tiles // per), per
+def plan_splits(b: int, h: int, t_q: int, t_k: int, block_q: int = BLOCK_Q,
+                block_n: int = BLOCK_N) -> tuple[int, int]:
+    """K2's kv split: ``(splits, tiles_per_split)`` from the shape alone
+    (the lengths stay on the card), for the kernel's tiles of ``block_q``
+    query rows and ``block_n`` keys (``tiles(dtype)``; the defaults are
+    bf16's). The fewest splits that give every SM a block, with at least
+    two kv tiles per split; each split owns ``tiles_per_split`` whole tiles
+    and none is empty."""
+    n_tiles = max(1, -(-t_k // block_n))
+    blocks = b * h * -(-t_q // block_q)  # query blocks
+    splits = max(1, min(-(-N_SMS // blocks), n_tiles // 2))
+    per = -(-n_tiles // splits)
+    return -(-n_tiles // per), per
 
 
-def split_ranges(t_k: int, tiles_per_split: int) -> list[tuple[int, int]]:
-    """The kv ranges [begin, end) of the splits: whole tiles, covering [0, Tk)."""
-    step = tiles_per_split * BLOCK_N
+def split_ranges(t_k: int, tiles_per_split: int, block_n: int = BLOCK_N) -> list[tuple[int, int]]:
+    """The kv ranges [begin, end) of the splits: whole tiles of ``block_n``
+    keys, covering [0, Tk)."""
+    step = tiles_per_split * block_n
     return [(lo, min(lo + step, t_k)) for lo in range(0, max(t_k, 1), step)]
 
 
@@ -226,13 +246,60 @@ def flash_combine_reference(
     return o * torch.where(l > 0, 1.0 / l, 0.0)[..., None]
 
 
+def split_operands_reference(x: torch.Tensor) -> torch.Tensor:
+    """The split kernel's plain version: float32 ``x`` as its three bf16
+    pieces [3, *x.shape], hi = rn(x), mid = rn(x - hi), lo = rn(x - hi -
+    mid) (both differences are exact in float32), so that hi + mid + lo
+    is x to within 2^-27 |x|."""
+    hi = x.to(torch.bfloat16)
+    rest = x - hi.float()
+    mid = rest.to(torch.bfloat16)
+    return torch.stack([hi, mid, (rest - mid.float()).to(torch.bfloat16)])
+
+
+def split_operands(*tensors: torch.Tensor) -> list[torch.Tensor]:
+    """The float32 routes' operand split: each float32 [B,H,T,D] tensor (one
+    B, H and D, up to four) as its bf16 pieces [3,B,H,T,D], one launch of
+    the split kernel (counted as ``flash_split_f32``). A CPU tensor runs
+    ``split_operands_reference``."""
+    if not tensors[0].is_cuda:
+        return [split_operands_reference(t) for t in tensors]
+    b, h, _, d = tensors[0].shape
+    dev = tensors[0].device
+    if not (1 <= len(tensors) <= 4 and d in (32, 64) and all(
+            t.dtype == torch.float32 and t.dim() == 4 and t.shape[:2] == (b, h) and t.shape[3] == d
+            and t.is_contiguous() and t.device == dev for t in tensors)):
+        raise ValueError("split_operands: up to four contiguous float32 [B,H,T,D] tensors of one "
+                         "B, H and D (32 or 64) on one device")
+    return _split(tensors, None, 0, torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _split(tensors, kv_length, len_mask: int, stream) -> list[torch.Tensor]:
+    """Launches the split kernel on tensors ``split_operands`` (or the
+    wrapper that calls this) checked; returns the pieces."""
+    b, h, _, d = tensors[0].shape
+    sizes = [3 * t.numel() for t in tensors]
+    ws = torch.empty(sum(sizes), dtype=torch.bfloat16, device=tensors[0].device)
+    out = [piece.view(3, *t.shape) for piece, t in zip(ws.split(sizes), tensors)]
+    pad = 4 - len(tensors)
+    err = _kernel("os_split_f32")(
+        *(t.data_ptr() for t in tensors), *[None] * pad, *(o.data_ptr() for o in out), *[None] * pad,
+        len(tensors), *(t.shape[2] for t in tensors), *[0] * pad, b * h, h, d,
+        None if kv_length is None else kv_length.data_ptr(), len_mask, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_split_f32 kernel launch failed: cudaError {err}")
+    launches["flash_split_f32"] += 1
+    return out
+
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {  # C entry -> argument types after the four tensor pointers
     "os_flash_attention_fwd": [_I] * 6 + [ctypes.c_float, _I, _P],
     "os_flash_attention_varlen_fwd": [_P] * 3 + [_I] * 8 + [ctypes.c_float, _I, _P],
-    "os_flash_combine": [_I] * 5 + [_P],
+    "os_flash_combine": [_I] * 6 + [_P],
     "os_flash_attention_bwd": [_P] * 5 + [_I] * 7 + [ctypes.c_float, _I, _P],
+    "os_split_f32": [_P] * 4 + [_I] * 8 + [_P, _I, _P],
 }
 _SOURCE = {"os_flash_attention_bwd": "flash_attention_bwd"}  # else flash_attention.cu
 _fns: dict[str, ctypes._CFuncPtr] = {}
@@ -278,10 +345,15 @@ def flash_attention(
 
     ``kv_length`` [B] (integer): keys at or past it are masked, per example.
     A CPU tensor runs the plain version. A CUDA tensor launches the sm_90a
-    kernel on the current stream (K1, or K2 with ``kv_length``; in bf16 K2
-    runs ``plan_splits`` kv splits and, when there is more than one, the
-    combine pass), or raises on anything the kernel does not take. Rows with
-    zero attendable keys return zeros on both paths.
+    kernel on the current stream (K1, or K2 with ``kv_length``; K2 runs
+    ``plan_splits`` kv splits and, when there is more than one, the combine
+    pass), or raises on anything the kernel does not take; ``scale`` must be
+    positive. bf16 inputs go to the tensor cores as they are, float32 inputs
+    as three bf16 pieces each (``split_operands``, one more launch), every
+    product taken as six piece products accumulated in float32: that keeps
+    float32's accuracy to about 2^-24 of each product's terms, plus the
+    float32 sums' rounding, in another order than the plain version's. Rows
+    with zero attendable keys return zeros on both paths.
 
     When a gradient is wanted (grad mode on and an input that requires it),
     K1 goes through ``FlashAttentionFn`` and K2 raises
@@ -342,26 +414,25 @@ def flash_attention(
     if q.numel() == 0:
         return torch.empty_like(q)
     scale = (d**-0.5) if scale is None else float(scale)
-    if q.dtype == torch.bfloat16 and not scale > 0:
-        raise ValueError(f"flash_attention: the bf16 kernel takes a positive scale, not {scale}")
+    if not scale > 0:
+        raise ValueError(f"flash_attention: the kernel takes a positive scale, not {scale}")
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    f32 = q.dtype == torch.float32
     shape = (b, h, t_q, t_k, d, _DTYPE_CODES[q.dtype], scale, int(causal), stream)
-    if kv_length is None:
-        out = torch.empty_like(q)
-        err = _kernel("os_flash_attention_fwd")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *shape
-        )
-        _launched("flash_attention", err)
-        return out
-    # f32 (the scalar kernel) runs one split over every tile
-    tiles = max(1, -(-t_k // BLOCK_N))
-    splits, per = plan_splits(b, h, t_q, t_k) if q.dtype == torch.bfloat16 else (1, tiles)
-    out = torch.empty_like(q)
+    if f32:  # the kernels read the pieces; K2 skips the caches' rows past the length
+        q, k, v = _split((q, k, v), kv_length, 0 if kv_length is None else 6, stream)
+    out = torch.empty(b, h, t_q, d, dtype=torch.float32 if f32 else q.dtype, device=q.device)
     qkv = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    if kv_length is None:
+        err = _kernel("os_flash_attention_fwd")(*qkv, out.data_ptr(), *shape)
+        _launched("flash_attention", err, f32)
+        return out
+    block_q, block_n = tiles(out.dtype)
+    splits, per = plan_splits(b, h, t_q, t_k, block_q, block_n)
     varlen = _kernel("os_flash_attention_varlen_fwd")
     if splits == 1:
         err = varlen(*qkv, out.data_ptr(), kv_length.data_ptr(), None, None, 1, per, *shape)
-        _launched("flash_attention_varlen", err)
+        _launched("flash_attention_varlen", err, f32)
         return out
     # one f32 workspace [B,S,H,Tq] x (D + 2): the partial O, then m, then l
     rows = b * splits * h * t_q
@@ -369,7 +440,7 @@ def flash_attention(
     o_part = ws.data_ptr()
     m_part, l_part = o_part + 4 * rows * d, o_part + 4 * rows * (d + 1)
     err = varlen(*qkv, o_part, kv_length.data_ptr(), m_part, l_part, splits, per, *shape)
-    _launched("flash_attention_varlen", err)
+    _launched("flash_attention_varlen", err, f32)
     _combine(o_part, m_part, l_part, out, (b, splits, h, t_q, d), stream)
     return out
 
@@ -417,7 +488,10 @@ def flash_attention_backward(
     A CPU tensor runs ``flash_attention_backward_reference``. A CUDA tensor
     launches the three kernels of ``flash_attention_bwd.cu`` on the current
     stream (per-row log-sum-exp and delta, then dK/dV, then dQ), each
-    counted in ``launches``, or raises on anything they do not take.
+    counted in ``launches``, or raises on anything they do not take. At
+    float32 the kernels read ``split_operands``' pieces of q, k, v and
+    d_out (one launch before them) and take every product as six bf16
+    piece products, as the forward does.
     """
     if not q.is_cuda:
         return flash_attention_backward_reference(q, k, v, d_out, causal=causal, scale=scale)
@@ -445,50 +519,69 @@ def flash_attention_backward(
     if t_q == 0 or t_k == 0 or b * h == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     scale = (d**-0.5) if scale is None else float(scale)
+    f32 = q.dtype == torch.float32
+    operands = bwd_operands(*tensors)
     stats = torch.empty(2, b, h, t_q, dtype=torch.float32, device=q.device)  # lse2, delta
     for stage, name in enumerate(BWD_STAGES):
-        _launched(name, _bwd_stage(stage, tensors, (dq, dk, dv), stats, causal, scale))
+        _launched(name, _bwd_stage(stage, operands, (dq, dk, dv), stats, causal, scale), f32)
     return dq, dk, dv
 
 
-def _bwd_stage(stage: int, tensors, grads, stats: torch.Tensor, causal: bool, scale: float) -> int:
-    """Launches pass ``stage`` of K1's backward on tensors that
-    ``flash_attention_backward`` checked: 0 writes lse2 and delta into
-    ``stats`` [2,B,H,Tq], 1 dk and dv, 2 dq (``grads``). Returns its
-    cudaError."""
-    q, k = tensors[0], tensors[1]
-    b, h, t_q, d = q.shape
-    ptrs = [t.data_ptr() for t in (*tensors, *grads)] + [stats[0].data_ptr(), stats[1].data_ptr()]
+def bwd_operands(q, k, v, d_out) -> tuple[torch.Tensor, ...]:
+    """What the backward kernels read of checked inputs: the bf16 tensors as
+    they are, or the float32 tensors' pieces (``split_operands``)."""
+    if q.dtype == torch.float32:
+        return tuple(_split((q, k, v, d_out), None, 0, torch.cuda.current_stream(q.device).cuda_stream))
+    return q, k, v, d_out
+
+
+def _bwd_stage(stage: int, operands, grads, stats: torch.Tensor, causal: bool, scale: float) -> int:
+    """Launches pass ``stage`` of K1's backward on ``bwd_operands`` of
+    tensors that ``flash_attention_backward`` checked: 0 writes lse2 and
+    delta into ``stats`` [2,B,H,Tq], 1 dk and dv, 2 dq (``grads``, in the
+    inputs' dtype). Returns its cudaError."""
+    dq, dk = grads[0], grads[1]
+    b, h, t_q, d = dq.shape
+    ptrs = [t.data_ptr() for t in (*operands, *grads)] + [stats[0].data_ptr(), stats[1].data_ptr()]
     return _kernel("os_flash_attention_bwd")(
-        *ptrs, stage, b, h, t_q, k.shape[2], d, _DTYPE_CODES[q.dtype], scale, int(causal),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        *ptrs, stage, b, h, t_q, dk.shape[2], d, _DTYPE_CODES[dq.dtype], scale, int(causal),
+        torch.cuda.current_stream(dq.device).cuda_stream)
 
 
-def _launched(name: str, err: int) -> None:
+def _launched(name: str, err: int, f32: bool = False) -> None:
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"{name}{F32_SUFFIX if f32 else ''} kernel launch failed: cudaError {err}")
     launches[name] += 1
+    if f32:
+        launches[name + F32_SUFFIX] += 1
 
 
 def _combine(o_part: int, m_part: int, l_part: int, out: torch.Tensor, dims, stream) -> None:
     """Launches the combine kernel on partials given by device pointers
-    (dims: B, S, H, Tq, D) into ``out``: its one launch site, for
-    ``flash_attention``'s split path and for ``flash_combine``."""
-    err = _kernel("os_flash_combine")(o_part, m_part, l_part, out.data_ptr(), *dims, stream)
-    _launched("flash_combine", err)
+    (dims: B, S, H, Tq, D) into ``out`` (bfloat16 or float32): its one
+    launch site, for ``flash_attention``'s split path and for
+    ``flash_combine``."""
+    f32 = out.dtype == torch.float32
+    err = _kernel("os_flash_combine")(o_part, m_part, l_part, out.data_ptr(), *dims,
+                                      _DTYPE_CODES[out.dtype], stream)
+    _launched("flash_combine", err, f32)
 
 
 def flash_combine(
-    o_part: torch.Tensor, m_part: torch.Tensor, l_part: torch.Tensor
+    o_part: torch.Tensor, m_part: torch.Tensor, l_part: torch.Tensor,
+    dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     """Merges K2's kv-split partials (o_part [B,S,H,Tq,D], m_part and
-    l_part [B,S,H,Tq], float32, contiguous) into [B,H,Tq,D] bfloat16.
+    l_part [B,S,H,Tq], float32, contiguous) into [B,H,Tq,D] of ``dtype``
+    (bfloat16, or float32 for K2 at float32).
 
     A CPU tensor runs ``flash_combine_reference``; a CUDA tensor launches
     the combine kernel on the current stream or raises.
     """
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"flash_combine: dtype {dtype}; bfloat16 or float32")
     if not o_part.is_cuda:
-        return flash_combine_reference(o_part, m_part, l_part).to(torch.bfloat16)
+        return flash_combine_reference(o_part, m_part, l_part).to(dtype)
     if o_part.dim() != 5 or m_part.shape != o_part.shape[:4] or l_part.shape != m_part.shape:
         raise ValueError(
             f"flash_combine: shapes {tuple(o_part.shape)}, {tuple(m_part.shape)}, "
@@ -503,7 +596,7 @@ def flash_combine(
             "O 16-byte aligned, D 32 or 64"
         )
     _check_hopper(o_part.device)
-    out = torch.empty(b, h, t_q, d, dtype=torch.bfloat16, device=o_part.device)
+    out = torch.empty(b, h, t_q, d, dtype=dtype, device=o_part.device)
     if out.numel() == 0:
         return out
     _combine(*(t.data_ptr() for t in parts), out, (b, splits, h, t_q, d),

@@ -10,6 +10,14 @@ versions. Inputs are numpy-seeded; float32; tolerance
 
 The hand-written CUDA kernels themselves run only on the card:
 ``tests/test_torch_cuda.py`` holds them against the plain versions there.
+
+The float32 kernels take each operand as three bf16 pieces
+(``split_operands_reference``) and each product as six piece products
+accumulated in float32. ``_split_forward`` is that arithmetic in plain
+PyTorch; held to the card's float32 gate (1e-4 absolute) against the JAX
+package's ``mha_reference`` it passes with a margin of at least 10x, and
+the controls, one bf16 piece per operand or each operand rounded once to
+TF32, fail: they are what the six products buy.
 """
 
 from __future__ import annotations
@@ -152,15 +160,20 @@ def test_flash_varlen_plain_matches_jax_kernel_and_reference(b, h, t_q, t_k, d, 
 
 def test_flash_launch_counters_name_both_kernels():
     """K1, K2, K2's combine pass and the three passes of K1's backward each
-    have a counter; the plain versions on the CPU launch nothing."""
-    assert set(TA.launches) == {"flash_attention", "flash_attention_varlen", "flash_combine",
-                                "flash_attention_bwd_prep", "flash_attention_bwd_dkdv",
-                                "flash_attention_bwd_dq"}
+    have a counter, and again under "_f32" for their float32 launches,
+    beside the float32 routes' operand split; the plain versions on the CPU
+    launch nothing."""
+    routes = {"flash_attention", "flash_attention_varlen", "flash_combine",
+              "flash_attention_bwd_prep", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq"}
+    assert set(TA.launches) == routes | {r + "_f32" for r in routes} | {"flash_split_f32"}
     q = torch.zeros(1, 1, 4, 32)
     before = dict(TA.launches)
     TA.flash_attention(q, q, q, kv_length=torch.tensor([2]))
     TA.flash_combine(torch.zeros(1, 2, 1, 4, 32), torch.zeros(1, 2, 1, 4), torch.ones(1, 2, 1, 4))
     TA.flash_attention_backward(q, q, q, q, causal=True)
+    TA.flash_combine(torch.zeros(1, 2, 1, 4, 32), torch.zeros(1, 2, 1, 4), torch.ones(1, 2, 1, 4),
+                     dtype=torch.float32)
+    TA.split_operands(q)
     assert TA.launches == before, "the plain version on the CPU launches nothing"
 
 
@@ -233,3 +246,142 @@ def test_split_plan_fills_the_card_at_the_streaming_block():
     on the 132 SMs."""
     assert TA.plan_splits(1, 20, 128, 1500) == (4, 3)
     assert 2 * 20 * 4 >= TA.N_SMS
+
+
+# ── float32: the kernels' split-operand arithmetic ──────────────────────
+
+# the six piece products (A's piece, B's piece): hh, hm, mh, mm, hl, lh
+SPLIT_PRODUCTS = [(0, 0), (0, 1), (1, 0), (1, 1), (0, 2), (2, 0)]
+F32_GATE = 1e-4  # chip_smoke.py's TOL["float32"] and tests/test_torch_cuda.py's
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 mantissa bits, to nearest even)."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x0FFF + ((i >> 13) & 1)) & ~0x1FFF).view(torch.float32)
+
+
+def _split_matmul(a: torch.Tensor, b: torch.Tensor, mode: str = "split") -> torch.Tensor:
+    """a @ b as the float32 kernels take it: the six piece products of
+    a's and b's bf16 pieces, each exact in float32, summed in float32
+    ("split"); or the controls, one bf16 piece each ("one") or each
+    operand rounded to TF32 once ("tf32")."""
+    if mode == "tf32":
+        return torch.matmul(_tf32(a), _tf32(b))
+    pa, pb = (TA.split_operands_reference(x.contiguous()).float() for x in (a, b))
+    pairs = SPLIT_PRODUCTS if mode == "split" else [(0, 0)]
+    return sum(torch.matmul(pa[i], pb[j]) for i, j in pairs)
+
+
+def _split_forward(q, k, v, causal, kv_length=None, mode="split"):
+    """K1/K2 at float32 in the kernel's arithmetic: S = Q K^T and the
+    unnormalised P V through ``_split_matmul``, the softmax in float32,
+    P = 2^(x - max) split as it stands, the row sum divided out last; rows
+    with no visible key give zeros."""
+    scale = q.shape[-1] ** -0.5
+    s = _split_matmul(q, k.transpose(-1, -2), mode) * scale
+    t_q, t_k = q.shape[2], k.shape[2]
+    keys = torch.arange(t_k)
+    seen = torch.ones(q.shape[0], 1, t_q, t_k, dtype=torch.bool)
+    if causal:
+        seen = seen & (keys[None, :] <= torch.arange(t_q)[:, None] + (t_k - t_q))
+    if kv_length is not None:
+        seen = seen & (keys[None, :] < kv_length[:, None])[:, None, None, :]
+    s = torch.where(seen, s, -torch.inf)
+    mx = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - torch.where(mx == -torch.inf, 0.0, mx))
+    if kv_length is not None:  # V rows past the length are zeroed before P V
+        v = torch.where((keys[None, :] < kv_length[:, None])[:, None, :, None], v, 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    return _split_matmul(p, v, mode) * torch.where(l > 0, 1.0 / l, 0.0)
+
+
+# (B, H, Tq, Tk, D, causal, lengths): the encoder's square at 512, causal
+# self attention, a cross attention over 512 keys, D 32, K2 at lengths
+# 0 and inside a tile
+F32_FORWARD_CASES = [
+    (1, 2, 512, 512, 64, False, None),
+    (1, 2, 256, 256, 64, True, None),
+    (2, 2, 64, 512, 64, False, None),
+    (1, 2, 256, 256, 32, False, None),
+    (2, 2, 128, 300, 64, False, (0, 257)),
+]
+
+
+@pytest.mark.parametrize("b,h,t_q,t_k,d,causal,lens", F32_FORWARD_CASES)
+def test_f32_split_arithmetic_meets_the_f32_gate_and_the_controls_do_not(b, h, t_q, t_k, d, causal, lens):
+    q, k, v = (torch.from_numpy(x) for x in _qkv(b, h, t_q, t_k, d, seed=t_q + d))
+    kv_length = None if lens is None else torch.tensor(lens)
+    jl = None if lens is None else jnp.asarray(np.asarray(lens, np.int32))
+    ref = np.asarray(JA.mha_reference(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()), jnp.asarray(v.numpy()),
+                                      causal=causal, kv_length=jl))
+    err = {mode: np.abs(_split_forward(q, k, v, causal, kv_length, mode).numpy() - ref).max()
+           for mode in ("split", "one", "tf32")}
+    assert err["split"] <= F32_GATE / 10, f"the split arithmetic: {err['split']:.3e}"
+    assert err["one"] > F32_GATE and err["tf32"] > F32_GATE, f"a control passes: {err}"
+
+
+def test_split_operands_reference_pieces_sum_to_the_input():
+    """hi, mid and lo are bf16 values, each at most half an ulp of the
+    rest, and hi + mid + lo is x to within 2^-24 |x| (to 2^-27 away from
+    the ends of the range)."""
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(4096).astype(np.float32) * 10.0 ** np.arange(
+        -20, 20, 40 / 4096).astype(np.float32))
+    p = TA.split_operands_reference(x)
+    assert p.shape == (3, 4096) and p.dtype == torch.bfloat16
+    whole = p.double().sum(dim=0)
+    assert ((whole - x.double()).abs() <= x.double().abs() * 2.0 ** -24).all()
+    assert (p[1].double().abs() <= p[0].double().abs() * 2.0 ** -8).all()
+    assert (p[2].double().abs() <= p[1].double().abs() * 2.0 ** -8).all()
+
+
+@pytest.mark.parametrize("t_k", [1, 37, 64, 65, 128, 300, 1500])
+@pytest.mark.parametrize("b,h,t_q", [(1, 20, 128), (1, 4, 128), (2, 1, 5), (1, 20, 1500)])
+def test_split_plan_f32_covers_the_keys_in_whole_f32_tiles(b, h, t_q, t_k):
+    """At float32 the plan counts the f32 kernel's tiles: 128 query rows a
+    block, 64 keys a tile."""
+    block_q, block_n = TA.tiles(torch.float32)
+    assert (block_q, block_n) == (TA.F32_BLOCK_Q, TA.F32_BLOCK_N) == (128, 64)
+    splits, per = TA.plan_splits(b, h, t_q, t_k, block_q, block_n)
+    ranges = TA.split_ranges(t_k, per, block_n)
+    assert splits >= 1 and per >= 1 and len(ranges) == splits
+    assert ranges[0][0] == 0 and ranges[-1][1] == t_k
+    for (lo, hi), (nxt, _) in zip(ranges, ranges[1:] + [(t_k, None)]):
+        assert hi == nxt and lo % block_n == 0 and lo < hi
+        assert hi == t_k or hi - lo == per * block_n
+    tiles = -(-t_k // block_n)
+    # at least two tiles per split, and no more splits than the SMs ask for
+    assert per >= 2 or tiles == 1
+    assert splits <= max(1, -(-TA.N_SMS // (b * h * -(-t_q // block_q))))
+
+
+def test_split_plan_f32_at_the_streaming_block():
+    """The streaming block [1,20,128,1500] at float32: 6 splits of 4 tiles
+    of 64 keys, 120 blocks of 128 rows (one per SM); bf16 keeps 4 x 3."""
+    assert TA.plan_splits(1, 20, 128, 1500, *TA.tiles(torch.float32)) == (6, 4)
+    assert TA.plan_splits(1, 20, 128, 1500, *TA.tiles(torch.bfloat16)) == (4, 3)
+
+
+@pytest.mark.parametrize("b,h,t_q,t_k,d,causal,lens", [
+    (2, 2, 128, 1500, 64, False, (128, 1500)),
+    (3, 1, 20, 300, 32, True, (0, 65, 300)),
+])
+def test_f32_split_partials_combine_to_jax_in_float32(b, h, t_q, t_k, d, causal, lens):
+    """K2 at float32: the partials of the f32 plan's splits merged by
+    ``flash_combine_reference`` and by ``flash_combine(dtype=float32)``
+    (its plain version here) equal the JAX package's ``mha_reference``,
+    as float32."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(b, h, t_q, t_k, d, seed=t_k))
+    kv_length = torch.tensor(lens)
+    _, per = TA.plan_splits(b, h, t_q, t_k, *TA.tiles(torch.float32))
+    parts = [TA.flash_attention_partial_reference(q, k, v, lo, hi, causal=causal, kv_length=kv_length)
+             for lo, hi in TA.split_ranges(t_k, per, TA.F32_BLOCK_N)]
+    o_part, m_part, l_part = (torch.stack([p[i] for p in parts], dim=1) for i in range(3))
+    merged = TA.flash_combine_reference(o_part, m_part, l_part)
+    out = TA.flash_combine(o_part, m_part, l_part, dtype=torch.float32)
+    ref = np.asarray(JA.mha_reference(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()), jnp.asarray(v.numpy()),
+                                      causal=causal, kv_length=jnp.asarray(np.asarray(lens, np.int32))))
+    assert out.dtype == torch.float32 and torch.equal(out, merged)
+    np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=0)
+    assert TA.flash_combine(o_part, m_part, l_part).dtype == torch.bfloat16
+

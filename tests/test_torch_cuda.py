@@ -22,7 +22,8 @@ pytestmark = pytest.mark.cuda
 
 # bf16 is held relative to the output's scale (2e-2 of max|ref|), so a
 # dropped kv tile or a mis-scaled row fails even where outputs are small;
-# f32 differs only in summation order
+# f32 runs every product as six bf16 piece products summed in f32 (about
+# 2^-24 of each product's terms, then the sums' rounding in another order)
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
 
@@ -105,8 +106,10 @@ def test_kernel_refuses_what_it_does_not_take(card):
                           v[..., :48].contiguous())
     with pytest.raises(ValueError, match="one CUDA device"):
         A.flash_attention(q, k.cpu(), v)
-    with pytest.raises(ValueError, match="positive scale"):  # bf16 folds it into ex2
+    with pytest.raises(ValueError, match="positive scale"):  # both fold it into ex2
         A.flash_attention(q, k, v, scale=-0.125)
+    with pytest.raises(ValueError, match="positive scale"):
+        A.flash_attention(q.float(), k.float(), v.float(), scale=0.0)
     assert A.launches["flash_attention"] == before
 
 
@@ -211,17 +214,24 @@ def test_kernels_are_deterministic(card, kv):
 
 
 def test_combine_launches_are_counted(card):
-    """The streaming block in bf16 runs K2 over 4 splits and one combine;
-    f32 and a one-split shape launch no combine."""
+    """The streaming block runs K2 over its split plan and one combine: in
+    bf16 4 splits of 128-key tiles, in f32 6 splits of 64-key tiles (its
+    launches also counted under the "_f32" names, beside one operand
+    split); a one-split shape launches no combine."""
     assert A.plan_splits(1, 20, 128, 1500) == (4, 3)
+    assert A.plan_splits(1, 20, 128, 1500, *A.tiles(torch.float32)) == (6, 4)
     lens = torch.tensor([900], dtype=torch.int32, device=card)
     before = dict(A.launches)
-    for dtype, t_k, n_combine in ((torch.bfloat16, 1500, 1), (torch.float32, 1500, 0),
-                                  (torch.bfloat16, 200, 0)):
+    for dtype, t_k, n_combine in ((torch.bfloat16, 1500, 1), (torch.float32, 1500, 1),
+                                  (torch.bfloat16, 200, 0), (torch.float32, 100, 0)):
         q, k, v = _qkv(card, 1, 20, 128, t_k, 64, dtype, seed=6)
         A.flash_attention(q, k, v, kv_length=lens.clamp(max=t_k))
         torch.cuda.synchronize()
+        f32 = int(dtype == torch.float32)
         assert A.launches["flash_combine"] == before["flash_combine"] + n_combine
+        assert A.launches["flash_combine_f32"] == before["flash_combine_f32"] + f32 * n_combine
+        assert A.launches["flash_attention_varlen_f32"] == before["flash_attention_varlen_f32"] + f32
+        assert A.launches["flash_split_f32"] == before["flash_split_f32"] + f32
         before = dict(A.launches)
 
 
@@ -249,8 +259,9 @@ BWD_CASES = [
 
 def _grad_close(got: torch.Tensor, ref: torch.Tensor) -> bool:
     """``got`` against the plain version in f32 on the same inputs. f32:
-    within 1e-4 of max(max|ref|, 1) (summation order over up to Tq or Tk
-    terms). bf16: the kernel accumulates in f32, takes P and dS as two
+    within 1e-4 of max(max|ref|, 1) (six bf16 piece products per product,
+    about 2^-24 of its terms, and f32 sums over up to Tq or Tk terms in
+    another order). bf16: the kernel accumulates in f32, takes P and dS as two
     bf16 halves each and rounds only its outputs, so within half a bf16 ulp
     of ref plus 1e-4 of max|ref| (a kernel that rounded P or dS to bf16
     once reads about 1e-3 there)."""
@@ -342,6 +353,58 @@ def test_combine_kernel_matches_plain_version(card):
     ref = A.flash_combine_reference(o_part, m_part, l_part)
     assert out.dtype == torch.bfloat16 and out.shape == (b, h, t_q, d)
     assert (out.float() - ref).abs().max().item() <= _limit(torch.bfloat16, ref)
+
+
+def test_f32_combine_kernel_matches_plain_version(card):
+    """The combine kernel writing float32 (K2 at float32), one split with no
+    key, against ``flash_combine_reference`` within the f32 bound."""
+    gen = torch.Generator(device=card).manual_seed(8)
+    b, s, h, t_q, d = 2, 6, 4, 128, 64
+    o_part = torch.randn(b, s, h, t_q, d, generator=gen, device=card)
+    m_part = 4 * torch.randn(b, s, h, t_q, generator=gen, device=card)
+    l_part = torch.rand(b, s, h, t_q, generator=gen, device=card) + 0.5
+    o_part[:, 5], m_part[:, 5], l_part[:, 5] = 0.0, float("-inf"), 0.0
+    before = dict(A.launches)
+    out = A.flash_combine(o_part, m_part, l_part, dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert A.launches["flash_combine"] == before["flash_combine"] + 1
+    assert A.launches["flash_combine_f32"] == before["flash_combine_f32"] + 1
+    ref = A.flash_combine_reference(o_part, m_part, l_part)
+    assert out.dtype == torch.float32 and out.shape == (b, h, t_q, d)
+    assert (out - ref).abs().max().item() <= TOL[torch.float32]
+
+
+def test_f32_routes_count_their_launches_and_are_deterministic(card):
+    """A float32 call launches the operand split, then its kernel, each
+    counted under its "_f32" name beside the shared one; two calls give
+    the same bits (K1, K2 with its combine, the backward)."""
+    q, k, v = _qkv(card, 1, 4, 300, 300, 64, torch.float32, seed=10)
+    d_out = torch.randn_like(q)
+    lens = torch.tensor([257], dtype=torch.int32, device=card)
+    before = dict(A.launches)
+    runs = [(A.flash_attention(q, k, v, causal=True), A.flash_attention(q[:, :, :128].contiguous(), k, v, kv_length=lens),
+             *A.flash_attention_backward(q, k, v, d_out, causal=True)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    for name, n in (("flash_attention", 2), ("flash_attention_varlen", 2), ("flash_split_f32", 6),
+                    *((stage, 2) for stage in A.BWD_STAGES)):
+        assert A.launches[name] == before[name] + n, name
+        if name != "flash_split_f32":
+            assert A.launches[name + "_f32"] == before[name + "_f32"] + n, name
+
+
+def test_f32_varlen_kernel_ignores_keys_past_the_length(card):
+    """At float32 the split leaves the caches' rows past the length
+    unwritten and the kernel never reads them as values: NaN there changes
+    nothing, in the last split and in an inner one."""
+    q, k, v = _qkv(card, 1, 2, 128, 1500, 64, torch.float32, seed=11)
+    for n in (200, 1300):
+        lens = torch.tensor([n], dtype=torch.int32, device=card)
+        clean = A.flash_attention(q, k, v, kv_length=lens)
+        kd, vd = k.clone(), v.clone()
+        kd[:, :, n:] = float("nan")
+        vd[:, :, n:] = float("nan")
+        assert torch.equal(clean, A.flash_attention(q, kd, vd, kv_length=lens))
 
 
 def test_varlen_kernel_refuses_bad_lengths(card):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Times the port's flash kernels (K1, K2) on the card for one checkout.
 
-    python3 tools/torch_flash_bench.py [--root DIR] [--label NAME]
+    python3 tools/torch_flash_bench.py [--root DIR] [--label NAME] [--f32-only]
 
 Imports ``open_speech_tpu_torch`` from the checkout at DIR (default: this
 one), builds its kernels from source and prints each kernel's registers and
@@ -12,6 +12,11 @@ spills (from ``nvcc -Xptxas -v``), then one JSON line:
     700 and 1500 (the wrapper's time: K2's split kernel and its combine);
   - ``F.scaled_dot_product_attention`` on the same inputs (K2: on the valid
     prefix), as a yardstick;
+  - the same in float32 (``STT_COMPUTE_TYPE=float32``, fine-tuning with
+    float32 params): K1 and K2 at those shapes, each beside its plain
+    version, SDPA on the same float32 inputs (the SDPA backend it took is
+    named) and both bounds, the CUDA-core one (67 TFLOP/s) and the split
+    one (three TF32 products per float32 product at 495 TFLOP/s);
   - the wrapper's host microseconds per call (median and least of 5 x 1000
     calls, no sync) for a beam-5 prefill [5,20,3,3,64] (K1) and the
     streaming block at length 700 (K2);
@@ -20,7 +25,7 @@ spills (from ``nvcc -Xptxas -v``), then one JSON line:
     wall ms per call with a sync after it, median and least of 20, for a
     committed block at position 0 and the clamped tail block at 1372.
 
-``--host-only`` prints only the host numbers, from kernels already built:
+``--f32-only`` prints only the float32 lines. ``--host-only`` prints only the host numbers, from kernels already built:
 the host is shared and its speed drifts between processes, so a comparison
 of host costs alternates the two checkouts over several processes.
 
@@ -81,6 +86,72 @@ def block_encode_ms(reps: int = 20) -> dict:
     return res
 
 
+def sdpa_backend(*args, **kwargs) -> str:
+    """The backend ``F.scaled_dot_product_attention`` takes for these
+    arguments: the first of PyTorch's priority order that accepts them
+    when it is the only one allowed."""
+    import warnings
+
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    try:
+        order = [SDPBackend(int(b)) for b in torch._C._get_sdp_priority_order()]
+    except (AttributeError, TypeError, ValueError):
+        order = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH]
+    for backend in order:
+        try:
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # each refusal warns why
+                F.scaled_dot_product_attention(*args, **kwargs)
+            return backend.name
+        except RuntimeError:
+            continue
+    return "none"
+
+
+def f32_times(C, A, gen) -> dict:
+    """K1 at the encoder shape and K2 at the streaming block's four lengths
+    in float32: the wrapper per call and in device time, the plain version,
+    SDPA on the same inputs (K2: the valid prefix) and both bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    res = {}
+
+    def timed(key: str, fn, plain=None) -> None:
+        res[f"{key}_ms"] = C.cuda_ms(fn)
+        res[f"{key}_device_ms"] = C.cuda_ms(fn, held=True)
+        if plain is not None:
+            res[f"{key}_plain_ms"] = C.cuda_ms(plain, iters=5, warmup=1)
+
+    def bounds(key: str, *shape, lengths=None) -> None:
+        for route in ("cuda_core", "split"):
+            ms, by = C._flash_bound_ms(*shape, 4, lengths, split=route == "split")
+            res[f"{key}_bound_{route}_ms"], res[f"{key}_bound_{route}_by"] = ms, by
+
+    q, k, v = randn(1, 20, 1500, 64), randn(1, 20, 1500, 64), randn(1, 20, 1500, 64)
+    timed("k1_f32", lambda: A.flash_attention(q, k, v), lambda: A.flash_attention_reference(q, k, v))
+    timed("k1_f32_sdpa", lambda: F.scaled_dot_product_attention(q, k, v))
+    res["k1_f32_sdpa_backend"] = sdpa_backend(q, k, v)
+    bounds("k1_f32", 1, 20, 1500, 1500, 64, False)
+    q2, kc, vc = randn(1, 20, 128, 64), randn(1, 20, 1500, 64), randn(1, 20, 1500, 64)
+    for n in (128, 256, 700, 1500):
+        lens = torch.tensor([n], dtype=torch.int32, device="cuda")
+        kp, vp = kc[:, :, :n], vc[:, :, :n]
+        timed(f"k2_f32_{n}", lambda: A.flash_attention(q2, kc, vc, kv_length=lens),
+              lambda: A.flash_attention_varlen_reference(q2, kc, vc, lens))
+        timed(f"k2_f32_sdpa_{n}", lambda: F.scaled_dot_product_attention(q2, kp, vp))
+        res[f"k2_f32_sdpa_{n}_backend"] = sdpa_backend(q2, kp, vp)
+        bounds(f"k2_f32_{n}", 1, 20, 128, 1500, 64, False, lengths=[n])
+    res["allow_tf32"] = torch.backends.cuda.matmul.allow_tf32
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(REPO), help="checkout whose package is timed")
@@ -88,6 +159,7 @@ def main(argv=None) -> int:
     ap.add_argument("--host-only", action="store_true",
                     help="only the host times (wrapper us per call, block encode ms), "
                          "on kernels already built")
+    ap.add_argument("--f32-only", action="store_true", help="only the float32 lines")
     args = ap.parse_args(argv)
 
     import torch
@@ -120,6 +192,10 @@ def main(argv=None) -> int:
         res[f"{key}_device_ms"] = C.cuda_ms(fn, held=True)
 
     res = {"label": args.label, "device": smi}
+    if args.f32_only:
+        res.update(f32_times(C, A, gen))
+        print(json.dumps(res))
+        return 0
     q, k, v = randn(1, 20, 1500, 64), randn(1, 20, 1500, 64), randn(1, 20, 1500, 64)
     q2, kc, vc = randn(1, 20, 128, 64), randn(1, 20, 1500, 64), randn(1, 20, 1500, 64)
     if not args.host_only:
@@ -136,6 +212,8 @@ def main(argv=None) -> int:
     lens = torch.tensor([700], dtype=torch.int32, device="cuda")
     res["k2_host_us"], res["k2_host_us_least"] = C.host_us(
         lambda: A.flash_attention(q2, kc, vc, kv_length=lens))
+    if not args.host_only:
+        res.update(f32_times(C, A, gen))
     res.update(block_encode_ms())
     print(json.dumps(res))
     return 0

@@ -8,8 +8,10 @@ Checks the device, builds the kernels from ``kernels/csrc`` and runs
 ``chip_smoke.phase_train``: 18a the three backward kernels against
 ``flash_attention_backward_reference`` with their times, 18b test-tiny
 card against CPU, 18c the full-width whisper-large-v3-turbo step (walls,
-peak memory, launches, kernel-routed against plain-routed gradients); then
-the backward kernels' JSON entries, 18c's launches and the phase's seconds.
+peak memory, launches, kernel-routed against plain-routed gradients), 18d
+the same step with float32 params through the float32 kernels; then the
+backward kernels' JSON entries (bf16 and float32), 18c's and 18d's
+launches and the phase's seconds.
 Needs CUDA (~70 s of command time).
 """
 
