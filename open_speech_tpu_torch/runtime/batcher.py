@@ -62,6 +62,7 @@ from open_speech_tpu_torch.models.whisper.model import (
     precompute_cross_kv_dense,
 )
 from open_speech_tpu_torch.models.whisper.tokenizer import SpecialTokens
+from open_speech_tpu_torch.runtime import tracing
 
 # the KV pools' type (bf16 halves the pool the tick reads every step)
 _CACHE_DTYPE = torch.bfloat16
@@ -278,7 +279,10 @@ class ContinuousBatcher:
         # bumped whenever in-flight work is failed; a tick that observes a
         # stale epoch discards its results instead of racing _fail_all
         self._epoch = 0
-        self.stats = {"ticks": 0, "completed": 0, "peak_occupancy": 0, "tokens": 0}
+        self.stats = {"ticks": 0, "completed": 0, "peak_occupancy": 0, "tokens": 0,
+                      "admissions": 0, "admitted": 0}
+        # the window ids of the admission in flight, while spans are recorded
+        self._admitting: tuple[int, ...] = ()
 
     # ── public API ────────────────────────────────────────────────────
 
@@ -319,7 +323,11 @@ class ContinuousBatcher:
             max_new_tokens or self.max_new_tokens,
             self._cache_len - len(self._prompt) - 1,
         )
-        await self._queue.put((mel, budget, future))
+        queued = None
+        if tracing.on():
+            # the caller's window id (``transcribe_pcm_batched``), else a new one
+            queued = tracing.begin("batcher.queue", (tracing.window.get() or tracing.window_id(),))
+        await self._queue.put((mel, budget, future, queued))
         return await future
 
     @property
@@ -380,7 +388,7 @@ class ContinuousBatcher:
 
     def _drain_queue(self, exc: Exception) -> None:
         while not self._queue.empty():  # pending submissions never ran
-            _mel, _max_new, future = self._queue.get_nowait()
+            future = self._queue.get_nowait()[2]
             if not future.done():
                 future.get_loop().call_soon_threadsafe(_set_exception_if_pending, future, exc)
 
@@ -434,11 +442,16 @@ class ContinuousBatcher:
         """
         free = [i for i in range(self.n_slots) if not self._active[i]]
         batch: list[tuple[int, torch.Tensor, int, asyncio.Future]] = []
+        windows = []
         while free and not self._queue.empty():
-            mel, max_new, future = self._queue.get_nowait()
+            mel, max_new, future, queued = self._queue.get_nowait()
+            if queued is not None:  # recorded: the window's wait ends here
+                tracing.end(queued)
+                windows.append(queued.ids[0])
             batch.append((free.pop(0), mel, max_new, future))
         if not batch:
             return False
+        self._admitting = tuple(windows)
         loop = asyncio.get_running_loop()
         try:
             # all device work stays off the event loop
@@ -457,6 +470,9 @@ class ContinuousBatcher:
     @torch.no_grad()
     def _admit_device(self, batch) -> None:
         """Executor-thread half of admission (device work and state)."""
+        span = None
+        if tracing.on():
+            span = tracing.begin("batcher.admit", self._admitting, child="admit.encode")
         with self._on_stream():
             mels = torch.stack([b[1].to(self.device, torch.float32) for b in batch])
             enc_out = encode(self.model, mels, self.cfg)
@@ -483,6 +499,8 @@ class ContinuousBatcher:
             # token, which its next tick writes again before reading it.
             # The last prompt token stays queued in _tokens: the next
             # tick's first sub-step consumes it.
+            if span is not None:
+                span.next("admit.feed")
             for i in range(len(prompt) - 1):
                 for slot, *_ in batch:
                     self._tokens[slot] = prompt[i]
@@ -495,6 +513,10 @@ class ContinuousBatcher:
                     self._pos[slot] += 1
             for slot, *_ in batch:
                 self._tokens[slot] = prompt[-1]
+        self.stats["admissions"] += 1
+        self.stats["admitted"] += len(batch)
+        if span is not None:
+            tracing.end(span, len(batch))
 
     def _tick(self) -> None:
         """Advance all live slots ``steps_per_tick`` positions (executor).
@@ -503,6 +525,9 @@ class ContinuousBatcher:
         host sync then drains the [K, S] token block into the per-slot
         result lists.
         """
+        span = tokens = None
+        if tracing.on():
+            span, tokens = tracing.begin("batcher.tick", child="tick.enqueue"), self.stats["tokens"]
         epoch = self._epoch
         with self._on_stream():
             state = self._state_to_device()
@@ -516,11 +541,17 @@ class ContinuousBatcher:
                 max_init_tok=self._max_init_tok,
                 blank=self._blank,
             )
+            if span is not None:
+                span.next("tick.sync")
             packed = packed.cpu().numpy()  # the ONE host sync per tick
         if epoch != self._epoch:
             # stop()/_fail_all ran while this tick was in flight: its slots
             # were failed already, and applying this state would revive them
+            if span is not None:
+                tracing.end(span, 0)
             return
+        if span is not None:
+            span.next("tick.drain")
         k = self.steps_per_tick
         emitted = packed[:k]  # [K, S]
         # the device state is authoritative after the block; mirror it
@@ -549,3 +580,5 @@ class ContinuousBatcher:
                     )
                     break
         self.stats["ticks"] += 1
+        if span is not None:
+            tracing.end(span, self.stats["tokens"] - tokens)

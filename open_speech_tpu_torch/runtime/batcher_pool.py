@@ -17,6 +17,7 @@ import torch
 
 from open_speech_tpu_torch.config import settings
 from open_speech_tpu_torch.ops.mel import log_mel_spectrogram, pad_or_trim
+from open_speech_tpu_torch.runtime import tracing
 from open_speech_tpu_torch.runtime.batcher import ContinuousBatcher
 
 logger = logging.getLogger(__name__)
@@ -147,7 +148,10 @@ async def transcribe_pcm_batched(
 ) -> dict:
     """One utterance window through the shared batcher: mel framing,
     duration-scaled token budget, token decode. The batched-STT entry the
-    streaming session submits through."""
+    streaming session submits through. While spans are recorded
+    (``runtime/tracing.py``) the window gets an id, which its mel front end
+    and its spans in the batcher carry."""
+    wid = tracing.window_id() if tracing.on() else None
     loop = asyncio.get_running_loop()
     entry = await loop.run_in_executor(None, backend._ensure_model, model_id)
     cfg, tok = entry["cfg"], entry["tok"]
@@ -158,12 +162,21 @@ async def transcribe_pcm_batched(
     def _mel() -> torch.Tensor:
         # device work stays off the event loop; the window stays on the
         # device for the admission's encode
+        span = tracing.begin("stt.mel", (wid,)) if wid is not None else None
         audio = torch.from_numpy(np.asarray(pcm, np.float32)).to(batcher.device)
-        return log_mel_spectrogram(pad_or_trim(audio, window_samples), n_mels=cfg.n_mels)
+        mel = log_mel_spectrogram(pad_or_trim(audio, window_samples), n_mels=cfg.n_mels)
+        if span is not None:
+            tracing.end(span)
+        return mel
 
     mel = await loop.run_in_executor(None, _mel)
     budget = -(-min(224, int(duration_s * 12) + 12) // 16) * 16
-    tokens = await batcher.transcribe_window(mel, max_new_tokens=budget)
+    token = tracing.window.set(wid) if wid is not None else None
+    try:
+        tokens = await batcher.transcribe_window(mel, max_new_tokens=budget)
+    finally:
+        if token is not None:
+            tracing.window.reset(token)
     return {"text": tok.decode(tokens).strip()}
 
 

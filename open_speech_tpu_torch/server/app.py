@@ -23,7 +23,8 @@ aiohttp and no pydantic):
 - ``POST /api/profiler/start`` and ``/api/profiler/stop``: a
   ``torch.profiler`` trace of the whole process, CUDA kernels included when
   the routers are on the card, written as a Chrome trace into ``dir`` (or
-  ``OS_PROFILE_DIR``);
+  ``OS_PROFILE_DIR``) with the program's spans (``runtime/tracing.py``)
+  beside the kernels;
 - the Studio (``studio/``): the voice library (``/api/voices/library``),
   ``/api/voice-presets`` (``TTS_VOICES_CONFIG``'s YAML or the defaults),
   profiles, history, conversations (rendered turn by turn through the
@@ -73,6 +74,7 @@ import concurrent.futures
 import dataclasses
 import functools
 import inspect
+import json
 import logging
 import os
 import time
@@ -85,6 +87,7 @@ from open_speech_tpu_torch.audio.encode import encode_audio
 from open_speech_tpu_torch.audio.postprocessing import process_tts_chunks
 from open_speech_tpu_torch.cache.tts_cache import TTSCache
 from open_speech_tpu_torch.config import settings
+from open_speech_tpu_torch.runtime import tracing
 from open_speech_tpu_torch.runtime.batcher_pool import pool_stats, shutdown_batchers
 from open_speech_tpu_torch.runtime.lifecycle import ModelLifecycleManager
 from open_speech_tpu_torch.runtime.model_manager import (
@@ -645,12 +648,27 @@ def _start_trace(trace_dir: str, on_card: bool):
     os.makedirs(trace_dir, exist_ok=True)
     prof = profile(activities=activities)
     prof.start()
+    tracing.start()
     return prof
 
 
 def _stop_trace(prof, trace_dir: str) -> None:
+    """Stop the trace and export it, with the program's spans recorded
+    during it (``runtime/tracing.py``) as complete events on their threads,
+    on the trace's clock."""
     prof.stop()
-    prof.export_chrome_trace(os.path.join(trace_dir, f"open_speech_{time.time_ns()}.pt.trace.json"))
+    spans = tracing.stop()
+    if tracing.dropped():
+        logger.warning("profiler: %d program spans past the recorder's cap left out",
+                       tracing.dropped())
+    path = os.path.join(trace_dir, f"open_speech_{time.time_ns()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    trace["traceEvents"] += tracing.chrome_events(
+        spans, int(trace.get("baseTimeNanoseconds", 0)), os.getpid())
+    with open(path, "w") as f:
+        json.dump(trace, f)
 
 
 async def profiler_start(request: Request) -> Response:

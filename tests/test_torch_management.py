@@ -24,8 +24,9 @@ JAX package on the CPU.
   Pocket from both routers.
   Kokoro is marked loaded without weights: no route here synthesizes. A download is a load then an unload of a fixture
   checkpoint on disk: nothing is fetched.
-- **The profiler's 409 guards**, and the port's refusal to start without
-  the card's activity when its routers are on the card.
+- **The profiler's 409 guards**, the program's spans in the port's
+  exported trace, and the port's refusal to start without the card's
+  activity when its routers are on the card.
 """
 
 from __future__ import annotations
@@ -847,6 +848,51 @@ def test_profiler_guards_match_the_jax_app(served, tmp_path):
     [trace] = Path(trace_dir).glob("open_speech_*.pt.trace.json")
     events = json.loads(trace.read_text())["traceEvents"]
     assert not [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def test_profiler_trace_holds_the_program_spans(served, tmp_path):
+    """A span recorded on an executor thread between the routes' start and
+    stop is in the exported Chrome trace as a complete event on that
+    thread, on the trace's clock (``ts`` in microseconds from
+    ``baseTimeNanoseconds``); the stop leaves the recorder off."""
+    from open_speech_tpu_torch.runtime import tracing
+
+    trouter, tts, _, _ = served
+    trace_dir = tmp_path / "trace"
+
+    def record():
+        span = tracing.begin("stt.mel", (7,)) if tracing.on() else None
+        if span is not None:
+            tracing.end(span)
+        return span
+
+    async def run():
+        app = TAPP.create_app(stt_router=trouter, tts_router=tts)
+        from open_speech_tpu_torch.server.http import serve_app
+        import aiohttp
+
+        server = await serve_app(app, "127.0.0.1", 0)
+        try:
+            async with aiohttp.ClientSession() as session:
+                base = f"http://127.0.0.1:{server.port}/api/profiler"
+                async with session.post(f"{base}/start", json={"dir": str(trace_dir)}) as resp:
+                    assert resp.status == 200
+                span = await asyncio.get_running_loop().run_in_executor(None, record)
+                async with session.post(f"{base}/stop") as resp:
+                    assert resp.status == 200
+                return span
+        finally:
+            await server.close()
+            await app.cleanup()
+
+    span = asyncio.run(run())
+    assert span is not None and not tracing.on()
+    [path] = trace_dir.glob("open_speech_*.pt.trace.json")
+    trace = json.loads(path.read_text())
+    [ev] = [e for e in trace["traceEvents"] if e.get("cat") == "program_span"]
+    assert (ev["ph"], ev["name"], ev["tid"], ev["args"]["ids"]) == ("X", "stt.mel", span.tid, [7])
+    assert int(trace["baseTimeNanoseconds"]) + ev["ts"] * 1e3 == pytest.approx(span.start_ns, abs=1e3)
+    assert ev["dur"] * 1e3 == pytest.approx(span.end_ns - span.start_ns, abs=1e3)
 
 
 def test_profiler_on_the_card_requires_device_activity(served, monkeypatch):
