@@ -24,7 +24,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
      product six bf16 wgmma piece products): K1 at the encoder and K2 at the
      streaming block's four lengths (per call, device, plain, SDPA on the
      same float32 inputs, the CUDA-core and the split-operand bound), the
-     f32 combine and the split against their plain versions.
+     f32 combine and the split against their plain versions. The decode
+     attention kernel at the batcher's cross and self shapes and at the
+     REST path's five folded beams (its key split and combine): against its
+     plain version, per call, device, plain, SDPA over the same keys, the
+     bytes bound and the wrapper's host time per call.
   4. REST path: whisper-large-v3-turbo (random weights from seed 0, bf16)
      through the port's router with the REST defaults (beam 5, temperature
      fallback), at full width, loaded with ``OS_STT_BATCHED_LONGFORM`` on;
@@ -45,8 +49,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
      the incremental path fell back to the executor. S3: eight concurrent
      sessions of 8 s paced PCM16 through the continuous batcher
      (``OS_BATCHER_ENABLED``, incremental encoder off); every pass must go
-     through the batcher, and each tick may sync with the host once (CUDA's
-     sync debug mode counts the syncs of ticks run on this thread).
+     through the batcher, every step of its ticks must launch the decode
+     attention kernel twice a decoder layer (none through the plain int8
+     route), and each tick may sync with the host once (CUDA's sync debug
+     mode counts the syncs of ticks run on this thread).
   6. fixture: the trained tiny checkpoint ``tests/fixtures/test-tiny-eot``
      in float32 on the card against the CPU; REST tokens, streaming session
      events, the batcher's tokens (and B=1 greedy's) and a 75 s batched
@@ -398,6 +404,15 @@ def phase_build() -> None:
                                  f"({len(kernels)} kernels read from ptxas)")
 
 
+def _flash_launches() -> dict:
+    """The flash kernels' launch counts (K1, K2, the combine, K1's backward,
+    the operand split): every counter but decode attention's, whose kernel
+    the Pocket LM's steps launch too."""
+    from open_speech_tpu_torch.ops import attention as A
+
+    return {k: n for k, n in A.launches.items() if k not in A.DECODE_ROUTES}
+
+
 # ── phase 3: kernels against their plain versions ────────────────────────
 
 # (B, H, Tq, Tk, D, causal): the encoder, the decoder prefill at the prompt
@@ -544,7 +559,7 @@ def phase_kernels() -> list[dict]:
     }
     varlen = _phase_kernels_varlen(gen)
     f32[0]["max_abs_err"], f32[1]["max_abs_err"] = worst_f32, varlen.pop("max_abs_err_f32")
-    return [k1, varlen, _phase_kernels_combine(gen), *f32]
+    return [k1, varlen, _phase_kernels_combine(gen), *f32, _phase_kernels_decode(gen)]
 
 
 F32_LENGTHS = (128, 256, 700, 1500)  # K2 f32 at the streaming block
@@ -824,6 +839,87 @@ def _phase_kernels_combine(gen) -> dict:
     }
 
 
+# decode attention, (name, B, H, Tq, T_max, D, lengths): the batcher's cross
+# attention (every window's 1500 encoder positions), its self attention (the
+# 256-position pool at ragged lengths drawn below), and the REST path's
+# cross attention with five beams folded into the query axis (B*H = 20: the
+# key split and the combine)
+DECODE_SHAPES = [
+    ("batcher cross", 64, 20, 1, 1500, 64, "full"),
+    ("batcher self", 64, 20, 1, 256, 64, "ragged"),
+    ("REST fold", 1, 20, 5, 1500, 64, "full"),
+]
+
+
+def _phase_kernels_decode(gen) -> dict:
+    """The decode attention kernel against its plain version at the served
+    shapes, bf16: per call, device with the queue held, the plain version,
+    SDPA over the same valid keys (a mask where the lengths are ragged) as
+    the library yardstick (timed only; the port never calls it), the bytes bound (K and V of the valid keys read
+    once, q read and the output written once) and the wrapper's host time
+    per call."""
+    import torch
+    import torch.nn.functional as F
+
+    from open_speech_tpu_torch.ops import attention as A
+
+    entry = None
+    for name, b, h, t_q, t_max, d, lengths in DECODE_SHAPES:
+        q = torch.randn(b, t_q, h, d, generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+        k, v = (torch.randn(b, h, t_max, d, generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        if lengths == "full":
+            lens, mask = torch.full((b,), t_max, dtype=torch.long, device="cuda"), None
+        else:
+            lens = torch.randint(1, t_max + 1, (b,), generator=gen, device="cuda")
+            mask = (torch.arange(t_max, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+        out = A.decode_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+        ref = A.decode_attention_reference(q, k, v, lens)
+        err = (out.float() - ref.float()).abs().max().item()
+        limit = 1e-2 * ref.abs().max().item()  # tests/test_torch_cuda.py:_decode_limit
+        if not (out.shape == (b, h, t_q, d) and err <= limit):
+            raise AssertionError(f"decode_attention {name} [{b},{h},{t_q},{t_max},{d}]: "
+                                 f"max_abs_err {err:.3e} > {limit:.3e}")
+        kernel_ms = cuda_ms(lambda: A.decode_attention(q, k, v, lens))
+        device_ms = cuda_ms(lambda: A.decode_attention(q, k, v, lens), held=True)
+        plain_ms = cuda_ms(lambda: A.decode_attention_reference(q, k, v, lens), iters=10)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+        library_device_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                                    held=True)
+        keys = int(lens.clamp(max=t_max).sum().item())
+        nbytes = 2 * h * keys * d * 2 + 2 * b * h * t_q * d * 2 + b * 8
+        bound_ms = 1e3 * nbytes / H100_BYTES_PER_S
+        splits, per = A.plan_decode_splits(b, h, t_q, t_max)
+        med, least = host_us(lambda: A.decode_attention(q, k, v, lens))
+        log(f"decode_attention bf16 {name} [{b},{h},{t_q},{t_max},{d}] keys read {keys}: max_abs_err "
+            f"{err:.3e} (tol {limit:.3e}) kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} "
+            f"library_ms {library_ms:.4f} bound_ms {bound_ms:.4f} (bytes, {nbytes / 1e6:.1f} MB) "
+            f"share_of_bound {bound_ms / kernel_ms:.4f}; device_ms (queue held) kernel "
+            f"{device_ms:.4f} library {library_device_ms:.4f}, share_of_bound "
+            f"{bound_ms / device_ms:.4f}, GB/s {nbytes / device_ms / 1e6:.0f}; splits {splits} x "
+            f"{per} keys, blocks {b * h * -(-t_q // A.DECODE_ROWS) * splits}; host_us per call "
+            f"{med:.2f} median, "
+            f"{least:.2f} least")
+        if entry is None:  # the row of PERF.md's kernel table: the batcher's cross attention
+            entry = {
+                "name": "decode_attention",
+                "route": "cuda",
+                "source": "open_speech_tpu_torch/kernels/csrc/decode_attention.cu",
+                "replaces": None,
+                "launches": 0,
+                "max_abs_err": err,
+                "ms": kernel_ms,
+                "device_ms": device_ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": "bytes",
+                "library_ms": library_ms,
+            }
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    return entry
+
+
 def main() -> int:
     import torch
 
@@ -853,11 +949,11 @@ def main() -> int:
     timed("6 (fixture)", phase_fixture)
     from open_speech_tpu_torch.ops import attention as A
 
-    before = dict(A.launches)
+    before = _flash_launches()
     timed("7 (kokoro)", phase_kokoro)
     timed("8 (kokoro serving)", phase_kokoro_serving)
-    if dict(A.launches) != before:  # Kokoro has no hand kernel on its path
-        raise AssertionError(f"kokoro launched the flash kernels: {before} -> {dict(A.launches)}")
+    if _flash_launches() != before:  # Kokoro has no hand kernel on its path
+        raise AssertionError(f"kokoro launched the flash kernels: {before} -> {_flash_launches()}")
     log(f"kokoro serving T-d: flash launch counts unchanged through phases 7 and 8: {before}")
     timed("9 (int8)", phase_int8, router)
     timed("10 (speculative)", phase_spec)
@@ -1305,13 +1401,13 @@ def phase_streaming(router) -> dict:
     try:
         s1 = _stream_s1(router, entry, executor_calls)
         s2 = _stream_s2(router)
-        s3 = _stream_s3(router, executor_calls)
+        s3_k1, s3_decode = _stream_s3(router, executor_calls)
         _batcher_sync_probe(entry)
     finally:
         entry["tok"] = real_tok
         router.transcribe = real_transcribe
     return {"flash_attention_varlen": s1[0] + s2[0], "flash_combine": s1[1] + s2[1],
-            "flash_attention": s3}
+            "flash_attention": s3_k1, "decode_attention": s3_decode}
 
 
 def _stream_s1(router, entry: dict, executor_calls: list) -> tuple[int, int]:
@@ -1492,10 +1588,12 @@ S3_SESSIONS = 8
 S3_SECONDS = 8.0
 
 
-def _stream_s3(router, executor_calls: list) -> int:
+def _stream_s3(router, executor_calls: list) -> tuple[int, int]:
     """Eight concurrent sessions of 8 s paced PCM16 through the continuous
     batcher: OS_BATCHER_ENABLED on, incremental encoder off, language en,
-    VAD off, interims on. Returns the K1 launches (admission encodes)."""
+    VAD off, interims on. Returns the K1 launches (admission encodes) and
+    the decode attention kernel's (two a decoder layer per step: every
+    tick's steps and every prompt feed's)."""
     import torch
 
     from open_speech_tpu_torch.config import settings
@@ -1550,7 +1648,7 @@ def _stream_s3(router, executor_calls: list) -> int:
         settings.os_batcher_enabled, settings.os_stream_incremental = False, True
         Bt.ContinuousBatcher.transcribe_window, Bt.ContinuousBatcher._tick = real_window, real_tick
         S.transcribe_pcm_batched = real_pcm
-    n_k1 = A.launches["flash_attention"]
+    n_k1, n_decode = A.launches["flash_attention"], A.launches["decode_attention"]
 
     finals_at = []
     for i, ws in enumerate(wss):
@@ -1571,6 +1669,12 @@ def _stream_s3(router, executor_calls: list) -> int:
     if b["peak_occupancy"] < 2 or len(tick_s) != b["ticks"] or n_k1 <= 0:
         raise AssertionError(f"S3: peak occupancy {b['peak_occupancy']}, ticks {b['ticks']} "
                              f"({len(tick_s)} timed), K1 launches {n_k1}")
+    per_step = 2 * router.get_backend(MAIN_MODEL)._ensure_model(MAIN_MODEL)["cfg"].n_text_layer
+    tick_steps = b["ticks"] * max(1, settings.os_batch_steps_per_tick)
+    if n_decode < per_step * tick_steps or n_decode % per_step or A.launches["decode_attention_int8"]:
+        raise AssertionError(f"S3: decode attention launches {n_decode}, want a multiple of "
+                             f"{per_step} and at least {per_step} x {tick_steps} tick steps; "
+                             f"plain int8 route {A.launches['decode_attention_int8']}")
     turnaround = [t for ws in wss for t in ws.turnaround]
     passes = [t for ws in wss for t in ws.passes]
     log(f"stream S3 {S3_SESSIONS} sessions x {S3_SECONDS} s pcm16 paced through the continuous "
@@ -1578,12 +1682,12 @@ def _stream_s3(router, executor_calls: list) -> int:
         f"transcriptions {transcriptions} (all through the batcher, executor fallbacks 0) "
         f"completed {b['completed']} ticks {b['ticks']} peak_occupancy {b['peak_occupancy']} "
         f"tokens {b['tokens']} tokens_per_tick {b['tokens'] / max(b['ticks'], 1):.3f} "
-        f"K1 launches {n_k1}")
+        f"K1 launches {n_k1} decode attention launches {n_decode}")
     log(f"stream S3 tick ms: {_p50_max([1e3 * t for t in tick_s])}; interim turnaround "
         f"(newest chunk -> transcript event, {len(turnaround)} passes) s: "
         f"{_p50_max(turnaround)}; every pass s: {_p50_max(passes)}; final latency after "
         f"stop s: {_p50_max(finals_at)}")
-    return n_k1
+    return n_k1, n_decode
 
 
 def _count_syncs(fn) -> list[str]:
@@ -4208,12 +4312,12 @@ def phase_piper() -> None:
     kernel is launched."""
     from open_speech_tpu_torch.ops import attention as A
 
-    before = dict(A.launches)
+    before = _flash_launches()
     _piper_model()
     _piper_effects()
     _piper_served()
-    if dict(A.launches) != before:
-        raise AssertionError(f"piper 14: flash launches moved: {before} -> {dict(A.launches)}")
+    if _flash_launches() != before:
+        raise AssertionError(f"piper 14: flash launches moved: {before} -> {_flash_launches()}")
     log(f"piper 14: flash launch counts unchanged through phase 14: {before}")
 
 
@@ -4673,12 +4777,13 @@ def phase_pocket() -> None:
     design; whole and streamed; the speaker again with the batcher on) and
     the clone route against direct backend calls, capabilities, voices,
     Wyoming describe, and the load and unload routes giving the card's
-    memory back. Fails if a flash kernel is launched."""
+    memory back. Fails if a flash kernel is launched, or if the LM's steps
+    launch no decode attention kernel."""
     import gc
 
     from open_speech_tpu_torch.ops import attention as A
 
-    before = dict(A.launches)
+    before, decode = _flash_launches(), A.launches["decode_attention"]
     host, card = _pocket_models()
     state = _pocket_card_vs_cpu(host, card)
     del host
@@ -4687,9 +4792,13 @@ def phase_pocket() -> None:
     _pocket_batcher(card, state)
     del card, state
     _pocket_served()
-    if dict(A.launches) != before:
-        raise AssertionError(f"pocket 15: flash launches moved: {before} -> {dict(A.launches)}")
-    log(f"pocket 15: flash launch counts unchanged through phase 15: {before}")
+    if _flash_launches() != before:
+        raise AssertionError(f"pocket 15: flash launches moved: {before} -> {_flash_launches()}")
+    decode = A.launches["decode_attention"] - decode
+    if not decode or A.launches["decode_attention_int8"]:
+        raise AssertionError(f"pocket 15: the LM's steps launched the decode attention kernel {decode} times")
+    log(f"pocket 15: flash launch counts unchanged through phase 15: {before}; the LM's steps launched "
+        f"the decode attention kernel {decode} times")
 
 
 def _pocket_models():
@@ -5486,15 +5595,15 @@ def phase_diarize(router) -> dict:
 
     from open_speech_tpu_torch.ops import attention as A
 
-    before = dict(A.launches)
+    before = _flash_launches()
     card, host, plain_card, plain_host = _diarizers()
     _diarize_stages(card, host, plain_card, plain_host)
     _diarize_whole(card, host, plain_card, plain_host)
     del host, plain_host
     gc.collect()
     _diarize_speed(card, plain_card)
-    if dict(A.launches) != before:
-        raise AssertionError(f"diarize 16: flash launches moved: {before} -> {dict(A.launches)}")
+    if _flash_launches() != before:
+        raise AssertionError(f"diarize 16: flash launches moved: {before} -> {_flash_launches()}")
     log(f"diarize 16: flash launch counts unchanged through 16a and 16b: {before}")
     return _diarize_served(router, card, plain_card)
 
@@ -5904,12 +6013,12 @@ def phase_studio(router, tts) -> dict:
     try:
         with _Served(router, tts) as served:
             launches = _studio_history_and_cache(router, tts, served)
-            before = dict(A.launches)
+            before = _flash_launches()
             turn_wavs = _studio_conversation(tts, served)
             _studio_composer(served, turn_wavs)
             _studio_web(served.port)
-            if dict(A.launches) != before:
-                raise AssertionError(f"studio 17b-17e: flash launches moved: {before} -> {dict(A.launches)}")
+            if _flash_launches() != before:
+                raise AssertionError(f"studio 17b-17e: flash launches moved: {before} -> {_flash_launches()}")
             log(f"studio 17b-17e: flash launch counts unchanged: {before}")
     finally:
         for key, value in saved.items():
@@ -6199,7 +6308,7 @@ def _studio_clone(port: int, ref: bytes, want: bytes) -> None:
     same request with ``reference_audio``); an unknown entry is 404."""
     from open_speech_tpu_torch.ops import attention as A
 
-    before = dict(A.launches)
+    before = _flash_launches()
     body, headers = _multipart({"name": "Studio Voice"}, ref, "audio", "studio.wav")
     status, _, raw = _http(port, "POST", "/api/voices/library", body, headers)
     if status != 201 or json.loads(raw)["name"] != "studio_voice":
@@ -6215,8 +6324,8 @@ def _studio_clone(port: int, ref: bytes, want: bytes) -> None:
     status, _, raw = _http(port, "POST", "/v1/audio/speech/clone", body, headers)
     if status != 404:
         raise AssertionError(f"studio 17d unknown entry: {status} {raw[:200]!r}")
-    if dict(A.launches) != before:
-        raise AssertionError(f"studio 17d: flash launches moved: {before} -> {dict(A.launches)}")
+    if _flash_launches() != before:
+        raise AssertionError(f"studio 17d: flash launches moved: {before} -> {_flash_launches()}")
     log(f"studio 17d POST /api/voices/library then /v1/audio/speech/clone voice_library_ref=studio_voice on "
         f"pocket-tts: 200, {len(wav)} bytes = the same request with reference_audio, wall {wall:.4f} s; an unknown "
         f"entry: 404; no flash launch")

@@ -27,7 +27,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("flash_attention", "flash_attention_bwd")
+SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -100,13 +100,16 @@ def build(stems=SOURCES, *, force: bool = False) -> dict[str, str]:
 
 
 def load(stem: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<stem>.cu``, built first if needed."""
+    """The loaded library for ``csrc/<stem>.cu``. Where it is missing, every
+    missing library is built first, together: on a fresh checkout the
+    first kernel used pays for one build's time, and the others load
+    without one."""
     with _lock:
         lib = _libs.get(stem)
         if lib is None:
             path = library_path(stem)
             if not path.exists():
-                build((stem,))
+                build()
             lib = ctypes.CDLL(str(path))
             _libs[stem] = lib
         return lib

@@ -1088,35 +1088,44 @@ extern "C" int os_flash_attention_smem_bytes(int D, int dtype) {
   return (D == 64 ? (int)sizeof(SmemBf16<64>) : (int)sizeof(SmemBf16<32>)) + 1024;
 }
 
+namespace {
+template <int D, typename Out>
+int combine(const float* o_part, const float* m_part, const float* l_part, Out* out, int S,
+            int HT, int rows, cudaStream_t s) {
+  const int threads = 256, blocks = (rows * (D / 4) + threads - 1) / threads;
+  flash_combine<D><<<blocks, threads, 0, s>>>(o_part, m_part, l_part, out, S, HT, rows);
+  return (int)cudaGetLastError();
+}
+
+template <typename Out>
+int combine_d(const float* o_part, const float* m_part, const float* l_part, Out* out, int S,
+              int HT, int rows, int D, cudaStream_t s) {
+  switch (D) {
+    case 16: return combine<16>(o_part, m_part, l_part, out, S, HT, rows, s);
+    case 32: return combine<32>(o_part, m_part, l_part, out, S, HT, rows, s);
+    case 64: return combine<64>(o_part, m_part, l_part, out, S, HT, rows, s);
+    default: return combine<128>(o_part, m_part, l_part, out, S, HT, rows, s);
+  }
+}
+}  // namespace
+
 // K2's second pass: o [B,H,Tq,D] in dtype (0 = float32, 1 = bfloat16) from
-// the S partials of os_flash_attention_varlen_fwd. Returns a cudaError_t
-// (0 = launched).
+// the S partials of os_flash_attention_varlen_fwd (D 32 or 64), or of
+// os_decode_attention (decode_attention.cu: D 16, 32, 64 or 128). Returns a
+// cudaError_t (0 = launched).
 extern "C" int os_flash_combine(const float* o_part, const float* m_part,
                                 const float* l_part, void* o, int B, int S,
                                 int H, int Tq, int D, int dtype, void* stream) {
-  if (B < 1 || S < 1 || H < 1 || Tq < 1 || (D != 32 && D != 64) || (dtype != 0 && dtype != 1) ||
-      (long)B * H * Tq * D / 4 > 0x7fffffffL) {
+  if (B < 1 || S < 1 || H < 1 || Tq < 1 || (D != 16 && D != 32 && D != 64 && D != 128) ||
+      (dtype != 0 && dtype != 1) || (long)B * H * Tq * D / 4 > 0x7fffffffL) {
     return (int)cudaErrorInvalidValue;
   }
   const int rows = B * H * Tq;
-  const int threads = 256, blocks = (rows * (D / 4) + threads - 1) / threads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    float* out = static_cast<float*>(o);
-    if (D == 64) {
-      flash_combine<64><<<blocks, threads, 0, s>>>(o_part, m_part, l_part, out, S, H * Tq, rows);
-    } else {
-      flash_combine<32><<<blocks, threads, 0, s>>>(o_part, m_part, l_part, out, S, H * Tq, rows);
-    }
-    return (int)cudaGetLastError();
+    return combine_d(o_part, m_part, l_part, static_cast<float*>(o), S, H * Tq, rows, D, s);
   }
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(o);
-  if (D == 64) {
-    flash_combine<64><<<blocks, threads, 0, s>>>(o_part, m_part, l_part, out, S, H * Tq, rows);
-  } else {
-    flash_combine<32><<<blocks, threads, 0, s>>>(o_part, m_part, l_part, out, S, H * Tq, rows);
-  }
-  return (int)cudaGetLastError();
+  return combine_d(o_part, m_part, l_part, static_cast<__nv_bfloat16*>(o), S, H * Tq, rows, D, s);
 }
 
 // The operand split of the float32 routes: up to n = 4 contiguous float32

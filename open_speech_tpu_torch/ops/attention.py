@@ -22,8 +22,15 @@ Counterpart of ``open_speech_tpu/ops/attention.py``:
     differentiates ``mha_reference``); on a CPU tensor both passes are the
     plain versions (``flash_attention_backward_reference``). K2 has no
     backward and raises ``FlashAttentionGradError`` under grad.
-  - ``decode_attention`` and ``beam_select_attention``: single-position
-    attention over a padded KV cache, as plain PyTorch on either device.
+  - ``decode_attention``: single-position attention over a padded KV
+    cache. A CUDA tensor with bf16 or float32 caches runs the hand-written
+    sm_90a kernel (``kernels/csrc/decode_attention.cu``), which reads each
+    cache entry once, splitting the key axis (``plan_decode_splits``) where
+    too few (batch row, head) pairs fill the card and merging the splits
+    through ``flash_combine``; int8 caches with their scales, and a CPU
+    tensor, run the plain version.
+  - ``beam_select_attention``: beam-search decode attention over
+    un-permuted caches, as plain PyTorch on either device.
 
 Layouts are the JAX package's: q/k/v [B, H, T, D].
 """
@@ -46,8 +53,13 @@ LOG2E = math.log2(math.e)
 BWD_STAGES = ("flash_attention_bwd_prep", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
 F32_SUFFIX = "_f32"
 _ROUTES = ("flash_attention", "flash_attention_varlen", "flash_combine", *BWD_STAGES)
+# decode attention's launches: every kernel launch under "decode_attention",
+# those with a key split (each followed by one combine) also under
+# "decode_attention_split", and the calls of a CUDA tensor that the plain
+# version served (int8 caches with scales) under "decode_attention_int8"
+DECODE_ROUTES = ("decode_attention", "decode_attention_split", "decode_attention_int8")
 launches = {**dict.fromkeys(_ROUTES, 0), **dict.fromkeys((n + F32_SUFFIX for n in _ROUTES), 0),
-            "flash_split_f32": 0}
+            "flash_split_f32": 0, **dict.fromkeys(DECODE_ROUTES, 0)}
 
 # the forward kernels' tiles (kBlockN keys and kBlockQ query rows per block
 # in bf16, kFBlockN and kFBlockQ in float32, flash_attention.cu) and the
@@ -293,15 +305,17 @@ def _split(tensors, kv_length, len_mask: int, stream) -> list[torch.Tensor]:
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {  # C entry -> argument types after the four tensor pointers
     "os_flash_attention_fwd": [_I] * 6 + [ctypes.c_float, _I, _P],
     "os_flash_attention_varlen_fwd": [_P] * 3 + [_I] * 8 + [ctypes.c_float, _I, _P],
     "os_flash_combine": [_I] * 6 + [_P],
     "os_flash_attention_bwd": [_P] * 5 + [_I] * 7 + [ctypes.c_float, _I, _P],
     "os_split_f32": [_P] * 4 + [_I] * 8 + [_P, _I, _P],
+    "os_decode_attention": [_P] * 3 + [_L] * 7 + [_I] * 10 + [ctypes.c_float, _P],
 }
-_SOURCE = {"os_flash_attention_bwd": "flash_attention_bwd"}  # else flash_attention.cu
+_SOURCE = {"os_flash_attention_bwd": "flash_attention_bwd",  # else flash_attention.cu
+           "os_decode_attention": "decode_attention"}
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
 
@@ -441,7 +455,8 @@ def flash_attention(
     m_part, l_part = o_part + 4 * rows * d, o_part + 4 * rows * (d + 1)
     err = varlen(*qkv, o_part, kv_length.data_ptr(), m_part, l_part, splits, per, *shape)
     _launched("flash_attention_varlen", err, f32)
-    _combine(o_part, m_part, l_part, out, (b, splits, h, t_q, d), stream)
+    err = _combine(o_part, m_part, l_part, out, (b, splits, h, t_q, d), stream)
+    _launched("flash_combine", err, f32)
     return out
 
 
@@ -556,15 +571,14 @@ def _launched(name: str, err: int, f32: bool = False) -> None:
         launches[name + F32_SUFFIX] += 1
 
 
-def _combine(o_part: int, m_part: int, l_part: int, out: torch.Tensor, dims, stream) -> None:
+def _combine(o_part: int, m_part: int, l_part: int, out: torch.Tensor, dims, stream) -> int:
     """Launches the combine kernel on partials given by device pointers
     (dims: B, S, H, Tq, D) into ``out`` (bfloat16 or float32): its one
-    launch site, for ``flash_attention``'s split path and for
-    ``flash_combine``."""
-    f32 = out.dtype == torch.float32
-    err = _kernel("os_flash_combine")(o_part, m_part, l_part, out.data_ptr(), *dims,
-                                      _DTYPE_CODES[out.dtype], stream)
-    _launched("flash_combine", err, f32)
+    launch site, for ``flash_attention``'s and ``decode_attention``'s split
+    paths and for ``flash_combine``. Returns its cudaError; the caller
+    counts the launch."""
+    return _kernel("os_flash_combine")(o_part, m_part, l_part, out.data_ptr(), *dims,
+                                       _DTYPE_CODES[out.dtype], stream)
 
 
 def flash_combine(
@@ -599,8 +613,9 @@ def flash_combine(
     out = torch.empty(b, h, t_q, d, dtype=dtype, device=o_part.device)
     if out.numel() == 0:
         return out
-    _combine(*(t.data_ptr() for t in parts), out, (b, splits, h, t_q, d),
-             torch.cuda.current_stream(o_part.device).cuda_stream)
+    err = _combine(*(t.data_ptr() for t in parts), out, (b, splits, h, t_q, d),
+                   torch.cuda.current_stream(o_part.device).cuda_stream)
+    _launched("flash_combine", err, dtype == torch.float32)
     return out
 
 
@@ -625,7 +640,41 @@ def decode_attention(
     softmax scale, the probabilities by ``v_scale`` after the softmax, and
     the V product of float32 probabilities with the int8 cache is taken in
     float32, as in the JAX package.
+
+    A CPU tensor runs the plain version, ``decode_attention_reference``, as
+    does a CUDA tensor with int8 caches and their scales (counted as
+    ``decode_attention_int8``). Any other CUDA call launches the decode
+    kernel or raises on what it does not take: q float32 or bfloat16, caches
+    both bfloat16 or both float32, D in ``DECODE_HEAD_DIMS``, q strided with
+    unit stride on D, the caches with rows of D on T_max. Up to
+    ``DECODE_ROWS`` query rows share one read of the caches; a longer q (the
+    prefill's prompt) takes a block per ``DECODE_ROWS`` rows. The kernel
+    keeps the probabilities in float32 where the plain version rounds them
+    to the caches' dtype, and reads no cache row at or past a row's length
+    (a length above T_max counts as T_max).
     """
+    if q.is_cuda:
+        if k_cache.dtype != torch.int8 or k_scale is None or v_scale is None:
+            return _decode_attention_cuda(q, k_cache, v_cache, length, scale, k_scale, v_scale)
+        launches["decode_attention_int8"] += 1
+    return decode_attention_reference(q, k_cache, v_cache, length, scale=scale,
+                                      k_scale=k_scale, v_scale=v_scale)
+
+
+def decode_attention_reference(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    length: torch.Tensor,
+    *,
+    scale: float | None = None,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``decode_attention``'s plain version, on either device: the caches
+    upcast to float32, the logits masked to ``NEG_INF`` at and past each
+    row's length, the probabilities rounded to the V cache's dtype (not
+    int8's) before the V product."""
     d = q.shape[-1]
     scale = (d**-0.5) if scale is None else scale
     logits = torch.matmul(q.float(), k_cache.float().transpose(-1, -2)) * scale
@@ -643,6 +692,99 @@ def decode_attention(
         probs = probs.to(v_cache.dtype)
     out = torch.matmul(probs.float(), v_cache.float())
     return out.to(q.dtype)
+
+
+DECODE_HEAD_DIMS = (16, 32, 64, 128)
+DECODE_ROWS = 8  # query rows of a block: the folded beams share one read of the caches
+DECODE_SPLIT_KEYS = 64  # a split owns whole ranges of this many keys
+
+
+@functools.lru_cache(maxsize=256)
+def plan_decode_splits(b: int, h: int, t_q: int, t_max: int) -> tuple[int, int]:
+    """The decode kernel's key split: ``(splits, keys per split)`` from the
+    shape alone (the lengths stay on the card). A block streams one (batch
+    row, head), up to ``DECODE_ROWS`` of its query rows and one split of its
+    keys; with B*H*ceil(Tq / DECODE_ROWS) blocks short of two a SM, the key
+    axis splits into ranges of whole ``DECODE_SPLIT_KEYS`` keys, the fewest
+    that give each SM two blocks, none empty."""
+    blocks = max(1, b * h * -(-t_q // DECODE_ROWS))
+    most = max(1, -(-t_max // DECODE_SPLIT_KEYS))  # one range of keys each
+    splits = min(-(-2 * N_SMS // blocks), most)
+    if splits <= 1:
+        return 1, max(t_max, 1)
+    per = -(-t_max // splits)
+    per = -(-per // DECODE_SPLIT_KEYS) * DECODE_SPLIT_KEYS
+    return -(-t_max // per), per
+
+
+def _decode_attention_cuda(q, k_cache, v_cache, length, scale, k_scale, v_scale) -> torch.Tensor:
+    """``decode_attention`` on the card: checks what the kernel takes (raises
+    on anything else), then launches it on the current stream, and with a
+    key split the combine kernel after it. ``length`` is read on the card
+    only; no call here waits for the card."""
+    q_code, kv_code = _DTYPE_CODES.get(q.dtype), _DTYPE_CODES.get(k_cache.dtype)
+    if k_scale is not None or v_scale is not None:
+        raise ValueError("decode_attention: k_scale and v_scale come with int8 caches only")
+    if q_code is None or kv_code is None or v_cache.dtype != k_cache.dtype:
+        raise ValueError(
+            f"decode_attention: dtypes q {q.dtype}, caches {k_cache.dtype}/{v_cache.dtype}; the "
+            "kernel takes float32 or bfloat16 q and caches of one of the two (int8 caches with "
+            "their scales take the plain version)"
+        )
+    shape = k_cache.shape
+    if q.dim() != 4 or len(shape) != 4 or v_cache.shape != shape:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)}, caches {tuple(shape)}/"
+                         f"{tuple(v_cache.shape)}; want q [B,H,Tq,D] and caches [B,H,T_max,D]")
+    b, h, t_q, d = q.shape
+    t_max = shape[2]
+    if (shape[0] != b or shape[1] != h or shape[3] != d or d not in DECODE_HEAD_DIMS
+            or b > 65535 or h > 65535):
+        raise ValueError(
+            f"decode_attention: q {tuple(q.shape)}, caches {tuple(shape)}; batch, heads "
+            f"and D must agree, D in {DECODE_HEAD_DIMS}"
+        )
+    dev = q.device
+    if k_cache.device != dev or v_cache.device != dev:
+        raise ValueError("decode_attention: q and the caches must be on one CUDA device")
+    if not (isinstance(length, torch.Tensor) and length.shape == (b,) and length.device == dev
+            and length.dtype in (torch.int32, torch.int64)):
+        raise ValueError(
+            f"decode_attention: length must be an int32 or int64 tensor of shape [{b}] on {dev}")
+    length = length.contiguous()
+    qs, ks, vs = q.stride(), k_cache.stride(), v_cache.stride()
+    if qs[3] != 1:
+        raise ValueError("decode_attention: q needs unit stride on D")
+    if (ks[3] != 1 or vs[3] != 1 or (t_max > 1 and (ks[2] != d or vs[2] != d))
+            or (k_cache.data_ptr() | v_cache.data_ptr()) % 16
+            or (ks[0] | ks[1] | vs[0] | vs[1]) % (16 // k_cache.element_size())):
+        raise ValueError(
+            "decode_attention: each cache needs unit stride on D, rows of D on T_max, and "
+            "16-byte aligned start and batch and head strides"
+        )
+    _check_hopper(dev)
+    out = torch.empty(b, h, t_q, d, dtype=q.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    scale = (d**-0.5) if scale is None else float(scale)
+    splits, per = plan_decode_splits(b, h, t_q, t_max)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (*qs[:3], ks[0], ks[1], vs[0], vs[1], b, h, t_q, t_max, d, kv_code, q_code,
+            int(length.dtype == torch.int64), splits, per, scale, stream)
+    kernel = _kernel("os_decode_attention")
+    ptrs = q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr()
+    if splits == 1:
+        err = kernel(*ptrs, out.data_ptr(), length.data_ptr(), None, None, *args)
+        _launched("decode_attention", err)
+        return out
+    # one f32 workspace [B,S,H,Tq] x (D + 2): the partial O, then m, then l
+    rows = b * splits * h * t_q
+    ws = torch.empty(rows * (d + 2), dtype=torch.float32, device=dev)
+    o_part = ws.data_ptr()
+    m_part, l_part = o_part + 4 * rows * d, o_part + 4 * rows * (d + 1)
+    _launched("decode_attention", kernel(*ptrs, o_part, length.data_ptr(), m_part, l_part, *args))
+    err = _combine(o_part, m_part, l_part, out, (b, splits, h, t_q, d), stream)
+    _launched("decode_attention_split", err)
+    return out
 
 
 def beam_select_attention(

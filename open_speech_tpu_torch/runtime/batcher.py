@@ -59,7 +59,6 @@ from open_speech_tpu_torch.models.whisper.model import (
     linear,
     mlp,
     output_logits,
-    precompute_cross_kv_dense,
 )
 from open_speech_tpu_torch.models.whisper.tokenizer import SpecialTokens
 from open_speech_tpu_torch.runtime import tracing
@@ -476,13 +475,20 @@ class ContinuousBatcher:
         with self._on_stream():
             mels = torch.stack([b[1].to(self.device, torch.float32) for b in batch])
             enc_out = encode(self.model, mels, self.cfg)
-            # one batched scatter of the dense cross-KV into the claimed
-            # slots (a per-slot loop would rewrite the pool per request);
-            # dense for an int8 model too, as in the JAX batcher: the pool
-            # holds bf16 rows
-            cross = precompute_cross_kv_dense(self.model, enc_out, self.cfg).to(_CACHE_DTYPE)
+            # the dense cross-KV goes into the claimed slots a layer's K and
+            # V at a time, one batched scatter each (a per-slot loop would
+            # rewrite the pool per request). A stack of every layer ([L, 2,
+            # n, H, T_enc, Dh], 15.7 GB at large-v3's 64 windows) beside the
+            # pool would double that for the admission and fragment the
+            # allocator's cache by admission size, until a new thread's
+            # cuBLAS handle found no card memory left. Dense for an int8
+            # model too, as in the JAX batcher: the pool holds bf16 rows
             slot_ids = torch.tensor([b[0] for b in batch], device=self.device)
-            self._cross_kv[:, :, slot_ids] = cross
+            dh = self.cfg.text_head_dim
+            for i, blk in enumerate(self.model.decoder.blocks):
+                for j, lin in enumerate((blk.cross.k, blk.cross.v)):
+                    heads = linear(enc_out, lin).unflatten(-1, (-1, dh)).transpose(1, 2)
+                    self._cross_kv[i, j, slot_ids] = heads.to(_CACHE_DTYPE)
             prompt = self._prompt
             for slot, _mel, max_new, future in batch:
                 self._slots[slot] = _Slot(future=future, max_new=max_new)

@@ -161,11 +161,14 @@ def test_flash_varlen_plain_matches_jax_kernel_and_reference(b, h, t_q, t_k, d, 
 def test_flash_launch_counters_name_both_kernels():
     """K1, K2, K2's combine pass and the three passes of K1's backward each
     have a counter, and again under "_f32" for their float32 launches,
-    beside the float32 routes' operand split; the plain versions on the CPU
-    launch nothing."""
+    beside the float32 routes' operand split and decode attention's three
+    (its kernel, its split launches with their combine, the plain int8
+    route);
+    the plain versions on the CPU launch nothing."""
     routes = {"flash_attention", "flash_attention_varlen", "flash_combine",
               "flash_attention_bwd_prep", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq"}
-    assert set(TA.launches) == routes | {r + "_f32" for r in routes} | {"flash_split_f32"}
+    decode = {"decode_attention", "decode_attention_split", "decode_attention_int8"}
+    assert set(TA.launches) == routes | {r + "_f32" for r in routes} | {"flash_split_f32"} | decode
     q = torch.zeros(1, 1, 4, 32)
     before = dict(TA.launches)
     TA.flash_attention(q, q, q, kv_length=torch.tensor([2]))
@@ -174,6 +177,7 @@ def test_flash_launch_counters_name_both_kernels():
     TA.flash_combine(torch.zeros(1, 2, 1, 4, 32), torch.zeros(1, 2, 1, 4), torch.ones(1, 2, 1, 4),
                      dtype=torch.float32)
     TA.split_operands(q)
+    TA.decode_attention(q, q, q, torch.tensor([2]))
     assert TA.launches == before, "the plain version on the CPU launches nothing"
 
 
@@ -385,3 +389,185 @@ def test_f32_split_partials_combine_to_jax_in_float32(b, h, t_q, t_k, d, causal,
     np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=0)
     assert TA.flash_combine(o_part, m_part, l_part).dtype == torch.bfloat16
 
+
+
+# ── decode attention's kernel route, held on the CPU ─────────────────────
+#
+# The decode kernel runs only on the card (tests/test_torch_cuda.py holds it
+# against ``decode_attention_reference`` there). What surrounds it is Python
+# and is held here: the split plan, the partial layout its splits share with
+# K2's combine, the wrapper's checks and what it hands the kernel.
+
+
+@pytest.mark.parametrize("t_max", [0, 1, 32, 63, 64, 65, 256, 1500, 1536])
+@pytest.mark.parametrize("b,h,t_q", [(64, 20, 1), (8, 20, 1), (1, 20, 1), (4, 16, 1), (1, 2, 1),
+                                     (13, 20, 1), (14, 20, 1), (1, 20, 5), (1, 20, 36), (2, 20, 100)])
+def test_decode_split_plan_covers_the_keys_from_the_shape_alone(b, h, t_q, t_max):
+    """Every key in exactly one split, none empty; a split owns whole
+    ranges of DECODE_SPLIT_KEYS keys; blocks (B*H times the query rows'
+    blocks of DECODE_ROWS) of at least two a SM take one split, and no plan
+    has more splits than two blocks a SM need."""
+    blocks = b * h * -(-t_q // TA.DECODE_ROWS)
+    splits, per = TA.plan_decode_splits(b, h, t_q, t_max)
+    assert splits * per >= t_max and (splits - 1) * per < max(t_max, 1)
+    if splits > 1:
+        assert per % TA.DECODE_SPLIT_KEYS == 0
+        assert blocks < 2 * TA.N_SMS
+    if blocks >= 2 * TA.N_SMS:
+        assert splits == 1
+    assert splits <= -(-2 * TA.N_SMS // blocks)  # no more than two blocks a SM need
+
+
+def test_decode_split_plan_at_the_served_shapes():
+    """The batcher's 64 slots x 20 heads fill the card unsplit; the REST fold
+    (B = 1, five beams) takes 12 splits of 128 keys, 240 blocks; a 36-token
+    prompt's prefill over the cross cache 5 x 20 blocks of rows, so 3 splits
+    of 512; the Pocket LM at B = 4 (16 heads, 1536 positions) 5 of 320."""
+    assert TA.plan_decode_splits(64, 20, 1, 1500) == (1, 1500)
+    assert TA.plan_decode_splits(64, 20, 1, 256) == (1, 256)
+    assert TA.plan_decode_splits(1, 20, 5, 1500) == (12, 128)
+    assert TA.plan_decode_splits(1, 20, 36, 1500) == (3, 512)
+    assert TA.plan_decode_splits(4, 16, 1, 1536) == (5, 320)
+    assert TA.plan_decode_splits(8, 20, 1, 1500) == (2, 768)
+
+
+@pytest.mark.parametrize("b,h,t_q,t_max,d,lens", [
+    (1, 20, 5, 1500, 64, (1500,)),
+    (1, 4, 1, 700, 32, (129,)),
+    (2, 2, 3, 300, 16, (1, 301)),
+    (3, 1, 8, 200, 128, (64, 65, 199)),
+    (1, 2, 19, 300, 64, (77,)),
+])
+def test_decode_split_partials_combine_to_the_plain_version(b, h, t_q, t_max, d, lens):
+    """The kernel's split path in plain arithmetic: the partials of the plan's
+    key ranges (``flash_attention_partial_reference`` with the lengths, K2's
+    layout [B,S,H,Tq,D] and [B,S,H,Tq]) merged by ``flash_combine_reference``
+    equal ``decode_attention_reference`` in float32 (a length past T_max
+    counts as T_max; splits past the length see no key)."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(b, h, t_q, t_max, d, seed=t_max + d))
+    length = torch.tensor(lens)
+    splits, per = TA.plan_decode_splits(b, h, t_q, t_max)
+    assert splits > 1
+    ranges = TA.split_ranges(t_max, 1, per)
+    assert len(ranges) == splits
+    parts = [TA.flash_attention_partial_reference(q, k, v, lo, hi, kv_length=length)
+             for lo, hi in ranges]
+    o_part, m_part, l_part = (torch.stack([p[i] for p in parts], dim=1) for i in range(3))
+    merged = TA.flash_combine_reference(o_part, m_part, l_part)
+    ref = TA.decode_attention_reference(q, k, v, length)
+    np.testing.assert_allclose(merged.numpy(), ref.numpy(), atol=TOL, rtol=0)
+
+
+def test_decode_attention_on_the_cpu_takes_the_plain_version():
+    """A CPU tensor runs ``decode_attention_reference`` and launches nothing,
+    int8 caches with their scales included."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(2, 3, 1, 20, 16, seed=8))
+    length = torch.tensor([0, 13])
+    before = dict(TA.launches)
+    assert torch.equal(TA.decode_attention(q, k, v, length),
+                       TA.decode_attention_reference(q, k, v, length))
+    k8, v8 = (torch.randint(-127, 128, (2, 3, 20, 16), dtype=torch.int8) for _ in range(2))
+    ks, vs = torch.rand(2, 3, 20, 1) * 1e-2, torch.rand(2, 3, 20, 1) * 1e-2
+    assert torch.equal(TA.decode_attention(q, k8, v8, length, k_scale=ks, v_scale=vs),
+                       TA.decode_attention_reference(q, k8, v8, length, k_scale=ks, v_scale=vs))
+    assert dict(TA.launches) == before
+
+
+def _decode_args():
+    """bf16 q [2,2,1,64] over bf16 caches [2,2,40,64], int64 lengths: what the
+    kernel takes, before one thing is made wrong."""
+    q, k, v = (torch.randn(2, 2, t, 64).to(torch.bfloat16) for t in (1, 40, 40))
+    return q, k, v, torch.tensor([3, 40])
+
+
+_BAD_DECODE_CALLS = {
+    "q float16": lambda q, k, v, n: (q.half(), k, v, n, None, None),
+    "caches float16": lambda q, k, v, n: (q, k.half(), v.half(), n, None, None),
+    "K and V apart": lambda q, k, v, n: (q, k, v.float(), n, None, None),
+    "int8 without scales": lambda q, k, v, n: (q, k.to(torch.int8), v.to(torch.int8), n, None, None),
+    "scales on bf16 caches": lambda q, k, v, n: (q, k, v, n, k[..., :1].float(), v[..., :1].float()),
+    "D 48": lambda q, k, v, n: (q[..., :48], k[..., :48], v[..., :48], n, None, None),
+    "D 8": lambda q, k, v, n: (q[..., :8], k[..., :8], v[..., :8], n, None, None),
+    "q 3-D": lambda q, k, v, n: (q[:, :, 0], k, v, n, None, None),
+    "heads apart": lambda q, k, v, n: (q[:, :1], k, v, n, None, None),
+    "D not unit stride": lambda q, k, v, n: (q, k.transpose(2, 3).contiguous().transpose(2, 3), v, n,
+                                             None, None),
+    "q D not unit stride": lambda q, k, v, n: (q.new_zeros(2, 2, 64, 2).transpose(2, 3)[:, :, :1],
+                                               k, v, n, None, None),
+    "T rows not of D": lambda q, k, v, n: (q, k[:, :, ::2], v[:, :, ::2], n, None, None),
+    "length float": lambda q, k, v, n: (q, k, v, n.float(), None, None),
+    "length bool": lambda q, k, v, n: (q, k, v, n > 0, None, None),
+    "length int16": lambda q, k, v, n: (q, k, v, n.short(), None, None),
+    "length not [B]": lambda q, k, v, n: (q, k, v, n[:1], None, None),
+    "length a list": lambda q, k, v, n: (q, k, v, [3, 40], None, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_BAD_DECODE_CALLS))
+def test_decode_kernel_route_refuses_what_the_kernel_does_not_take(case, monkeypatch):
+    """The CUDA route's checks (run here on CPU tensors, before anything
+    needs a card) raise on each input the kernel does not take."""
+    monkeypatch.setattr(TA, "_kernel", lambda entry: pytest.fail("launched"))
+    q, k, v, length, k_scale, v_scale = _BAD_DECODE_CALLS[case](*_decode_args())
+    with pytest.raises(ValueError, match="decode_attention"):
+        TA._decode_attention_cuda(q, k, v, length, None, k_scale, v_scale)
+
+
+def _record_launches(monkeypatch):
+    calls = []
+
+    def kernel(entry):
+        return lambda *args: calls.append((entry, args)) or 0
+
+    monkeypatch.setattr(TA, "_kernel", kernel)
+    monkeypatch.setattr(TA, "_check_hopper", lambda device: None)
+    stream = type("Stream", (), {"cuda_stream": 7})
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: stream)
+    return calls
+
+
+def test_decode_kernel_route_hands_the_kernel_the_views_as_they_are(monkeypatch):
+    """The beam fold's strided q and one layer's views of the batcher's pool
+    reach the kernel with their strides, no copy; int64 lengths as they are,
+    and one launch counted."""
+    calls = _record_launches(monkeypatch)
+    pool = torch.zeros(2, 2, 64, 20, 256, 64, dtype=torch.bfloat16)  # [L, 2, S, H, T, D]
+    q = torch.randn(64, 1, 20, 64).to(torch.bfloat16).transpose(1, 2)  # [S, H, 1, D], strided
+    length = torch.arange(64)
+    before = dict(TA.launches)
+    out = TA._decode_attention_cuda(q, pool[1, 0], pool[1, 1], length, None, None, None)
+    assert out.shape == (64, 20, 1, 64) and out.dtype == torch.bfloat16 and out.is_contiguous()
+    (entry, args), = calls
+    assert entry == "os_decode_attention"
+    assert args[:5] == (q.data_ptr(), pool[1, 0].data_ptr(), pool[1, 1].data_ptr(), out.data_ptr(),
+                        length.data_ptr())
+    assert args[5:7] == (None, None)
+    assert args[7:14] == (*q.stride()[:3], *pool[1, 0].stride()[:2], *pool[1, 1].stride()[:2])
+    # B, H, Tq, T_max, D, cache dtype, q dtype, int64 lengths, splits, keys per split
+    assert args[14:24] == (64, 20, 1, 256, 64, 1, 1, 1, 1, 256)
+    assert args[24] == pytest.approx(64**-0.5) and args[25] == 7
+    assert TA.launches["decode_attention"] == before["decode_attention"] + 1
+    assert TA.launches["decode_attention_split"] == before["decode_attention_split"]
+
+
+def test_decode_kernel_route_splits_and_combines_where_heads_are_few(monkeypatch):
+    """B = 1 with five folded beams: the kernel writes the float32 partials
+    [1,12,20,5,64] and [1,12,20,5] into one workspace and the combine merges
+    them into the float32 output; an int32 length goes as it is."""
+    calls = _record_launches(monkeypatch)
+    q = torch.randn(1, 5, 20, 64).transpose(1, 2)
+    k, v = (torch.randn(1, 20, 1500, 64) for _ in range(2))
+    before = dict(TA.launches)
+    out = TA._decode_attention_cuda(q, k, v, torch.tensor([900], dtype=torch.int32), 0.5, None, None)
+    assert out.dtype == torch.float32 and out.shape == (1, 20, 5, 64)
+    (entry, args), (centry, cargs) = calls
+    assert entry == "os_decode_attention" and centry == "os_flash_combine"
+    rows = 12 * 20 * 5
+    o_part, m_part, l_part = args[3], args[5], args[6]
+    assert (m_part - o_part, l_part - m_part) == (4 * rows * 64, 4 * rows)
+    assert args[14:24] == (1, 20, 5, 1500, 64, 0, 0, 0, 12, 128)
+    assert args[24] == 0.5
+    assert cargs[:4] == (o_part, m_part, l_part, out.data_ptr())
+    assert cargs[4:] == (1, 12, 20, 5, 64, 0, 7)
+    for name, n in (("decode_attention", 1), ("decode_attention_split", 1), ("flash_combine", 0)):
+        assert TA.launches[name] == before[name] + n

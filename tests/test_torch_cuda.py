@@ -1,6 +1,7 @@
-"""The port's flash kernels (K1, K1's backward, K2) and the streaming block
-encode on a Hopper card against their plain versions; Kokoro, Piper, the effects
-chain and the diarizer (no hand kernel) on the card against the CPU.
+"""The port's flash kernels (K1, K1's backward, K2), the decode attention
+kernel and the streaming block encode on a Hopper card against their plain
+versions; Kokoro, Piper, the effects chain and the diarizer (no hand kernel)
+on the card against the CPU.
 
 These tests need an NVIDIA Hopper card and skip without one. On the card's
 machine, which has no JAX, run them without the suite's conftest (it sets
@@ -417,6 +418,150 @@ def test_varlen_kernel_refuses_bad_lengths(card):
         with pytest.raises(ValueError, match="kv_length"):
             A.flash_attention(q, k, v, kv_length=bad)
     assert A.launches["flash_attention_varlen"] == before
+
+
+# ── decode attention ─────────────────────────────────────────────────────
+
+# (B, H, Tq, T_max, D, cache dtype, q dtype): the batcher's cross and self
+# caches; the REST path's folded beams (B*H = 20 takes the key split); the
+# REST prefill's prompts over the cross cache (Tq past one block's 8 rows);
+# the Pocket LM's float32 caches; the test-tiny head dim with float32 q over
+# the batcher's bf16 pools (the fixture's model); D 16 and 128 at both dtypes
+DECODE_CASES = [
+    (64, 20, 1, 1500, 64, torch.bfloat16, torch.bfloat16),
+    (64, 20, 1, 256, 64, torch.bfloat16, torch.bfloat16),
+    (1, 20, 5, 1500, 64, torch.bfloat16, torch.bfloat16),
+    (1, 20, 36, 1500, 64, torch.bfloat16, torch.bfloat16),
+    (5, 20, 12, 1500, 64, torch.bfloat16, torch.bfloat16),
+    (2, 2, 9, 60, 32, torch.float32, torch.float32),
+    (4, 16, 1, 1536, 64, torch.float32, torch.float32),
+    (3, 2, 1, 32, 32, torch.bfloat16, torch.float32),
+    (2, 2, 3, 40, 16, torch.float32, torch.bfloat16),
+    (3, 4, 8, 300, 128, torch.bfloat16, torch.bfloat16),
+    (2, 3, 2, 700, 128, torch.float32, torch.float32),
+]
+
+
+def _decode_limit(out_dtype, cache_dtype, ref) -> float:
+    """Largest max-abs gap between the kernel and the plain version. Where a
+    bf16 rounding is in play (the plain version rounds the probabilities to
+    bf16 caches' dtype, the kernel keeps them float32; a bf16 output rounds
+    both to 2^-9 of the value) 1e-2 of max|ref|; with float32 caches and
+    output only the order of the sums and exp2 of pre-scaled logits against
+    exp differ: 1e-5 of max|ref|."""
+    if torch.bfloat16 in (out_dtype, cache_dtype):
+        return 1e-2 * ref.abs().max().item()
+    return 1e-5 * ref.abs().max().item()
+
+
+def _decode_inputs(card, b, h, t_q, t_max, d, dtype, q_dtype, seed=0):
+    """q as a strided view (the beam fold's [B,K,H,D] transposed, every other
+    head of a wider tensor), caches contiguous, lengths over the rows in turn
+    0, 1, T_max, above T_max and ragged ones."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    wide = torch.randn(b, t_q, 2 * h, d, generator=gen, device=card).to(q_dtype)
+    q = wide[:, :, ::2].transpose(1, 2)
+    k, v = (torch.randn(b, h, t_max, d, generator=gen, device=card).to(dtype) for _ in range(2))
+    ragged = torch.randint(2, max(t_max, 3), (b,), generator=gen, device=card)
+    fixed = torch.tensor([0, 1, t_max, t_max + 7], device=card).repeat(-(-b // 4))[:b]
+    lens = torch.where(torch.arange(b, device=card) % 8 < 4, fixed, ragged)
+    return q, k, v, lens
+
+
+@pytest.mark.parametrize("b,h,t_q,t_max,d,dtype,q_dtype", DECODE_CASES)
+def test_decode_kernel_matches_plain_version(card, b, h, t_q, t_max, d, dtype, q_dtype):
+    q, k, v, lens = _decode_inputs(card, b, h, t_q, t_max, d, dtype, q_dtype)
+    assert not q.is_contiguous()
+    splits, _ = A.plan_decode_splits(b, h, t_q, t_max)
+    before = dict(A.launches)
+    out = A.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert A.launches["decode_attention"] == before["decode_attention"] + 1
+    assert A.launches["decode_attention_split"] == before["decode_attention_split"] + (splits > 1)
+    assert A.launches["flash_combine"] == before["flash_combine"]
+    ref = A.decode_attention_reference(q, k, v, lens)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert out.shape == (b, h, t_q, d) and out.dtype == q_dtype and out.is_contiguous()
+    assert err <= _decode_limit(q_dtype, dtype, ref), err
+
+
+@pytest.mark.parametrize("n", [0, 1, 63, 64, 65, 129, 700, 1499, 1500, 1501])
+def test_decode_kernel_split_path_at_each_length(card, n):
+    """The REST fold (B = 1, five beams, 12 splits of 128 keys) at lengths
+    around the splits' edges, int32 and int64 lengths alike."""
+    q, k, v, _ = _decode_inputs(card, 1, 20, 5, 1500, 64, torch.bfloat16, torch.bfloat16, seed=n)
+    assert A.plan_decode_splits(1, 20, 5, 1500) == (12, 128)
+    for dtype in (torch.int32, torch.int64):
+        lens = torch.tensor([n], dtype=dtype, device=card)
+        out = A.decode_attention(q, k, v, lens)
+        ref = A.decode_attention_reference(q, k, v, lens)
+        assert (out.float() - ref.float()).abs().max().item() <= _decode_limit(
+            torch.bfloat16, torch.bfloat16, ref)
+
+
+@pytest.mark.parametrize("b,h,t_q,t_max", [(64, 20, 1, 256), (1, 20, 5, 1500), (1, 20, 36, 1500)])
+def test_decode_kernel_reads_no_key_past_the_length(card, b, h, t_q, t_max):
+    """NaN in every cache row at or past its length changes no bit, on the
+    one-split and the split path (a length of 0 reads the whole cache, so it
+    is left out here)."""
+    q, k, v, lens = _decode_inputs(card, b, h, t_q, t_max, 64, torch.bfloat16, torch.bfloat16, seed=3)
+    lens = lens.clamp(min=1)
+    clean = A.decode_attention(q, k, v, lens)
+    past = torch.arange(t_max, device=card)[None, :] >= lens[:, None]  # [B, T]
+    kd, vd = k.clone(), v.clone()
+    kd[past[:, None, :, None].expand_as(kd)] = float("nan")
+    vd[past[:, None, :, None].expand_as(vd)] = float("nan")
+    assert torch.equal(clean, A.decode_attention(q, kd, vd, lens))
+
+
+def test_decode_kernel_is_deterministic_and_serves_the_batcher_views(card):
+    """Two launches give the same bits; the layer views of the batcher's
+    pools ([L, 2, S, H, T, D], one layer's K and V) need no copy."""
+    pool = torch.randn(2, 2, 64, 20, 256, 64, device=card).to(torch.bfloat16)
+    q = torch.randn(64, 20, 1, 64, device=card).to(torch.bfloat16)
+    lens = torch.randint(1, 300, (64,), device=card)
+    first = A.decode_attention(q, pool[1, 0], pool[1, 1], lens)
+    assert torch.equal(first, A.decode_attention(q, pool[1, 0], pool[1, 1], lens))
+    ref = A.decode_attention_reference(q, pool[1, 0], pool[1, 1], lens)
+    assert (first.float() - ref.float()).abs().max().item() <= _decode_limit(
+        torch.bfloat16, torch.bfloat16, ref)
+
+
+def test_decode_int8_caches_with_scales_take_the_plain_route(card):
+    gen = torch.Generator(device=card).manual_seed(4)
+    q = torch.randn(2, 3, 1, 64, generator=gen, device=card)
+    k, v = (torch.randint(-127, 128, (2, 3, 50, 64), generator=gen, device=card).to(torch.int8)
+            for _ in range(2))
+    ks, vs = (torch.rand(2, 3, 50, 1, generator=gen, device=card) * 1e-2 for _ in range(2))
+    lens = torch.tensor([20, 50], device=card)
+    before = dict(A.launches)
+    out = A.decode_attention(q, k, v, lens, k_scale=ks, v_scale=vs)
+    assert A.launches["decode_attention_int8"] == before["decode_attention_int8"] + 1
+    assert A.launches["decode_attention"] == before["decode_attention"]
+    assert torch.equal(out, A.decode_attention_reference(q, k, v, lens, k_scale=ks, v_scale=vs))
+
+
+def test_decode_kernel_refuses_what_it_does_not_take(card):
+    q, k, v, lens = _decode_inputs(card, 2, 2, 1, 40, 64, torch.bfloat16, torch.bfloat16)
+    before = A.launches["decode_attention"]
+    bad_calls = [
+        (q.to(torch.float16), k, v, lens),  # q dtype
+        (q, k.to(torch.float16), v.to(torch.float16), lens),  # cache dtype
+        (q, k, v.float(), lens),  # K and V apart
+        (q, k.to(torch.int8), v.to(torch.int8), lens),  # int8 without scales
+        (q[..., :48], k[..., :48], v[..., :48], lens),  # D 48
+        (q, k.transpose(2, 3).contiguous().transpose(2, 3), v, lens),  # D not unit stride
+        (q, k[:, :, ::2], v[:, :, ::2], lens),  # T rows not of D
+        (q, k, v, lens.cpu()),  # length on the host
+        (q, k, v, lens.float()),  # length not integer
+        (q, k, v, lens[:1]),  # length not [B]
+    ]
+    for args in bad_calls:
+        with pytest.raises(ValueError, match="decode_attention"):
+            A.decode_attention(*args)
+    with pytest.raises(ValueError, match="int8"):
+        A.decode_attention(q, k, v, lens, k_scale=k[..., :1].float(), v_scale=v[..., :1].float())
+    assert A.launches["decode_attention"] == before
 
 
 def test_streaming_block_encode_card_matches_cpu(card, monkeypatch):
