@@ -261,6 +261,17 @@ Phases, each of which raises on failure (exit code 1, no result line):
      rounding of 0), through K1 and its backward on the card. 19c: one NCCL
      rank through ``maybe_init_distributed`` with ``OS_TPU_MESH="1,1"``
      gives phase 4's request a: the same body and K1 launches.
+ 20. the audio-LLM's kernels (Voxtral): K1 at D = 128 with grouped KV
+     heads (``flash_attention_gqa.cu``, built here, its ptxas line printed;
+     no spill) against its plain version at the prefill of 8 windows
+     [8, 32 / 8, 382, 382, 128] causal and around its tiles, the prefill's
+     device time beside its bound; the decode kernel with each KV head's
+     four query heads folded into its query rows at the tick's shape [64,
+     8 x 4, 1, 576, 128] against its plain version and its bytes bound;
+     then 12 windows through ``transcribe_pcm_batched`` to the audio-LLM
+     batcher on Voxtral-Small-24B's widths and audio tower with a
+     2-layer language model, where K1 at D = 128 must launch once a layer
+     an admission and the decode kernel once a layer a step.
 
 Each phase's seconds, and the whole script's, are printed on lines of
 their own.
@@ -920,6 +931,210 @@ def _phase_kernels_decode(gen) -> dict:
     return entry
 
 
+# ── phase 20: the audio-LLM's kernels (Voxtral) ─────────────────────────
+
+# K1 at D = 128 with grouped KV heads: the Voxtral prefill of 8 windows
+# (32 query heads over 8 KV heads, 382 prompt positions fed), then shapes
+# around the tiles: one row, a ragged causal diagonal, no grouping, a
+# rectangle
+GQA_SHAPES = [
+    (8, 32, 8, 382, 382, True),
+    (1, 32, 8, 1, 1, True),
+    (2, 8, 2, 65, 65, True),
+    (1, 4, 4, 129, 129, True),
+    (2, 8, 1, 37, 300, False),
+]
+
+
+def phase_voxtral_kernels() -> tuple[list[dict], dict]:
+    """The kernels Voxtral's batcher runs beyond Whisper's: K1 at D = 128
+    with grouped KV heads (``flash_fwd_gqa_bf16``, built here from its own
+    source, its ptxas line printed) against its plain version, and its time
+    at the prefill's shape against the bound; the decode kernel with each KV
+    head's four query heads folded into its query rows at the tick's shape
+    [64, 8 x 4, 1, 576, 128], against its plain version and the bytes bound.
+    Then ``_voxtral_drive``. Returns the kernels' entries and the drive's
+    launch counts under the entries' names."""
+    import torch
+
+    from open_speech_tpu_torch.kernels import build
+    from open_speech_tpu_torch.ops import attention as A
+
+    t0 = time.perf_counter()
+    logs = build.build(build.ON_DEMAND, force=True)
+    log(f"voxtral build: {len(logs)} source(s) in {time.perf_counter() - t0:.2f} s")
+    for stem, text in logs.items():
+        for k in ptxas_kernels(text):
+            log(f"  {stem}: registers {k['registers']:3d} smem {k['smem_bytes']} B "
+                f"spills {k['spill_bytes']} B  {k['name']}")
+            if k["spill_bytes"]:
+                raise AssertionError(f"{stem}: {k['name']} spills")
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    entries = []
+    for b, h, h_kv, t_q, t_k, causal in GQA_SHAPES:
+        q = torch.randn(b, h, t_q, 128, generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn(b, h_kv, t_k, 128, generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        before = A.launches[A.GQA_ROUTE]
+        out = A.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        ref = A.flash_attention_reference(q.float(), k.float(), v.float(), causal=causal)
+        err = (out.float() - ref).abs().max().item()
+        limit = _limit("bfloat16", ref)
+        if not (err <= limit and A.launches[A.GQA_ROUTE] == before + 1):
+            raise AssertionError(f"K1 gqa [{b},{h}/{h_kv},{t_q},{t_k},128] causal {causal}: "
+                                 f"max_abs_err {err:.3e} > {limit:.3e}")
+        line = (f"K1 gqa bf16 [{b},{h}/{h_kv},{t_q},{t_k},128] causal {causal}: max_abs_err "
+                f"{err:.3e} (tol {limit:.3e})")
+        if not entries:  # the prefill's shape: timed
+            kernel_ms = cuda_ms(lambda: A.flash_attention(q, k, v, causal=causal))
+            device_ms = cuda_ms(lambda: A.flash_attention(q, k, v, causal=causal), held=True)
+            plain_ms = cuda_ms(lambda: A.flash_attention_reference(q, k, v, causal=causal), iters=5)
+            visible = sum(min(i + 1, t_k) for i in range(t_q)) if causal else t_q * t_k
+            flops = 4 * b * h * visible * 128
+            nbytes = (2 * b * h * t_q + 2 * b * h_kv * t_k) * 128 * 2
+            bound_ms = 1e3 * max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S)
+            line += (f"; kernel_ms {kernel_ms:.4f} device_ms {device_ms:.4f} plain_ms {plain_ms:.4f} "
+                     f"bound_ms {bound_ms:.4f} ({'operations' if flops / H100_BF16_FLOPS > nbytes / H100_BYTES_PER_S else 'bytes'}) "
+                     f"share_of_bound {bound_ms / device_ms:.4f}")
+            entries.append({"name": "flash_attention_gqa", "shape": [b, h, h_kv, t_q, t_k, 128],
+                            "kernel_ms": kernel_ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                            "bound_ms": bound_ms})
+        log(line)
+    # the tick's grouped decode: q [64, 8, 4, 128] against [64, 8, 576, 128]
+    s, h_kv, g, t_max = 64, 8, 4, 576
+    q = torch.randn(s, h_kv * g, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    q = q.view(s, h_kv, g, 128)
+    pool = torch.randn(2, s, h_kv, t_max, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    lens = torch.randint(383, 528, (s,), generator=gen, device="cuda")
+    out = A.decode_attention(q, pool[0], pool[1], lens)
+    torch.cuda.synchronize()
+    ref = A.decode_attention_reference(q, pool[0], pool[1], lens)
+    err = (out.float() - ref.float()).abs().max().item()
+    limit = 1e-2 * ref.abs().max().item()  # tests/test_torch_cuda.py:_decode_limit
+    if err > limit:
+        raise AssertionError(f"decode_attention gqa fold: max_abs_err {err:.3e} > {limit:.3e}")
+    kernel_ms = cuda_ms(lambda: A.decode_attention(q, pool[0], pool[1], lens))
+    device_ms = cuda_ms(lambda: A.decode_attention(q, pool[0], pool[1], lens), held=True)
+    keys = int(lens.sum().item())
+    nbytes = 2 * h_kv * keys * 128 * 2 + 2 * s * h_kv * g * 128 * 2 + s * 8
+    bound_ms = 1e3 * nbytes / H100_BYTES_PER_S
+    log(f"decode_attention gqa fold bf16 [{s},{h_kv}x{g},1,{t_max},128] keys read {keys}: max_abs_err "
+        f"{err:.3e} (tol {limit:.3e}) kernel_ms {kernel_ms:.4f} device_ms {device_ms:.4f} bound_ms "
+        f"{bound_ms:.4f} (bytes) share_of_bound {bound_ms / device_ms:.4f}; splits "
+        f"{A.plan_decode_splits(s, h_kv, g, t_max)}")
+    entries.append({"name": "decode_attention_gqa_fold", "shape": [s, h_kv, g, t_max, 128],
+                    "kernel_ms": kernel_ms, "device_ms": device_ms, "bound_ms": bound_ms})
+    del q, k, v, pool
+    return entries, _voxtral_drive()
+
+
+# the drive's language-model depth: every width is Voxtral-Small-24B's, and
+# its audio tower is whole (32 layers); 2 of the 40 layers keep its weights
+# at ~6 GB beside what the earlier phases leave on the card
+VOXTRAL_DRIVE_LAYERS = 2
+VOXTRAL_DRIVE_WINDOWS = 12  # two admissions: 8 windows (PREFILL_POSITIONS), then 4
+
+
+def _voxtral_drive() -> dict:
+    """Voxtral's main path at its published widths: ``VOXTRAL_DRIVE_WINDOWS``
+    windows of 3-8.5 s at once through ``transcribe_pcm_batched``, which picks
+    ``AudioLLMBatcher`` by the model's family (64 slots, 4 steps a tick), on
+    seeded weights. Each admission must launch K1 at D = 64 once an audio
+    layer and K1 at D = 128 (grouped KV heads) once a language-model layer,
+    each step the decode kernel once a language-model layer, and nothing
+    else must launch; each window comes back with 1 to its budget of ids.
+    Returns those launch counts under the kernel entries' names."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from open_speech_tpu_torch.config import settings
+    from open_speech_tpu_torch.models.voxtral.model import Voxtral, VoxtralConfig
+    from open_speech_tpu_torch.models.voxtral.tokens import VoxtralTokens
+    from open_speech_tpu_torch.ops import attention as A
+    from open_speech_tpu_torch.runtime import batcher_pool
+    from open_speech_tpu_torch.runtime.audio_llm_batcher import AudioLLMBatcher
+
+    hf = json.loads((Path(__file__).resolve().parent / "speechbench" / "configs"
+                     / "voxtral-small-24b.json").read_text())
+    hf["text_config"] = {**hf["text_config"], "num_hidden_layers": VOXTRAL_DRIVE_LAYERS}
+    cfg = VoxtralConfig.from_hf(hf)
+    model = Voxtral.empty(cfg, torch.bfloat16, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("norm.weight") or ".ln" in name:  # gains 1, biases 0
+                p.fill_(1.0 if name.endswith("weight") else 0.0)
+            elif p.dim() == 1:
+                p.zero_()
+            else:  # [out, in] or [out, in, k]: normal over sqrt(fan in)
+                fan_in = p.shape[1] * (p.shape[2] if p.dim() == 3 else 1)
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * fan_in**-0.5)
+        model.encoder.pos.normal_(0.0, 0.1, generator=gen)
+
+    class Tokens(VoxtralTokens):
+        @staticmethod
+        def decode(ids) -> str:
+            return " ".join(str(int(i)) for i in ids)
+
+    class Backend:  # a model entry handed in, as the benchmark's entry does
+        _models = {"voxtral-drive": {"model": model, "cfg": cfg, "tok": Tokens(
+            cfg.audio_positions, {"en": list(hf["assumed"]["lang_ids"])}, hf["assumed"]["eos"])}}
+
+        def _ensure_model(self, model_id: str) -> dict:
+            return self._models[model_id]
+
+    seconds = [3.0 + 0.5 * i for i in range(VOXTRAL_DRIVE_WINDOWS)]
+    saved = {k: getattr(settings, k) for k in ("os_batcher_enabled", "os_batch_max_sessions")}
+    settings.os_batcher_enabled, settings.os_batch_max_sessions = True, 64
+    backend = Backend()
+
+    async def serve():
+        batcher_pool.reset_pool()
+        try:
+            outs = await asyncio.wait_for(asyncio.gather(*(
+                batcher_pool.transcribe_pcm_batched(backend, "voxtral-drive", "en",
+                                                    _speechlike(sec, 2000 + i))
+                for i, sec in enumerate(seconds))), 600)
+            batcher = await batcher_pool.get_batcher(backend, "voxtral-drive", "en")
+            return outs, batcher, dict(batcher.stats)
+        finally:
+            await batcher_pool.shutdown_batchers()
+            batcher_pool.reset_pool()
+
+    before = dict(A.launches)
+    t0 = time.perf_counter()
+    try:
+        outs, batcher, stats = asyncio.run(serve())
+    finally:
+        for k, v in saved.items():
+            setattr(settings, k, v)
+    seconds_taken = time.perf_counter() - t0
+    moved = {k: A.launches[k] - before[k] for k in A.launches if A.launches[k] != before[k]}
+    steps = stats["ticks"] * batcher.steps_per_tick
+    # a grouped K1 launch counts under the shared K1 name too, as a float32 one does
+    want = {"flash_attention": (cfg.audio.n_audio_layer + cfg.layers) * stats["admissions"],
+            A.GQA_ROUTE: cfg.layers * stats["admissions"], "decode_attention": cfg.layers * steps}
+    served = [len(o["text"].split()) for o in outs]
+    budgets = [AudioLLMBatcher.token_budget(sec) for sec in seconds]
+    short = [n for n, cap in zip(served, budgets) if not 0 < n <= cap]
+    if not isinstance(batcher, AudioLLMBatcher) or moved != want or stats["admissions"] < 2 or (
+            stats["admitted"] != len(seconds) or short):
+        raise AssertionError(f"voxtral drive: {type(batcher).__name__}, launches {moved} (want "
+                             f"{want}), ids served {served} (budgets {budgets}), stats {stats}")
+    log(f"voxtral drive ({cfg.layers} of 40 language-model layers at the published widths, "
+        f"{len(seconds)} windows through transcribe_pcm_batched): {type(batcher).__name__}, "
+        f"admissions {stats['admissions']}, ticks {stats['ticks']} of {batcher.steps_per_tick} "
+        f"steps, prefill_positions {stats['prefill_positions']}, ids served {served} of budgets "
+        f"{budgets}, launches {moved}, {seconds_taken:.1f} s")
+    del model, batcher, Backend._models["voxtral-drive"]
+    torch.cuda.empty_cache()
+    return {"flash_attention_gqa": moved[A.GQA_ROUTE],
+            "decode_attention_gqa_fold": moved["decode_attention"]}
+
+
 def main() -> int:
     import torch
 
@@ -970,14 +1185,17 @@ def main() -> int:
     train_kernels, train_launches = timed("18 (training)", phase_train)
     kernels += train_kernels
     phases.append(timed("19 (scale-out)", phase_tp, _REQUEST_A))
-    for key, n in train_launches.items():  # 18c's steps: K1 and its backward
+    voxtral, voxtral_launches = timed("20 (voxtral)", phase_voxtral_kernels)
+    kernels += voxtral
+    for key, n in {**train_launches, **voxtral_launches}.items():  # 18c's steps, 20's drive
         launches[key] = launches.get(key, 0) + n
     for phase in phases:
         for key, n in phase.items():
             launches[key] = launches.get(key, 0) + n
     tts.unload_model("kokoro")
     for entry in kernels:  # K1 from REST (both paths), S3 and 18c, K2 and its combine from S1/S2,
-        # the backward's three kernels from 18c (the entry counts its calls: one launch of each)
+        # the backward's three kernels from 18c (the entry counts its calls: one launch of each),
+        # K1 at D = 128 and the folded decode from 20's drive of the audio-LLM batcher
         for part in entry.get("parts", [entry]):
             part["launches"] = launches.get(part["name"], 0)
             if part["launches"] == 0:

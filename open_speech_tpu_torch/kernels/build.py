@@ -28,6 +28,9 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention")
+# built at their own first use, not with SOURCES: only an audio-LLM model
+# (K1 at head dim 128) needs them, so the Whisper paths do not wait for them
+ON_DEMAND = ("flash_attention_gqa",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -101,15 +104,15 @@ def build(stems=SOURCES, *, force: bool = False) -> dict[str, str]:
 
 def load(stem: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<stem>.cu``. Where it is missing, every
-    missing library is built first, together: on a fresh checkout the
-    first kernel used pays for one build's time, and the others load
-    without one."""
+    missing library of ``SOURCES`` is built first, together: on a fresh
+    checkout the first kernel used pays for one build's time, and the
+    others load without one. A stem of ``ON_DEMAND`` is built alone."""
     with _lock:
         lib = _libs.get(stem)
         if lib is None:
             path = library_path(stem)
             if not path.exists():
-                build()
+                build(SOURCES if stem in SOURCES else (stem,))
             lib = ctypes.CDLL(str(path))
             _libs[stem] = lib
         return lib

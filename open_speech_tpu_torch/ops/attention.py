@@ -8,7 +8,11 @@ Counterpart of ``open_speech_tpu/ops/attention.py``:
     without lengths, K2 with them); a CPU tensor runs their plain versions
     ``flash_attention_reference`` and ``flash_attention_varlen_reference``.
     There is no fallback between the two: a CUDA call that cannot launch
-    raises. K2 splits the kv axis over more blocks (``plan_splits``) and
+    raises. At head dim 128 (a decoder-only language model's causal
+    prefill) K1 is ``flash_fwd_gqa_bf16`` (``kernels/csrc/
+    flash_attention_gqa.cu``, bf16 only), which also takes grouped KV heads:
+    k and v with H / g heads, query head h reading KV head h // g, with no
+    repeat of K or V. K2 splits the kv axis over more blocks (``plan_splits``) and
     ``flash_combine`` merges the splits' partials;
     ``flash_attention_partial_reference`` and ``flash_combine_reference``
     are the plain versions of the two passes. float32 runs on the tensor
@@ -53,13 +57,15 @@ LOG2E = math.log2(math.e)
 BWD_STAGES = ("flash_attention_bwd_prep", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")
 F32_SUFFIX = "_f32"
 _ROUTES = ("flash_attention", "flash_attention_varlen", "flash_combine", *BWD_STAGES)
+# K1's launches at D = 128 (grouped KV heads or not) also count under this
+GQA_ROUTE = "flash_attention_gqa"
 # decode attention's launches: every kernel launch under "decode_attention",
 # those with a key split (each followed by one combine) also under
 # "decode_attention_split", and the calls of a CUDA tensor that the plain
 # version served (int8 caches with scales) under "decode_attention_int8"
 DECODE_ROUTES = ("decode_attention", "decode_attention_split", "decode_attention_int8")
 launches = {**dict.fromkeys(_ROUTES, 0), **dict.fromkeys((n + F32_SUFFIX for n in _ROUTES), 0),
-            "flash_split_f32": 0, **dict.fromkeys(DECODE_ROUTES, 0)}
+            "flash_split_f32": 0, GQA_ROUTE: 0, **dict.fromkeys(DECODE_ROUTES, 0)}
 
 # the forward kernels' tiles (kBlockN keys and kBlockQ query rows per block
 # in bf16, kFBlockN and kFBlockQ in float32, flash_attention.cu) and the
@@ -86,9 +92,14 @@ def mha_reference(
     kv_length: torch.Tensor | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Plain attention. q,k,v: [B, H, T, D]; kv_length: [B] valid kv lengths.
+    """Plain attention. q: [B, H, T, D]; k, v: [B, H / g, T, D] (grouped KV
+    heads: query head h reads KV head h // g); kv_length: [B] valid kv
+    lengths.
 
     Computes in float32 (float64 for float64 inputs)."""
+    group = q.shape[1] // k.shape[1]
+    if group > 1:  # the plain version repeats the KV heads; the kernel reads them in place
+        k, v = k.repeat_interleave(group, 1), v.repeat_interleave(group, 1)
     acc = torch.promote_types(q.dtype, torch.float32)
     probs = _probs(q.to(acc), k.to(acc), causal, kv_length, scale)
     out = torch.matmul(probs.to(v.dtype).to(acc), v.to(acc))
@@ -313,9 +324,11 @@ _SIGNATURES = {  # C entry -> argument types after the four tensor pointers
     "os_flash_attention_bwd": [_P] * 5 + [_I] * 7 + [ctypes.c_float, _I, _P],
     "os_split_f32": [_P] * 4 + [_I] * 8 + [_P, _I, _P],
     "os_decode_attention": [_P] * 3 + [_L] * 7 + [_I] * 10 + [ctypes.c_float, _P],
+    "os_flash_attention_gqa_fwd": [_I] * 5 + [ctypes.c_float, _I, _P],
 }
 _SOURCE = {"os_flash_attention_bwd": "flash_attention_bwd",  # else flash_attention.cu
-           "os_decode_attention": "decode_attention"}
+           "os_decode_attention": "decode_attention",
+           "os_flash_attention_gqa_fwd": "flash_attention_gqa"}
 _fns: dict[str, ctypes._CFuncPtr] = {}
 
 
@@ -357,7 +370,10 @@ def flash_attention(
 ) -> torch.Tensor:
     """Multi-head attention, [B, H, T, D] layout, any Tq.
 
-    ``kv_length`` [B] (integer): keys at or past it are masked, per example.
+    At D = 128, k and v may hold H / g heads (grouped KV heads, query head h
+    reading KV head h // g); a CUDA call there takes bf16 without
+    ``kv_length`` (``flash_fwd_gqa_bf16``). ``kv_length`` [B] (integer):
+    keys at or past it are masked, per example.
     A CPU tensor runs the plain version. A CUDA tensor launches the sm_90a
     kernel on the current stream (K1, or K2 with ``kv_length``; K2 runs
     ``plan_splits`` kv splits and, when there is more than one, the combine
@@ -400,10 +416,12 @@ def flash_attention(
         )
     b, h, t_q, d = q.shape
     t_k = k.shape[2]
+    if d == GQA_HEAD_DIM:
+        return _flash_attention_gqa(q, k, v, causal, kv_length, scale)
     if k.shape[0] != b or k.shape[1] != h or k.shape[3] != d or d not in (32, 64):
         raise ValueError(
             f"flash_attention: q {tuple(q.shape)} vs k {tuple(k.shape)}; "
-            "batch, heads and head dim must agree and D must be 32 or 64"
+            "batch, heads and head dim must agree and D must be 32, 64 or 128"
         )
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
@@ -457,6 +475,43 @@ def flash_attention(
     _launched("flash_attention_varlen", err, f32)
     err = _combine(o_part, m_part, l_part, out, (b, splits, h, t_q, d), stream)
     _launched("flash_combine", err, f32)
+    return out
+
+
+GQA_HEAD_DIM = 128  # the head dim K1 takes grouped KV heads at
+
+
+def _flash_attention_gqa(q, k, v, causal: bool, kv_length, scale) -> torch.Tensor:
+    """K1 at D = 128 on the card (``flash_attention``'s checks of device,
+    dtype and rank done): checks what ``flash_fwd_gqa_bf16`` takes, then
+    launches it on the current stream, counted under ``flash_attention``
+    and ``flash_attention_gqa``."""
+    b, h, t_q, d = q.shape
+    h_kv, t_k = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or h_kv < 1 or h % h_kv:
+        raise ValueError(
+            f"flash_attention: q {tuple(q.shape)} vs k {tuple(k.shape)}; batch and head dim "
+            "must agree and the KV heads divide the query heads"
+        )
+    if q.dtype != torch.bfloat16 or kv_length is not None:
+        raise ValueError("flash_attention: at head dim 128 the kernel takes bfloat16 without "
+                         "kv_length")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: q, k, v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k, v must start on 16-byte boundaries")
+    _check_hopper(q.device)
+    out = torch.empty_like(q)
+    if q.numel() == 0 or t_k == 0:
+        return out.zero_()
+    scale = (d**-0.5) if scale is None else float(scale)
+    if not scale > 0:
+        raise ValueError(f"flash_attention: the kernel takes a positive scale, not {scale}")
+    err = _kernel("os_flash_attention_gqa_fwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, h_kv, t_q, t_k, scale,
+        int(causal), torch.cuda.current_stream(q.device).cuda_stream)
+    _launched("flash_attention", err)
+    launches[GQA_ROUTE] += 1
     return out
 
 

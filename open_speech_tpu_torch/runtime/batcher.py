@@ -200,81 +200,34 @@ class _Slot:
     max_new: int = 224
 
 
-class ContinuousBatcher:
-    """Async scheduler multiplexing transcription windows onto one card."""
+class SlotScheduler:
+    """The scheduler every continuous batcher shares: the queue of windows,
+    the slot bookkeeping, the loop that alternates admissions and ticks,
+    the epoch guard, the futures, ``stats`` and the ``batcher.*`` spans.
 
-    def __init__(
-        self,
-        model: Whisper,
-        cfg: WhisperConfig,
-        special: SpecialTokens,
-        *,
-        slots: int = 8,
-        max_new_tokens: int = 224,
-        language: str = "en",
-        task: str = "transcribe",
-        suppress_tokens: tuple[int, ...] = (),
-        mesh=None,
-    ) -> None:
-        if mesh is not None:
-            tp = mesh["model"].size()
-            if cfg.n_text_head % tp:
-                raise ValueError(
-                    f"n_text_head={cfg.n_text_head} not divisible by model-axis size {tp}"
-                )
-            if tp > 1 and model.tp_size == 1:
-                from open_speech_tpu_torch.parallel.mesh import shard_model
+    A model's batcher subclasses it and brings its pools and the device
+    work: ``_admit_device(batch)`` (a batch is [(slot, window, budget,
+    future)]), ``_tick()``, ``_reset_pools()``, ``_admission_size(free)``
+    (how many queued windows one admission takes) and ``_end_token`` (the
+    token that retires a slot)."""
 
-                shard_model(model, mesh)
-        self.mesh = mesh
-        self.model = model
-        self.cfg = cfg
-        self.special = special
+    _end_token: int
+
+    def __init__(self, device: torch.device, slots: int, max_new_tokens: int) -> None:
         self.n_slots = slots
         self.max_new_tokens = max_new_tokens
-        self.device = model.device
+        self.device = device
         # every kernel of this batcher goes to one stream, whichever
         # executor thread issues it
         self._stream = (
             torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
         )
-        # self-KV length follows the token budget (bucketed to 64), not
-        # n_text_ctx: every tick reads the whole pool
-        self._prompt = list(special.sot_sequence(language, task))
-        need = len(self._prompt) + max_new_tokens + 1
-        self._cache_len = min(cfg.n_text_ctx, -(-need // 64) * 64)
-        self._self_kv = self._zeros_self_kv()
-        self._cross_kv = torch.zeros(
-            (cfg.n_text_layer, 2, slots, model.text_heads, cfg.n_audio_ctx, cfg.text_head_dim),
-            dtype=_CACHE_DTYPE, device=self.device,
-        )
-        self._tokens = np.full((slots,), special.eot, np.int64)
-        self._pos = np.zeros((slots,), np.int64)
-        self._step_idx = np.zeros((slots,), np.int64)
-        self._last = np.full((slots,), special.eot, np.int64)
-        self._penult = np.full((slots,), special.eot, np.int64)
-        self._max_ts = np.full((slots,), special.timestamp_begin - 1, np.int64)
         self._active = np.zeros((slots,), bool)
-        self._steps = np.zeros((slots,), np.int64)
-        self._max_new = np.full((slots,), max_new_tokens, np.int64)
-        self._state_host = (
-            torch.empty((9, slots), dtype=torch.int64, pin_memory=True)
-            if self.device.type == "cuda" else None
-        )
         # decode positions per host sync
         self.steps_per_tick = max(1, settings.os_batch_steps_per_tick)
         self._slots: dict[int, _Slot] = {}
         self._queue: asyncio.Queue = asyncio.Queue()
         self._task: asyncio.Task | None = None
-        opts = DecodeOptions(suppress_tokens=suppress_tokens)
-        self._suppress = torch.from_numpy(_suppress_mask(cfg.n_vocab, special, opts)).to(
-            self.device
-        )
-        # the constants greedy and beam decoding use, so the paths agree
-        self._max_init_tok = special.timestamp_begin + int(
-            round(opts.max_initial_timestamp / 0.02)
-        )
-        self._blank = _blank_tokens(special, opts)
         # bumped whenever in-flight work is failed; a tick that observes a
         # stale epoch discards its results instead of racing _fail_all
         self._epoch = 0
@@ -303,30 +256,16 @@ class ContinuousBatcher:
         self._fail_all(RuntimeError("batcher stopped"))
         self._drain_queue(RuntimeError("batcher stopped"))
 
-    async def transcribe_window(self, mel, max_new_tokens: int | None = None) -> list[int]:
-        """Submit one mel window [n_mels, 2 * n_audio_ctx] (numpy or a
-        tensor on any device); awaits its token ids."""
-        # a copy of host input (the caller may reuse its buffer); a tensor
-        # is taken as it is
-        mel = mel if isinstance(mel, torch.Tensor) else torch.tensor(np.asarray(mel))
-        expect = (self.cfg.n_mels, self.cfg.n_audio_ctx * 2)
-        if tuple(mel.shape) != expect:
-            # rejected here, not inside the admission batch: a malformed
-            # request must never take co-batched healthy requests down
-            raise ValueError(f"mel window shape {tuple(mel.shape)} != {expect}")
+    async def _submit(self, window, budget: int) -> list[int]:
+        """Queue one checked window with its token budget; awaits its ids."""
         if self._task is None:
             self.start()
         future: asyncio.Future = asyncio.get_running_loop().create_future()
-        # clamp to the slot pool's KV capacity, sized at construction
-        budget = min(
-            max_new_tokens or self.max_new_tokens,
-            self._cache_len - len(self._prompt) - 1,
-        )
         queued = None
         if tracing.on():
             # the caller's window id (``transcribe_pcm_batched``), else a new one
             queued = tracing.begin("batcher.queue", (tracing.window.get() or tracing.window_id(),))
-        await self._queue.put((mel, budget, future, queued))
+        await self._queue.put((window, budget, future, queued))
         return await future
 
     @property
@@ -391,55 +330,22 @@ class ContinuousBatcher:
             if not future.done():
                 future.get_loop().call_soon_threadsafe(_set_exception_if_pending, future, exc)
 
-    def _zeros_self_kv(self) -> torch.Tensor:
-        cfg = self.cfg
-        return torch.zeros(
-            (cfg.n_text_layer, 2, self.n_slots, self.model.text_heads, self._cache_len,
-             cfg.text_head_dim),
-            dtype=_CACHE_DTYPE, device=self.device,
-        )
-
-    def _reset_pools(self) -> None:
-        """A fresh self-KV pool after a failed tick (run after _fail_all):
-        the failed tick may have stopped part-way through its in-place
-        writes. Its work is drained first, so no copy from the pinned state
-        buffer is still in flight when the next tick refills it."""
-        if self._stream is not None:
-            self._stream.synchronize()
-        self._self_kv = self._zeros_self_kv()
-
     def _on_stream(self):
         return torch.cuda.stream(self._stream) if self._stream is not None else contextlib.nullcontext()
 
-    def _to_device(self, array: np.ndarray) -> torch.Tensor:
-        """A COPY of host state on the device (a blocking copy: the
-        admission's prompt feed). The scheduler mutates its numpy state
-        while device work is in flight, and ``torch.from_numpy`` aliases."""
-        return torch.from_numpy(np.array(array, np.int64)).to(self.device)
-
-    def _state_to_device(self) -> torch.Tensor:
-        """The tick's [9, S] scheduler state, copied, on the device. On the
-        card it goes through the batcher's own pinned buffer without a host
-        sync: the buffer is free again once the previous tick's one sync
-        (or _reset_pools) has run, and allocating pinned memory per tick
-        would sync whenever the pinned pool grows."""
-        state = np.stack([
-            self._tokens, self._pos, self._last, self._penult, self._max_ts,
-            self._step_idx, self._active, self._steps, self._max_new,
-        ]).astype(np.int64)
-        if self._state_host is None:
-            return torch.from_numpy(state)
-        self._state_host.numpy()[:] = state
-        return self._state_host.to(self.device, non_blocking=True)
+    def _admission_size(self, free: int) -> int:
+        """How many queued windows one admission takes, with ``free`` slots."""
+        return free
 
     async def _admit(self) -> bool:
-        """Claim free slots for queued requests; run encode + prompt feed.
+        """Claim free slots for queued requests; run the model's admission.
 
-        A failing admission (device error during encode or prompt feed)
-        fails ONLY the requests being admitted and releases their slots;
-        requests already decoding on other slots are untouched.
+        A failing admission (a device error in its work) fails ONLY the
+        requests being admitted and releases their slots; requests already
+        decoding on other slots are untouched.
         """
         free = [i for i in range(self.n_slots) if not self._active[i]]
+        free = free[: self._admission_size(len(free))]
         batch: list[tuple[int, torch.Tensor, int, asyncio.Future]] = []
         windows = []
         while free and not self._queue.empty():
@@ -466,6 +372,170 @@ class ContinuousBatcher:
         self.stats["peak_occupancy"] = max(self.stats["peak_occupancy"], self.occupancy)
         return True
 
+    def _claim(self, batch) -> None:
+        """The admitted windows' slots go live (their device work is queued)."""
+        for slot, _window, max_new, future in batch:
+            self._slots[slot] = _Slot(future=future, max_new=max_new)
+            self._active[slot] = True
+        self.stats["admissions"] += 1
+        self.stats["admitted"] += len(batch)
+
+    def _deliver(self, emitted: np.ndarray) -> None:
+        """The host half of a tick: the [K, S] tokens its block emitted go to
+        their slots' lists; a slot that emitted its end token or reached its
+        budget resolves its future and is free again. Runs after the device
+        state is mirrored, so a woken caller sees it."""
+        end = self._end_token
+        for slot in list(self._slots):
+            state = self._slots[slot]
+            for j in range(emitted.shape[0]):
+                t = int(emitted[j, slot])
+                state.steps += 1
+                done = t == end or state.steps >= state.max_new
+                if t != end:
+                    state.tokens.append(t)
+                    self.stats["tokens"] += 1
+                if done:
+                    self.stats["completed"] += 1
+                    del self._slots[slot]
+                    state.future.get_loop().call_soon_threadsafe(
+                        _set_result_if_pending, state.future, state.tokens
+                    )
+                    break
+        self.stats["ticks"] += 1
+
+
+class ContinuousBatcher(SlotScheduler):
+    """Whisper's continuous batcher: transcription windows as mel windows,
+    cross- and self-KV pools, the prompt fed one token a step."""
+
+    def __init__(
+        self,
+        model: Whisper,
+        cfg: WhisperConfig,
+        special: SpecialTokens,
+        *,
+        slots: int = 8,
+        max_new_tokens: int = 224,
+        language: str = "en",
+        task: str = "transcribe",
+        suppress_tokens: tuple[int, ...] = (),
+        mesh=None,
+    ) -> None:
+        if mesh is not None:
+            tp = mesh["model"].size()
+            if cfg.n_text_head % tp:
+                raise ValueError(
+                    f"n_text_head={cfg.n_text_head} not divisible by model-axis size {tp}"
+                )
+            if tp > 1 and model.tp_size == 1:
+                from open_speech_tpu_torch.parallel.mesh import shard_model
+
+                shard_model(model, mesh)
+        super().__init__(model.device, slots, max_new_tokens)
+        self.mesh = mesh
+        self.model = model
+        self.cfg = cfg
+        self.special = special
+        self._end_token = special.eot
+        # self-KV length follows the token budget (bucketed to 64), not
+        # n_text_ctx: every tick reads the whole pool
+        self._prompt = list(special.sot_sequence(language, task))
+        need = len(self._prompt) + max_new_tokens + 1
+        self._cache_len = min(cfg.n_text_ctx, -(-need // 64) * 64)
+        self._self_kv = self._zeros_self_kv()
+        self._cross_kv = torch.zeros(
+            (cfg.n_text_layer, 2, slots, model.text_heads, cfg.n_audio_ctx, cfg.text_head_dim),
+            dtype=_CACHE_DTYPE, device=self.device,
+        )
+        self._tokens = np.full((slots,), special.eot, np.int64)
+        self._pos = np.zeros((slots,), np.int64)
+        self._step_idx = np.zeros((slots,), np.int64)
+        self._last = np.full((slots,), special.eot, np.int64)
+        self._penult = np.full((slots,), special.eot, np.int64)
+        self._max_ts = np.full((slots,), special.timestamp_begin - 1, np.int64)
+        self._steps = np.zeros((slots,), np.int64)
+        self._max_new = np.full((slots,), max_new_tokens, np.int64)
+        self._state_host = (
+            torch.empty((9, slots), dtype=torch.int64, pin_memory=True)
+            if self.device.type == "cuda" else None
+        )
+        opts = DecodeOptions(suppress_tokens=suppress_tokens)
+        self._suppress = torch.from_numpy(_suppress_mask(cfg.n_vocab, special, opts)).to(
+            self.device
+        )
+        # the constants greedy and beam decoding use, so the paths agree
+        self._max_init_tok = special.timestamp_begin + int(
+            round(opts.max_initial_timestamp / 0.02)
+        )
+        self._blank = _blank_tokens(special, opts)
+
+    @property
+    def mel_shape(self) -> tuple[int, int]:
+        return self.cfg.n_mels, 2 * self.cfg.n_audio_ctx
+
+    @staticmethod
+    def token_budget(duration_s: float) -> int:
+        """A window's budget: 12 tokens a second of audio plus 12, at most
+        224, rounded up to 16 (the batcher clamps it to its pool)."""
+        return -(-min(224, int(duration_s * 12) + 12) // 16) * 16
+
+    async def transcribe_window(self, mel, max_new_tokens: int | None = None) -> list[int]:
+        """Submit one mel window [n_mels, 2 * n_audio_ctx] (numpy or a
+        tensor on any device); awaits its token ids."""
+        # a copy of host input (the caller may reuse its buffer); a tensor
+        # is taken as it is
+        mel = mel if isinstance(mel, torch.Tensor) else torch.tensor(np.asarray(mel))
+        expect = (self.cfg.n_mels, self.cfg.n_audio_ctx * 2)
+        if tuple(mel.shape) != expect:
+            # rejected here, not inside the admission batch: a malformed
+            # request must never take co-batched healthy requests down
+            raise ValueError(f"mel window shape {tuple(mel.shape)} != {expect}")
+        # clamp to the slot pool's KV capacity, sized at construction
+        budget = min(
+            max_new_tokens or self.max_new_tokens,
+            self._cache_len - len(self._prompt) - 1,
+        )
+        return await self._submit(mel, budget)
+
+    def _zeros_self_kv(self) -> torch.Tensor:
+        cfg = self.cfg
+        return torch.zeros(
+            (cfg.n_text_layer, 2, self.n_slots, self.model.text_heads, self._cache_len,
+             cfg.text_head_dim),
+            dtype=_CACHE_DTYPE, device=self.device,
+        )
+
+    def _reset_pools(self) -> None:
+        """A fresh self-KV pool after a failed tick (run after _fail_all):
+        the failed tick may have stopped part-way through its in-place
+        writes. Its work is drained first, so no copy from the pinned state
+        buffer is still in flight when the next tick refills it."""
+        if self._stream is not None:
+            self._stream.synchronize()
+        self._self_kv = self._zeros_self_kv()
+
+    def _to_device(self, array: np.ndarray) -> torch.Tensor:
+        """A COPY of host state on the device (a blocking copy: the
+        admission's prompt feed). The scheduler mutates its numpy state
+        while device work is in flight, and ``torch.from_numpy`` aliases."""
+        return torch.from_numpy(np.array(array, np.int64)).to(self.device)
+
+    def _state_to_device(self) -> torch.Tensor:
+        """The tick's [9, S] scheduler state, copied, on the device. On the
+        card it goes through the batcher's own pinned buffer without a host
+        sync: the buffer is free again once the previous tick's one sync
+        (or _reset_pools) has run, and allocating pinned memory per tick
+        would sync whenever the pinned pool grows."""
+        state = np.stack([
+            self._tokens, self._pos, self._last, self._penult, self._max_ts,
+            self._step_idx, self._active, self._steps, self._max_new,
+        ]).astype(np.int64)
+        if self._state_host is None:
+            return torch.from_numpy(state)
+        self._state_host.numpy()[:] = state
+        return self._state_host.to(self.device, non_blocking=True)
+
     @torch.no_grad()
     def _admit_device(self, batch) -> None:
         """Executor-thread half of admission (device work and state)."""
@@ -490,9 +560,8 @@ class ContinuousBatcher:
                     heads = linear(enc_out, lin).unflatten(-1, (-1, dh)).transpose(1, 2)
                     self._cross_kv[i, j, slot_ids] = heads.to(_CACHE_DTYPE)
             prompt = self._prompt
-            for slot, _mel, max_new, future in batch:
-                self._slots[slot] = _Slot(future=future, max_new=max_new)
-                self._active[slot] = True
+            self._claim(batch)
+            for slot, _mel, max_new, _future in batch:
                 self._pos[slot] = 0
                 self._step_idx[slot] = 0
                 self._max_ts[slot] = self.special.timestamp_begin - 1
@@ -519,8 +588,6 @@ class ContinuousBatcher:
                     self._pos[slot] += 1
             for slot, *_ in batch:
                 self._tokens[slot] = prompt[-1]
-        self.stats["admissions"] += 1
-        self.stats["admitted"] += len(batch)
         if span is not None:
             tracing.end(span, len(batch))
 
@@ -568,23 +635,6 @@ class ContinuousBatcher:
         ) = packed[k : k + 6]
         self._active[:] = packed[k + 6].astype(bool)
         self._steps[:] = packed[k + 7]
-        eot = self.special.eot
-        for slot in list(self._slots):
-            state = self._slots[slot]
-            for j in range(k):
-                t = int(emitted[j, slot])
-                state.steps += 1
-                done = t == eot or state.steps >= state.max_new
-                if t != eot:
-                    state.tokens.append(t)
-                    self.stats["tokens"] += 1
-                if done:
-                    self.stats["completed"] += 1
-                    del self._slots[slot]
-                    state.future.get_loop().call_soon_threadsafe(
-                        _set_result_if_pending, state.future, state.tokens
-                    )
-                    break
-        self.stats["ticks"] += 1
+        self._deliver(emitted)
         if span is not None:
             tracing.end(span, self.stats["tokens"] - tokens)

@@ -1,10 +1,12 @@
-"""Shared batcher pool: one ContinuousBatcher per (model, language, task).
+"""Shared batcher pool: one continuous batcher per (model, language, task).
 
 Counterpart of ``open_speech_tpu/runtime/batcher_pool.py``. Streaming
 sessions submit mel windows here instead of running whole model calls on
 executor threads, so every live session's decode advances in one device
 block per tick. Opt-in via ``OS_BATCHER_ENABLED``; keyed per prompt
-configuration, because a batcher's slots share one prompt.
+configuration, because a batcher's slots share one prompt. The model's
+family picks the batcher: Whisper's ``ContinuousBatcher``, or an audio-LLM's
+(Voxtral) ``AudioLLMBatcher``.
 """
 
 from __future__ import annotations
@@ -16,13 +18,14 @@ import numpy as np
 import torch
 
 from open_speech_tpu_torch.config import settings
+from open_speech_tpu_torch.models.voxtral.model import VoxtralConfig
 from open_speech_tpu_torch.ops.mel import log_mel_spectrogram, pad_or_trim
 from open_speech_tpu_torch.runtime import tracing
-from open_speech_tpu_torch.runtime.batcher import ContinuousBatcher
+from open_speech_tpu_torch.runtime.batcher import ContinuousBatcher, SlotScheduler
 
 logger = logging.getLogger(__name__)
 
-_batchers: dict[tuple, ContinuousBatcher] = {}
+_batchers: dict[tuple, SlotScheduler] = {}
 _lock: asyncio.Lock | None = None
 _lock_loop: asyncio.AbstractEventLoop | None = None
 _retiring: set[asyncio.Task] = set()  # drain tasks, held until they end
@@ -94,9 +97,22 @@ def _is_current(batcher, backend, model_id: str) -> bool:
     return entry is not None and entry.get("model") is batcher.model
 
 
+def _audio_llm_batcher(entry: dict, language: str):
+    """An audio-LLM's batcher: the model, its transcription prompt and end
+    token from the entry's ``tok`` (``models/voxtral/tokens.py``)."""
+    from open_speech_tpu_torch.runtime.audio_llm_batcher import AudioLLMBatcher
+
+    tok = entry["tok"]
+    return AudioLLMBatcher(
+        entry["model"], tok.transcription_prompt(language), tok.eos,
+        slots=settings.os_batch_max_sessions,
+        max_new_tokens=min(AudioLLMBatcher.token_budget(30.0), settings.os_batch_max_tokens),
+    )
+
+
 async def get_batcher(
     backend, model_id: str, language: str | None, task: str = "transcribe"
-) -> ContinuousBatcher:
+) -> SlotScheduler:
     key = (model_id, language or "en", task)
     live = _batchers.get(key)
     if live is not None and _on_live_loop(live) and _is_current(live, backend, model_id):
@@ -120,20 +136,25 @@ async def get_batcher(
         entry = await asyncio.get_running_loop().run_in_executor(
             None, backend._ensure_model, model_id
         )
-        kwargs = dict(
-            slots=settings.os_batch_max_sessions,
-            max_new_tokens=min(224, settings.os_batch_max_tokens),
-            language=language or "en",
-            task=task,
-            suppress_tokens=tuple(entry["tok"].non_speech_tokens),
-        )
-        make = getattr(backend, "make_batcher", None)  # a model group's leader
-        if make is not None:
-            batcher = await asyncio.get_running_loop().run_in_executor(
-                None, lambda: make(model_id, **kwargs))
+        if isinstance(entry["cfg"], VoxtralConfig):
+            if task != "transcribe":
+                raise ValueError(f"{model_id} serves transcription only through the batcher")
+            batcher = _audio_llm_batcher(entry, language or "en")
         else:
-            batcher = ContinuousBatcher(entry["model"], entry["cfg"], entry["tok"].special,
-                                        mesh=_settings_mesh(), **kwargs)
+            kwargs = dict(
+                slots=settings.os_batch_max_sessions,
+                max_new_tokens=min(224, settings.os_batch_max_tokens),
+                language=language or "en",
+                task=task,
+                suppress_tokens=tuple(entry["tok"].non_speech_tokens),
+            )
+            make = getattr(backend, "make_batcher", None)  # a model group's leader
+            if make is not None:
+                batcher = await asyncio.get_running_loop().run_in_executor(
+                    None, lambda: make(model_id, **kwargs))
+            else:
+                batcher = ContinuousBatcher(entry["model"], entry["cfg"], entry["tok"].special,
+                                            mesh=_settings_mesh(), **kwargs)
         batcher.start()
         _batchers[key] = batcher
         logger.info(
@@ -154,9 +175,10 @@ async def transcribe_pcm_batched(
     wid = tracing.window_id() if tracing.on() else None
     loop = asyncio.get_running_loop()
     entry = await loop.run_in_executor(None, backend._ensure_model, model_id)
-    cfg, tok = entry["cfg"], entry["tok"]
+    tok = entry["tok"]
     batcher = await get_batcher(backend, model_id, language, task)
-    window_samples = cfg.n_audio_ctx * 2 * 160
+    n_mels, frames = batcher.mel_shape
+    window_samples = frames * 160
     duration_s = len(pcm) / 16000
 
     def _mel() -> torch.Tensor:
@@ -164,13 +186,13 @@ async def transcribe_pcm_batched(
         # device for the admission's encode
         span = tracing.begin("stt.mel", (wid,)) if wid is not None else None
         audio = torch.from_numpy(np.asarray(pcm, np.float32)).to(batcher.device)
-        mel = log_mel_spectrogram(pad_or_trim(audio, window_samples), n_mels=cfg.n_mels)
+        mel = log_mel_spectrogram(pad_or_trim(audio, window_samples), n_mels=n_mels)
         if span is not None:
             tracing.end(span)
         return mel
 
     mel = await loop.run_in_executor(None, _mel)
-    budget = -(-min(224, int(duration_s * 12) + 12) // 16) * 16
+    budget = batcher.token_budget(duration_s)
     token = tracing.window.set(wid) if wid is not None else None
     try:
         tokens = await batcher.transcribe_window(mel, max_new_tokens=budget)

@@ -20,7 +20,7 @@ the rest are counted as dropped. ``stop()`` hands them over. A span opened
 before a ``start()`` or ``stop()`` is not kept when it ends.
 
 Spans of the continuous-batching path (``runtime/batcher_pool.py``,
-``runtime/batcher.py``):
+``runtime/batcher.py``, ``runtime/audio_llm_batcher.py``):
 
 - ``stt.mel``: a ``transcribe_pcm_batched`` window's mel front end on an
   executor thread, under the window's id, which its batcher spans carry
@@ -29,7 +29,9 @@ Spans of the continuous-batching path (``runtime/batcher_pool.py``,
   ``_admit`` taking it off;
 - ``batcher.admit`` (size: windows admitted), children ``admit.encode``
   (stack, encoder, cross K and V, the slot scatter) and ``admit.feed`` (the
-  prompt feed);
+  prompt feed) in Whisper's batcher; in an audio-LLM's, ``admit.encode``
+  (stack, encoder, adapter) and ``admit.prefill`` (size: prompt positions
+  prefilled: the causal pass that writes the slots' K and V);
 - ``batcher.tick`` (size: tokens appended), children ``tick.enqueue`` (the
   state copy and the decode block's launches), ``tick.sync`` (the one host
   sync) and ``tick.drain`` (the host loop over the result).
@@ -83,6 +85,12 @@ class Span:
         if self._child is not None:
             end(self._child)
         self._child = Span(child, self.ids, self.id)
+
+    def end_child(self, size: int | None = None) -> None:
+        """Close the open child, with its size."""
+        if self._child is not None:
+            end(self._child, size)
+            self._child = None
 
 
 def begin(name: str, ids: tuple = (), child: str | None = None) -> Span:

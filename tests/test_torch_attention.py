@@ -161,14 +161,15 @@ def test_flash_varlen_plain_matches_jax_kernel_and_reference(b, h, t_q, t_k, d, 
 def test_flash_launch_counters_name_both_kernels():
     """K1, K2, K2's combine pass and the three passes of K1's backward each
     have a counter, and again under "_f32" for their float32 launches,
-    beside the float32 routes' operand split and decode attention's three
-    (its kernel, its split launches with their combine, the plain int8
-    route);
+    beside the float32 routes' operand split, K1's launches at head dim 128
+    (grouped KV heads) and decode attention's three (its kernel, its split
+    launches with their combine, the plain int8 route);
     the plain versions on the CPU launch nothing."""
     routes = {"flash_attention", "flash_attention_varlen", "flash_combine",
               "flash_attention_bwd_prep", "flash_attention_bwd_dkdv", "flash_attention_bwd_dq"}
     decode = {"decode_attention", "decode_attention_split", "decode_attention_int8"}
-    assert set(TA.launches) == routes | {r + "_f32" for r in routes} | {"flash_split_f32"} | decode
+    assert set(TA.launches) == (routes | {r + "_f32" for r in routes} | {"flash_split_f32"}
+                                | {"flash_attention_gqa"} | decode)
     q = torch.zeros(1, 1, 4, 32)
     before = dict(TA.launches)
     TA.flash_attention(q, q, q, kv_length=torch.tensor([2]))

@@ -527,6 +527,57 @@ def test_decode_kernel_is_deterministic_and_serves_the_batcher_views(card):
         torch.bfloat16, torch.bfloat16, ref)
 
 
+# K1 at D = 128 with grouped KV heads (B, H, H_kv, Tq, Tk, causal): Voxtral's
+# prefill of 8 windows, one row, a ragged causal diagonal, no grouping, a
+# rectangle past two 128-key tiles
+GQA_CASES = [
+    (8, 32, 8, 383, 383, True),
+    (1, 32, 8, 1, 1, True),
+    (2, 8, 2, 65, 65, True),
+    (1, 4, 4, 129, 129, True),
+    (2, 8, 1, 37, 300, False),
+]
+
+
+@pytest.mark.parametrize("b,h,h_kv,t_q,t_k,causal", GQA_CASES)
+def test_gqa_kernel_matches_plain_version(card, b, h, h_kv, t_q, t_k, causal):
+    gen = torch.Generator(device=card).manual_seed(t_q)
+    q = torch.randn(b, h, t_q, 128, generator=gen, device=card).to(torch.bfloat16)
+    k, v = (torch.randn(b, h_kv, t_k, 128, generator=gen, device=card).to(torch.bfloat16)
+            for _ in range(2))
+    before = dict(A.launches)
+    out = A.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert A.launches[A.GQA_ROUTE] == before[A.GQA_ROUTE] + 1
+    assert A.launches["flash_attention"] == before["flash_attention"] + 1
+    ref = A.flash_attention_reference(q.float(), k.float(), v.float(), causal=causal)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert (out.float() - ref).abs().max().item() <= _limit(torch.bfloat16, ref)
+
+
+def test_gqa_kernel_refuses_what_it_does_not_take(card):
+    q = torch.randn(1, 6, 8, 128, device=card).to(torch.bfloat16)
+    k = torch.randn(1, 4, 8, 128, device=card).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="divide"):
+        A.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="bfloat16"):
+        A.flash_attention(q.float(), k[:, :3].float(), k[:, :3].float())
+
+
+def test_decode_kernel_takes_grouped_heads_folded_into_rows(card):
+    """The audio-LLM tick's attention: each KV head's 4 query heads as its
+    query rows, q [64, 8, 4, 128] against the [64, 8, 576, 128] layer views
+    of the pool, with no copy of the caches."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    q = torch.randn(64, 32, 128, generator=gen, device=card).to(torch.bfloat16).view(64, 8, 4, 128)
+    pool = torch.randn(2, 2, 64, 8, 576, 128, generator=gen, device=card).to(torch.bfloat16)
+    lens = torch.randint(383, 529, (64,), generator=gen, device=card)
+    out = A.decode_attention(q, pool[1, 0], pool[1, 1], lens)
+    ref = A.decode_attention_reference(q, pool[1, 0], pool[1, 1], lens)
+    assert (out.float() - ref.float()).abs().max().item() <= _decode_limit(
+        torch.bfloat16, torch.bfloat16, ref)
+
+
 def test_decode_int8_caches_with_scales_take_the_plain_route(card):
     gen = torch.Generator(device=card).manual_seed(4)
     q = torch.randn(2, 3, 1, 64, generator=gen, device=card)
